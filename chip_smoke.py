@@ -11,13 +11,25 @@ It imports nothing of JAX or the JAX package.  In order it
 2. builds the flagship calibration problem with the port itself (17
    parameters, 9 emulators x 4 PCs = 36 RBF GPs on 1000 design points,
    544 observables; ``gp_maxiter=0`` hyperparameters, factors on the card);
-3. checks each kernel against its plain PyTorch version at the main
-   path's shapes (one emulator: b = 4, n = 1000, d = 17, m = 1024) and
-   times kernel, plain version, a library yardstick and the bound;
-4. drives the main path with every launch count set to 0: the f32
-   log-posterior on 1024 walkers, held within 0.5 log-units of the f64
-   numpy oracle at 64 points, then ``Chain.run_MCMC_HMC`` with 1024
-   walkers, and reads the counts back (each kernel must have run);
+3. checks each kernel against its plain PyTorch version at the shapes its
+   path gives it and times kernel, plain version, a library yardstick and
+   the bound: the fused predict forward and both backwards at one
+   emulator's shape (b = 4, n = 1000, d = 17, m = 1024; the full-precision
+   backward against the plain backward in float64), the MVN elimination
+   on the path's own covariances at (b, n) = (1024, 170), (1024, 12) and,
+   stitched, (512, 544), one non-PD matrix planted in each batch;
+4. drives four paths, each with every launch count set to 0 just before
+   it and read just after it (a path that never launched one of its
+   kernels fails the run):
+   a. ``likelihood_mode="auto"``: the f32 log-posterior on 1024 walkers,
+      held within 0.5 log-units of the f64 numpy oracle at 64 points, then
+      ``Chain.run_MCMC_HMC`` with 1024 walkers;
+   b. ``"generic"``: the log-posterior against the same gate and against
+      the ``"auto"`` value, then ``Chain.run_mcmc`` (stretch move, 1024
+      walkers, 32 burn-in + 64 production steps);
+   c. ``"stitched"``: the log-posterior against the gate and the generic
+      value, then a short ``run_mcmc`` (8 + 8 steps);
+   d. HMC with ``grad_precision="high"`` (256 walkers);
 5. prints the kernel table as one JSON line, the card's name and power
    limit, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -33,6 +45,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -42,8 +55,14 @@ NDIM = 17
 NEV = 1000
 NPC = 4
 NWALKERS = 1024
-HMC_BURN = 32
-HMC_STEPS = 64
+HMC_BURN = 16          # warmup steps per phase
+HMC_STEPS = 32
+ENS_BURN = 32          # generic-mode ensemble run
+ENS_STEPS = 64
+STITCHED_STEPS = 8     # stitched-mode ensemble run: 8 burn-in + 8 steps
+HIGH_WALKERS = 256     # HMC with grad_precision="high"
+HIGH_BURN = 8
+HIGH_STEPS = 16
 N_ORACLE = 64
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
@@ -58,6 +77,22 @@ PEAK_BYTES = 3.35e12
 # order while any tiling or masking fault shows up as O(1e-2) or worse.
 TOL_VALUES = 5e-4
 TOL_GRAD = 1e-3
+# the full-precision backward against the plain backward in FLOAT64 on the
+# same inputs, normwise: every product is FP32 FMA, so what is left is the
+# rounding of two chained FP32 sums over n = 1000.  Worst case n * 2^-24 =
+# 6e-5 per sum; the expected sqrt(n) growth is ~4e-6 (the float32 plain
+# path's own distance from float64 at this shape).  5e-5 is ten times the
+# expected error and ten times below what one TF32 product leaves (2^-11 =
+# 5e-4), so a backward that dropped below FP32 cannot pass.
+TOL_GRAD_HIGH = 5e-5
+# the MVN elimination against its plain version, both float32 and the same
+# recurrence in another operation order (the kernel scales the row, the
+# plain version the column, and the panel route sums 32 pivots at a time):
+# max |kernel - plain| / max |plain| over the batch.  2e-4 is the rtol the
+# JAX package holds its own kernel to (tests/test_pallas.py); the path's
+# covariances are worse conditioned than that test's, and the lp sums
+# O(n) terms, which is where the error comes from.
+TOL_MVN = 2e-4
 
 
 def log(*a):
@@ -103,6 +138,18 @@ def bwd_work(b, n, m, d):
     nbytes = 4 * (b * n * n + b * n * d + m * d + b * d + b * n + b
                   + b * n * m + 2 * b * m + b * m * d)
     return flops, nbytes
+
+
+def mvn_work(b, n, n_bad=0):
+    """(flops, bytes) of the MVN elimination on these inputs: per healthy
+    matrix and pivot k, one FMA for each entry of the trailing lower
+    triangle with the y row ((n - k)(n - k + 1) / 2 of them) plus the
+    scaling of column k, and a log: about n^3 / 3 flops.  A matrix that is
+    not positive definite at its first pivot costs nothing.  cov is
+    symmetric, so its lower triangle read once is all the function needs,
+    with y; lp is written once (float32)."""
+    per = sum((n - k) * (n - k + 1) + (n - k) + 2 for k in range(n))
+    return (b - n_bad) * per, 4 * (b * (n * (n + 1) // 2 + n) + b)
 
 
 def bound_ms(flops, nbytes):
@@ -154,6 +201,20 @@ def kernel_phase(chain, device):
     if not r_g <= TOL_GRAD:
         raise SystemExit("fused_predict_bwd disagrees with autograd of the plain version")
 
+    # kernel 3 against the plain backward in float64 on the same inputs
+    g_high = fp.fused_bwd(fs, xq, v_k, ct_mean, ct_qf, "high").sum(0)
+    torch.cuda.synchronize()
+    g64 = fp.fused_bwd_plain(fp.FusedState(*(t.double() for t in fs)), xq.double(),
+                             v_k.double(), ct_mean.double(), ct_qf.double()).sum(0)
+    e_h, r_h = normwise(g_high, g64)
+    _, r_fast64 = normwise(g_kern, g64)
+    log(f"kernel fused_predict_bwd_high vs the plain backward in float64: max abs "
+        f"{e_h:.3e} (normwise {r_h:.3e}; the fast backward sits at {r_fast64:.3e}); "
+        f"tolerance {TOL_GRAD_HIGH:g} normwise -- every product FP32 FMA, two "
+        f"chained FP32 sums over n = {n}")
+    if not r_h <= TOL_GRAD_HIGH:
+        raise SystemExit("fused_predict_bwd_high disagrees with the float64 plain backward")
+
     # timings, rotating over the emulators' states
     vs = [fp.fused_fwd(s, xq, save_v=True)[2] for s in states]
     kst = [fp._kstar_plain(s, xq)[2] for s in states]
@@ -170,6 +231,7 @@ def kernel_phase(chain, device):
     t_fwd_plain = cuda_ms(rot(lambda i, s: fp.fused_fwd_plain(s, xq, save_v=True))) / per
     t_fwd_lib = cuda_ms(rot(lambda i, s: torch.bmm(s.G, kst[i]))) / per
     t_bwd = cuda_ms(rot(lambda i, s: fp.fused_bwd(s, xq, vs[i], ct_mean, ct_qf))) / per
+    t_high = cuda_ms(rot(lambda i, s: fp.fused_bwd(s, xq, vs[i], ct_mean, ct_qf, "high"))) / per
     t_bwd_plain = cuda_ms(rot(lambda i, s: fp.fused_bwd_plain(s, xq, vs[i], ct_mean, ct_qf))) / per
     t_bwd_lib = cuda_ms(rot(lambda i, s: torch.bmm(s.G.transpose(1, 2), cts[i]))) / per
     fl_f, by_f = fwd_work(b, n, m, d, save_v=True)
@@ -179,6 +241,7 @@ def kernel_phase(chain, device):
     for name, t, tp, tl, bd, why, fl in (
         ("fused_predict_fwd", t_fwd, t_fwd_plain, t_fwd_lib, bd_f, why_f, fl_f),
         ("fused_predict_bwd", t_bwd, t_bwd_plain, t_bwd_lib, bd_b, why_b, fl_b),
+        ("fused_predict_bwd_high", t_high, t_bwd_plain, t_bwd_lib, bd_b, why_b, fl_b),
     ):
         log(f"timing {name}: kernel {t:.4f} ms ({fl / t / 1e9:.1f} TFLOP/s), "
             f"plain {tp:.4f} ms, library yardstick (torch.bmm of the dominant "
@@ -190,47 +253,219 @@ def kernel_phase(chain, device):
         "fused_predict_bwd": dict(max_abs_err=e_g, ms=t_bwd,
                                   plain_ms=t_bwd_plain, bound_ms=bd_b,
                                   bound_by=why_b, library_ms=t_bwd_lib),
+        "fused_predict_bwd_high": dict(max_abs_err=e_h, ms=t_high,
+                                       plain_ms=t_bwd_plain, bound_ms=bd_b,
+                                       bound_by=why_b, library_ms=t_bwd_lib),
     }
 
 
-def main_path(chain, device):
-    """log_posterior on 1024 walkers + precision gate, then HMC."""
+def mvn_phase(chain, device):
+    """The MVN elimination against its plain version on the covariances the
+    dense paths hand it: the 170- and the 12-observable block at 1024
+    walkers (shared-memory route) and the stitched 544 x 544 matrix at a
+    half-ensemble of 512 (panel route), one matrix of each batch replaced
+    by a non-PD one.  Library yardstick: the port's ``mvn_loglike_batch``
+    (``cholesky_ex`` + ``solve_triangular`` + reductions)."""
     import torch
-    from gpbayestools_hic_tpu_torch.utils.validation import (
-        PRECISION_GATE, f64_log_posterior,
-    )
+    from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
+    from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
 
-    x = chain.random_pos(NWALKERS, seed=2)
+    x = torch.tensor(chain.random_pos(NWALKERS, seed=3), dtype=torch.float32, device=device)
+    exp = torch.tensor(np.asarray(chain.expdata).flatten(), dtype=torch.float32, device=device)
+    exp_var = torch.tensor(np.diagonal(chain.expdata_cov).copy(), dtype=torch.float32,
+                           device=device)
+    offsets = np.cumsum([0] + list(BLOCKS))
+
+    def block_inputs(idx, m):
+        i0, i1 = offsets[idx], offsets[idx + 1]
+        with torch.no_grad():
+            mu, cov = chain.emuList[idx]._predict_full(x[:m], torch.zeros(m, device=device))
+        return (mu - exp[i0:i1]).contiguous(), (cov + torch.diag(exp_var[i0:i1])).contiguous()
+
+    def stitched_inputs(m):
+        ys, cov = [], torch.zeros((m, chain.nobs, chain.nobs), dtype=torch.float32,
+                                  device=device)
+        for idx in range(len(BLOCKS)):
+            i0, i1 = offsets[idx], offsets[idx + 1]
+            y_i, c_i = block_inputs(idx, m)
+            ys.append(y_i)
+            cov[:, i0:i1, i0:i1] = c_i
+        return torch.cat(ys, dim=1).contiguous(), cov
+
+    cases = (
+        ("fused_mvn_loglike", block_inputs(BLOCKS.index(170), NWALKERS), 9),
+        ("fused_mvn_loglike", block_inputs(BLOCKS.index(12), NWALKERS), 9),
+        ("fused_mvn_loglike_panel", stitched_inputs(NWALKERS // 2), 2),
+    )
+    stats, failed = {}, []
+    for name, (y, cov), reps in cases:
+        b, n = y.shape
+        bad = b // 2
+        cov[bad] = -torch.eye(n, device=device)
+        got = fm.fused_mvn_loglike(y, cov)
+        torch.cuda.synchronize()
+        plain = fm.fused_mvn_loglike_plain(y, cov)
+        lib = mvn_loglike_batch(y, cov)
+        plain64 = fm.fused_mvn_loglike_plain(y.double(), cov.double())
+        keep = torch.arange(b, device=device) != bad
+        if not (got[bad] == -torch.inf and plain[bad] == -torch.inf
+                and torch.isfinite(got[keep]).all()):
+            raise SystemExit(f"{name} (b={b}, n={n}): the planted non-PD matrix must "
+                             "give -inf and every other matrix a finite value")
+        e_p, r_p = normwise(got[keep], plain[keep])
+        e_64, _ = normwise(got[keep], plain64[keep])
+        e_l64, _ = normwise(lib[keep], plain64[keep])
+        t_k = cuda_ms(lambda: fm.fused_mvn_loglike(y, cov), reps=reps)
+        t_p = cuda_ms(lambda: fm.fused_mvn_loglike_plain(y, cov), reps=min(reps, 3))
+        t_l = cuda_ms(lambda: mvn_loglike_batch(y, cov), reps=reps)
+        flops, nbytes = mvn_work(b, n, n_bad=1)
+        bd, why = bound_ms(flops, nbytes)
+        log(f"kernel {name} vs plain (b={b}, n={n}, non-PD planted at {bad}): max abs "
+            f"{e_p:.3e} (normwise {r_p:.3e}; tolerance {TOL_MVN:g} normwise -- float32 "
+            f"both sides, other operation order); vs the float64 elimination max abs "
+            f"{e_64:.3e} (library call: {e_l64:.3e}); max |lp| "
+            f"{float(plain[keep].abs().max()):.1f}")
+        if name == "fused_mvn_loglike":
+            log(f"occupancy {name} (n={n}): {fm.smem_blocks_per_sm(n)} blocks per SM")
+        log(f"timing {name} (b={b}, n={n}): kernel {t_k:.4f} ms "
+            f"({flops / t_k / 1e9:.2f} TFLOP/s, {nbytes / t_k / 1e6:.1f} GB/s), plain "
+            f"{t_p:.4f} ms, library yardstick (mvn_loglike_batch: cholesky_ex + "
+            f"solve_triangular) {t_l:.4f} ms, bound {bd:.4f} ms ({why})")
+        if not r_p <= TOL_MVN:
+            failed.append(f"{name} (b={b}, n={n})")
+        # the kernels line reports each route at its largest flagship shape
+        if name not in stats:
+            stats[name] = dict(max_abs_err=e_p, ms=t_k, plain_ms=t_p, bound_ms=bd,
+                               bound_by=why, library_ms=t_l)
+    if failed:
+        raise SystemExit(f"MVN kernel disagrees with its plain version: {failed}")
+    return stats
+
+
+def check_posterior(chain, x, lp64, label, others=()):
+    """log_posterior on all walkers in the chain's current mode: finite,
+    within the gate of the float64 oracle on the first points, and its
+    distance to the values of the modes in ``others`` (name, values)."""
+    import torch
+    from gpbayestools_hic_tpu_torch.utils.validation import PRECISION_GATE
+
     t0 = time.perf_counter()
     lp = chain.log_posterior(x)
     torch.cuda.synchronize()
-    log(f"log_posterior on {NWALKERS} walkers: {time.perf_counter() - t0:.3f} s "
-        f"(first call), finite fraction {np.isfinite(lp).mean():.4f}")
-    if lp.shape != (NWALKERS,) or not np.isfinite(lp).all():
-        raise SystemExit("log_posterior returned non-finite values")
-    lp64 = f64_log_posterior(chain, x[:N_ORACLE])
-    gap = float(np.abs(lp[:N_ORACLE] - lp64).max())
-    log(f"precision gate: max |lp_f32 - lp_f64| over {N_ORACLE} points = "
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain.log_posterior(x)
+    torch.cuda.synchronize()
+    log(f"{label}: log_posterior on {len(x)} walkers {first:.3f} s (first call), "
+        f"{time.perf_counter() - t0:.3f} s (second), finite fraction "
+        f"{np.isfinite(lp).mean():.4f}")
+    if lp.shape != (len(x),) or not np.isfinite(lp).all():
+        raise SystemExit(f"{label}: log_posterior returned non-finite values")
+    gap = float(np.abs(lp[:len(lp64)] - lp64).max())
+    log(f"{label}: precision gate: max |lp_f32 - lp_f64| over {len(lp64)} points = "
         f"{gap:.4f} log-units (gate {PRECISION_GATE})")
+    for name, other in others:
+        log(f"{label}: max |lp - lp_{name}| over {len(x)} walkers = "
+            f"{float(np.abs(lp - other).max()):.4f} log-units")
     if not gap < PRECISION_GATE:
-        raise SystemExit("f32 posterior outside the precision gate")
+        raise SystemExit(f"{label}: f32 posterior outside the precision gate")
+    return lp
+
+
+def hmc_run(chain, label, nwalkers, burn, steps):
+    import torch
 
     t0 = time.perf_counter()
-    res = chain.run_MCMC_HMC(nwalkers=NWALKERS, nburnsteps=HMC_BURN, nsteps=HMC_STEPS)
+    res = chain.run_MCMC_HMC(nwalkers=nwalkers, nburnsteps=burn, nsteps=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     finite = float(np.isfinite(res.log_prob).mean())
-    log(f"HMC: {NWALKERS} walkers, warmup {HMC_BURN}/phase, {HMC_STEPS} "
+    log(f"{label}: HMC, {nwalkers} walkers, warmup {burn}/phase, {steps} "
         f"production steps: wall {wall:.2f} s, scheme {res.scheme} (persist "
         f"{res.persist}), step size {res.step_size:.4f}, n_leapfrog "
         f"{res.n_leapfrog}, mean acceptance {float(np.mean(res.acceptance)):.3f}, "
         f"finite log-prob fraction {finite:.4f}")
-    if res.chain.shape != (NWALKERS, HMC_STEPS, NDIM) or finite != 1.0:
-        raise SystemExit("HMC produced a malformed chain or non-finite log-probs")
+    if res.chain.shape != (nwalkers, steps, NDIM) or finite != 1.0:
+        raise SystemExit(f"{label}: HMC produced a malformed chain or non-finite log-probs")
     rep = chain.convergence_report()
-    log(f"HMC convergence: max rhat {float(np.max(rep['rhat'])):.4f}, "
+    log(f"{label}: HMC convergence: max rhat {float(np.max(rep['rhat'])):.4f}, "
         f"max tau {float(np.nanmax(rep['tau'])):.2f}, ESS {rep['ess']:.0f}")
-    return wall
+
+
+def ensemble_run(chain, label, burn, steps):
+    import torch
+
+    t0 = time.perf_counter()
+    res = chain.run_mcmc(nwalkers=NWALKERS, nburnsteps=burn, nsteps=steps,
+                         move="stretch", nthin=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = float(np.isfinite(res.log_prob).mean())
+    log(f"{label}: run_mcmc (stretch), {NWALKERS} walkers, {burn} burn-in + {steps} "
+        f"steps: wall {wall:.2f} s ({1e3 * wall / (burn + steps):.1f} ms per step), "
+        f"mean acceptance {float(np.mean(res.acceptance)):.3f}, finite log-prob "
+        f"fraction {finite:.4f}, mean log-prob {float(res.log_prob[:, -1].mean()):.1f}")
+    stored = chain.chain
+    if (res.chain.shape != (NWALKERS, steps, NDIM) or stored.shape != res.chain.shape
+            or finite != 1.0 or not np.isfinite(res.chain).all()):
+        raise SystemExit(f"{label}: run_mcmc produced a malformed chain or non-finite log-probs")
+
+
+def drive_paths(chain, tmp):
+    """The four paths, each between a reset and a reading of the launch
+    counts.  Returns ``{path: {kernel: launches}}``."""
+    from gpbayestools_hic_tpu_torch.ops import registry
+    from gpbayestools_hic_tpu_torch.utils.validation import f64_log_posterior
+
+    x = chain.random_pos(NWALKERS, seed=2)
+    lp64 = f64_log_posterior(chain, x[:N_ORACLE])
+    values = {}
+
+    def auto_hmc():
+        values["auto"] = check_posterior(chain, x, lp64, "auto")
+        hmc_run(chain, "auto", NWALKERS, HMC_BURN, HMC_STEPS)
+
+    def generic():
+        chain.likelihood_mode = "generic"
+        values["generic"] = check_posterior(chain, x, lp64, "generic",
+                                            [("auto", values["auto"])])
+        ensemble_run(chain, "generic", ENS_BURN, ENS_STEPS)
+
+    def stitched():
+        chain.likelihood_mode = "stitched"
+        check_posterior(chain, x, lp64, "stitched", [("generic", values["generic"]),
+                                                     ("auto", values["auto"])])
+        ensemble_run(chain, "stitched", STITCHED_STEPS, STITCHED_STEPS)
+
+    def hmc_high():
+        chain.likelihood_mode = "auto"
+        for e in chain.emuList:
+            e.gp_grad_precision = "high"
+            e.gp_config = e.gp_config._replace(grad_precision="high")
+        hmc_run(chain, "grad_precision=high", HIGH_WALKERS, HIGH_BURN, HIGH_STEPS)
+
+    paths = (
+        ("auto+hmc", auto_hmc, ("fused_predict_fwd", "fused_predict_bwd")),
+        ("generic+ensemble", generic, ("fused_mvn_loglike",)),
+        ("stitched+ensemble", stitched, ("fused_mvn_loglike_panel",)),
+        ("hmc grad_precision=high", hmc_high, ("fused_predict_fwd", "fused_predict_bwd_high")),
+    )
+    counts = {}
+    for name, run, kernels in paths:
+        # each path writes its own chain file: run_mcmc resumes from one it finds
+        chain.mcmc_path = Path(tmp) / name.split()[0].replace("+", "_") / "chain.pkl"
+        chain.mcmc_path.parent.mkdir(parents=True, exist_ok=True)
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        run()
+        counts[name] = dict(registry.LAUNCH_COUNTS)
+        log(f"path {name}: {time.perf_counter() - t0:.1f} s, kernel launches {counts[name]}")
+        missing = [k for k in kernels if counts[name][k] == 0]
+        if missing:
+            raise SystemExit(f"path {name} never launched {missing}")
+    if counts["hmc grad_precision=high"]["fused_predict_bwd"] != 0:
+        raise SystemExit("grad_precision='high' still ran the fast backward")
+    return counts
 
 
 def main() -> int:
@@ -241,10 +476,10 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from gpbayestools_hic_tpu_torch.ops import _build
-    from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
+    from gpbayestools_hic_tpu_torch.ops import _build, registry
     from gpbayestools_hic_tpu_torch.utils.synthetic import build_synthetic_chain
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -270,17 +505,17 @@ def main() -> int:
             f"(total {time.perf_counter() - t0:.2f} s)")
 
         stats = kernel_phase(chain, device)
-
-        fp.reset_launch_counts()
-        main_path(chain, device)
-        launches = dict(fp.LAUNCH_COUNTS)
-    log(f"kernel launches on the main path: {launches}")
+        stats.update(mvn_phase(chain, device))
+        counts = drive_paths(chain, tmp)
+    launches = {k: sum(c[k] for c in counts.values()) for k in registry.KERNELS}
+    log(f"kernel launches over the four paths: {launches}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     missing = [k for k, c in launches.items() if c == 0]
     if missing:
-        raise SystemExit(f"main path never launched {missing}")
+        raise SystemExit(f"no path launched {missing}")
 
     kernels = []
-    for name, (source, replaces) in fp.KERNELS.items():
+    for name, (source, replaces) in registry.KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name], **stats[name],

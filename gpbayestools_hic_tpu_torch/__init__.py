@@ -6,9 +6,10 @@ JAX package's Pallas TPU kernels rewritten by hand in CUDA C++ for Hopper
 (``csrc/``).  It never imports JAX or the JAX package.
 
 Layering (mirrors the JAX package):
-  ops/       -- kernels, linalg, scalers/PCA, the fused GP-predict kernels
+  ops/       -- kernels, linalg, scalers/PCA, the fused GP-predict and MVN
+                kernels and their registry
   models/    -- batched GP, Emulator
-  samplers/  -- Chain (calibration posterior), HMC
+  samplers/  -- Chain (calibration posterior), ensemble sampler, HMC
   utils/     -- IO contracts, convergence metrics, synthetic problems,
                 the float64 posterior oracle
 

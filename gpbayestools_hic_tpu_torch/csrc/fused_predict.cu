@@ -2,7 +2,10 @@
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   gpbayestools_hic_tpu/ops/pallas_predict.py:_fwd_kernel       (forward)
-//   gpbayestools_hic_tpu/ops/pallas_predict.py:_bwd_kernel_fast  (backward)
+//   gpbayestools_hic_tpu/ops/pallas_predict.py:_bwd_kernel_fast  (backward,
+//       grad_precision="default")
+//   gpbayestools_hic_tpu/ops/pallas_predict.py:_bwd_kernel       (backward,
+//       grad_precision="high" / "highest")
 //
 // Per GP k (a batch of b GPs sharing n training inputs) and m queries:
 //   qs_j   = xq_j * inv_ls_k                           (scaled query)
@@ -33,6 +36,17 @@
 // Cross-block reductions (qf over row blocks, ct_xq over training-row
 // blocks) go through per-block partial sums and a second, deterministic
 // pass (no float atomics).
+//
+// The two backward entry points are two instantiations of one body, with
+// two contracts:
+// - fused_predict_bwd (bwd_kernel<false>): the two cotangent products,
+//   G^T ct_v and the query contraction, MAY drop below FP32 (the TPU kernel
+//   it replaces runs them in one bf16 pass; the accept step uses the exact
+//   value, so a cheap gradient is legal).  Today they are FP32 FMA.
+// - fused_predict_bwd_high (bwd_kernel<true>): EVERY product is FP32 FMA or
+//   better, for good.  A change that moves the fast backward to tensor
+//   cores at reduced precision must branch on kFullPrecision and leave
+//   this instantiation as it is.
 //
 // Each entry launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError().
@@ -160,6 +174,10 @@ fwd_kernel(const float* __restrict__ xs,      // (b, n, d)
   }
 }
 
+// kFullPrecision: see the contracts above.  Both instantiations run the
+// FP32 FMA body below; reduced-precision products belong under
+// `if constexpr (!kFullPrecision)` only.
+template <bool kFullPrecision>
 __global__ void __launch_bounds__(NT)
 bwd_kernel(const float* __restrict__ xs,      // (b, n, d)
            const float* __restrict__ xq,      // (m, d)
@@ -310,6 +328,23 @@ int launch_rowsum(const float* part, float* out, int b, int nparts,
   return (int)cudaGetLastError();
 }
 
+template <bool kFullPrecision>
+int launch_bwd(const float* xs, const float* xq, const float* inv_ls,
+               const float* G, const float* alpha, const float* amp,
+               const float* v, const float* ct_mean, const float* ct_qf,
+               float* ct_part, float* ct_q,
+               int b, int n, int m, int d, void* stream) {
+  if (d < 1 || d > DMAX || n < 1 || m < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nlb = (n + BI - 1) / BI;
+  const dim3 grid((m + BJ - 1) / BJ, nlb, b);
+  bwd_kernel<kFullPrecision><<<grid, NT, 0, s>>>(
+      xs, xq, inv_ls, G, alpha, amp, v, ct_mean, ct_qf, ct_part, n, m, d, nlb);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_rowsum(ct_part, ct_q, b, nlb, (long long)m * d, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -341,15 +376,17 @@ int fused_predict_bwd(const float* xs, const float* xq, const float* inv_ls,
                       const float* v, const float* ct_mean, const float* ct_qf,
                       float* ct_part, float* ct_q,
                       int b, int n, int m, int d, void* stream) {
-  if (d < 1 || d > DMAX || n < 1 || m < 1 || b < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nlb = (n + BI - 1) / BI;
-  const dim3 grid((m + BJ - 1) / BJ, nlb, b);
-  bwd_kernel<<<grid, NT, 0, s>>>(xs, xq, inv_ls, G, alpha, amp, v, ct_mean,
-                                 ct_qf, ct_part, n, m, d, nlb);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return launch_rowsum(ct_part, ct_q, b, nlb, (long long)m * d, s);
+  return launch_bwd<false>(xs, xq, inv_ls, G, alpha, amp, v, ct_mean, ct_qf,
+                           ct_part, ct_q, b, n, m, d, stream);
+}
+
+int fused_predict_bwd_high(const float* xs, const float* xq, const float* inv_ls,
+                           const float* G, const float* alpha, const float* amp,
+                           const float* v, const float* ct_mean, const float* ct_qf,
+                           float* ct_part, float* ct_q,
+                           int b, int n, int m, int d, void* stream) {
+  return launch_bwd<true>(xs, xq, inv_ls, G, alpha, amp, v, ct_mean, ct_qf,
+                          ct_part, ct_q, b, n, m, d, stream);
 }
 
 }  // extern "C"

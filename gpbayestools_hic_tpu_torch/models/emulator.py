@@ -25,7 +25,9 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, resolve_dtype
-from ..ops.fused_predict import build_fused_state, fused_eligible, fused_pc_predict
+from ..ops.fused_predict import (
+    backward_kernel, build_fused_state, fused_eligible, fused_pc_predict,
+)
 from ..ops.kernels import KernelConfig
 from ..ops.scalers import (
     PCAState,
@@ -54,7 +56,9 @@ class Emulator:
 
     Constructor signature mirrors the JAX package plus ``device`` (default
     CUDA; pass ``"cpu"`` for the plain host path) and ``dtype`` (default
-    float32).
+    float32).  As there, set ``gp_grad_precision`` (``"default"``,
+    ``"high"`` or ``"highest"``) on the instance before training to choose
+    the fused predict's backward kernel; a loaded save file carries its own.
     """
 
     def __init__(
@@ -91,6 +95,7 @@ class Emulator:
         self.nrestarts = nrestarts
         self.seed = seed
         self.gp_alpha = 0.1  # sklearn GPR alpha
+        self.gp_grad_precision = "default"
 
         td = load_training_pickle(
             training_set_path,
@@ -159,8 +164,15 @@ class Emulator:
                 "parameters must be removed from the parameter file, not "
                 "zero-width"
             )
-        self.gp_config = GPConfig(kernel=KernelConfig(kernel_type), alpha=self.gp_alpha)
+        self.gp_config = self._gp_config(
+            kernel_type, self.gp_alpha, self.gp_grad_precision)
         return design, self._tensor(np.asarray(z).T), ptp.astype(self._np_dtype)
+
+    @staticmethod
+    def _gp_config(kernel_kind: str, alpha: float, grad_precision: str) -> GPConfig:
+        backward_kernel(grad_precision)  # an unknown value raises
+        return GPConfig(kernel=KernelConfig(kernel_kind), alpha=alpha,
+                        grad_precision=grad_precision)
 
     def trainEmulator(self, eventMask, kernel_type: str = "RBF"):
         """Train on the masked subset of events."""
@@ -238,7 +250,8 @@ class Emulator:
         if fast_grad and self._fused is not None:
             # fused kernel (float32 RBF): k* build, mean and the variance
             # quadratic form in one pass; same max(kdiag - q, 0) epilogue
-            gp_mean, qform = fused_pc_predict(self._fused, x)      # (m, npc)
+            gp_mean, qform = fused_pc_predict(
+                self._fused, x, self.gp_config.grad_precision)     # (m, npc)
             gp_var = torch.clamp(self._fused.kdiag[None, :] - qform, min=0.0)
         else:
             gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config,
@@ -356,8 +369,9 @@ class Emulator:
             x=t(tree["gp_x"]), y=t(tree["gp_y"]), chol=t(chol),
             alpha_vec=t(tree["gp_alpha"]), linv=t(linv), lml=t(tree["gp_lml"]),
         )
-        self.gp_config = GPConfig(kernel=KernelConfig(meta["kernel_kind"]),
-                                  alpha=meta["alpha"])
+        self.gp_grad_precision = meta.get("grad_precision", "default")
+        self.gp_config = cls._gp_config(meta["kernel_kind"], meta["alpha"],
+                                        self.gp_grad_precision)
         self.scaler = StandardScalerState(*(np.asarray(a) for a in tree["scaler"]))
         pca = tree["pca"]
         self.pca = None if pca is None else PCAState(

@@ -31,13 +31,20 @@ from ..ops.linalg import cholesky_jittered, solve_lower_triangular
 class GPConfig(NamedTuple):
     """Static GP configuration.
 
-    The JAX package's precision knobs (``var_precision``,
-    ``grad_precision``) choose between bf16 pass counts on the TPU; the
-    port computes every product in full float32 or float64 and has none.
+    ``grad_precision`` chooses the backward kernel of the fused predict
+    (:mod:`..ops.fused_predict`): ``"default"`` the fast backward, whose
+    cotangent products may drop below FP32, ``"high"`` / ``"highest"`` the
+    backward that keeps every product in FP32.  It never touches posterior
+    values, only the gradient that shapes HMC proposals.  The plain
+    (non-fused) paths are full precision whatever it says.  The JAX
+    package's ``var_precision`` chooses between bf16 pass counts on the
+    TPU; the port computes value products in full float32 or float64 and
+    has no such knob.
     """
 
     kernel: KernelConfig = KernelConfig("RBF")
     alpha: float = 0.1
+    grad_precision: str = "default"
 
 
 class GPState(NamedTuple):

@@ -26,6 +26,7 @@ BUILD_DIR = _PKG_DIR / "_build"
 #: kernel library name -> source path relative to the package directory
 SOURCES = {
     "fused_predict": "csrc/fused_predict.cu",
+    "fused_mvn": "csrc/fused_mvn.cu",
 }
 
 NVCC_FLAGS = (

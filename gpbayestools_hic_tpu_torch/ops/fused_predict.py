@@ -15,7 +15,11 @@ Kernels (``csrc/fused_predict.cu``, built by :mod:`._build`):
   for the backward when a gradient is needed.
 - ``fused_predict_bwd`` replaces ``pallas_predict.py:_bwd_kernel_fast``:
   ct_k* = G^T (2 v ct_qf) + alpha ct_mean, ct_z = k* ct_k* where z < 0, and
-  the query cotangent per GP, all in FP32.
+  the query cotangent per GP.  Its two cotangent products may drop below
+  FP32 (today they are FP32 FMA); ``grad_precision="default"`` selects it.
+- ``fused_predict_bwd_high`` replaces ``pallas_predict.py:_bwd_kernel``: the
+  same cotangent with every product in FP32 FMA or better, for good;
+  ``grad_precision="high"`` / ``"highest"`` select it.
 
 What bounds them on the H100: both are length-n contractions over the
 (n, n) factor -- 2 n^2 m flops per GP against 4 n^2 bytes of G -- so at the
@@ -33,7 +37,7 @@ padding to 128, no 1e30 padding rows): the fused state is plain
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version.  There is no fallback from one to the other.
-Each kernel wrapper counts its launches in :data:`LAUNCH_COUNTS`.
+Each kernel wrapper counts its launches in :data:`.registry.LAUNCH_COUNTS`.
 """
 
 from __future__ import annotations
@@ -44,27 +48,31 @@ from typing import NamedTuple
 import torch
 
 from .kernels import scaled_sqdist
+from .registry import count_launch, raise_on, register
 
-#: launches per kernel wrapper (incremented where the kernel is launched)
-LAUNCH_COUNTS = {"fused_predict_fwd": 0, "fused_predict_bwd": 0}
+_SOURCE = "gpbayestools_hic_tpu_torch/csrc/fused_predict.cu"
+# the TPU kernels replaced: _fwd_kernel, _bwd_kernel_fast, _bwd_kernel
+register("fused_predict_fwd", _SOURCE, "gpbayestools_hic_tpu/ops/pallas_predict.py:255")
+register("fused_predict_bwd", _SOURCE, "gpbayestools_hic_tpu/ops/pallas_predict.py:307")
+register("fused_predict_bwd_high", _SOURCE, "gpbayestools_hic_tpu/ops/pallas_predict.py:281")
 
-#: kernel -> (kernel source, file:line of the TPU kernel it replaces:
-#: _fwd_kernel and _bwd_kernel_fast)
-KERNELS = {
-    "fused_predict_fwd": (
-        "gpbayestools_hic_tpu_torch/csrc/fused_predict.cu",
-        "gpbayestools_hic_tpu/ops/pallas_predict.py:255",
-    ),
-    "fused_predict_bwd": (
-        "gpbayestools_hic_tpu_torch/csrc/fused_predict.cu",
-        "gpbayestools_hic_tpu/ops/pallas_predict.py:307",
-    ),
+#: ``GPConfig.grad_precision`` -> backward kernel
+BACKWARD_KERNELS = {
+    "default": "fused_predict_bwd",
+    "high": "fused_predict_bwd_high",
+    "highest": "fused_predict_bwd_high",
 }
 
 
-def reset_launch_counts() -> None:
-    for k in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[k] = 0
+def backward_kernel(grad_precision: str) -> str:
+    """Name of the backward kernel that ``grad_precision`` selects."""
+    try:
+        return BACKWARD_KERNELS[grad_precision]
+    except KeyError:
+        raise ValueError(
+            f"unknown grad_precision {grad_precision!r}: use 'default' (the "
+            "fast backward) or 'high' / 'highest' (every product in FP32)"
+        ) from None
 
 
 class FusedState(NamedTuple):
@@ -151,8 +159,9 @@ def _lib():
         lib.fused_predict_max_dim.argtypes = []
         lib.fused_predict_fwd.restype = _I
         lib.fused_predict_fwd.argtypes = [_P] * 10 + [_I] * 4 + [_P]
-        lib.fused_predict_bwd.restype = _I
-        lib.fused_predict_bwd.argtypes = [_P] * 11 + [_I] * 4 + [_P]
+        for name in set(BACKWARD_KERNELS.values()):
+            getattr(lib, name).restype = _I
+            getattr(lib, name).argtypes = [_P] * 11 + [_I] * 4 + [_P]
         lib._gpbt_typed = True
     return lib
 
@@ -176,11 +185,6 @@ def _check_cuda(fs: FusedState, xq: torch.Tensor, *extra: torch.Tensor):
     return b, n, m, d
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-
 def _fwd_cuda(fs: FusedState, xq: torch.Tensor, save_v: bool):
     b, n, m, d = _check_cuda(fs, xq)
     lib = _lib()
@@ -201,16 +205,16 @@ def _fwd_cuda(fs: FusedState, xq: torch.Tensor, save_v: bool):
             mean.data_ptr(), qf_part.data_ptr(), qf.data_ptr(),
             v.data_ptr() if save_v else None, b, n, m, d, stream,
         )
-    _raise_on(err, "fused_predict_fwd launch")
-    LAUNCH_COUNTS["fused_predict_fwd"] += 1
+    raise_on(err, "fused_predict_fwd launch")
+    count_launch("fused_predict_fwd")
     return mean, qf, v
 
 
 def _bwd_cuda(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
-              ct_mean: torch.Tensor, ct_qf: torch.Tensor) -> torch.Tensor:
+              ct_mean: torch.Tensor, ct_qf: torch.Tensor, kernel: str) -> torch.Tensor:
     b, n, m, d = _check_cuda(fs, xq, v, ct_mean, ct_qf)
     if v.shape != (b, n, m) or ct_mean.shape != (b, m) or ct_qf.shape != (b, m):
-        raise ValueError("fused_predict_bwd: v / cotangent shape mismatch")
+        raise ValueError(f"{kernel}: v / cotangent shape mismatch")
     lib = _lib()
     bi = lib.fused_predict_row_block()
     nlb = (n + bi - 1) // bi
@@ -219,14 +223,14 @@ def _bwd_cuda(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
     ct_q = torch.empty((b, m, d), **opts)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     with torch.cuda.device(xq.device):
-        err = lib.fused_predict_bwd(
+        err = getattr(lib, kernel)(
             fs.xs.data_ptr(), xq.data_ptr(), fs.inv_ls.data_ptr(),
             fs.G.data_ptr(), fs.alpha.data_ptr(), fs.amp.data_ptr(),
             v.data_ptr(), ct_mean.data_ptr(), ct_qf.data_ptr(),
             ct_part.data_ptr(), ct_q.data_ptr(), b, n, m, d, stream,
         )
-    _raise_on(err, "fused_predict_bwd launch")
-    LAUNCH_COUNTS["fused_predict_bwd"] += 1
+    raise_on(err, f"{kernel} launch")
+    count_launch(kernel)
     return ct_q
 
 
@@ -238,22 +242,28 @@ def fused_fwd(fs: FusedState, xq: torch.Tensor, save_v: bool = False):
 
 
 def fused_bwd(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
-              ct_mean: torch.Tensor, ct_qf: torch.Tensor) -> torch.Tensor:
-    """Backward (per-GP query cotangent, (b, m, d)): kernel on CUDA, plain on CPU."""
+              ct_mean: torch.Tensor, ct_qf: torch.Tensor,
+              grad_precision: str = "default") -> torch.Tensor:
+    """Backward (per-GP query cotangent, (b, m, d)): on CUDA the kernel that
+    ``grad_precision`` selects, on CPU the plain version (which is full
+    precision whatever the setting)."""
+    kernel = backward_kernel(grad_precision)
     if xq.is_cuda:
-        return _bwd_cuda(fs, xq, v, ct_mean, ct_qf)
+        return _bwd_cuda(fs, xq, v, ct_mean, ct_qf, kernel)
     return fused_bwd_plain(fs, xq, v, ct_mean, ct_qf)
 
 
 class _FusedPCPredict(torch.autograd.Function):
-    """Forward = kernel 1 with v saved when a gradient is needed; backward =
-    kernel 2.  Only the queries get a gradient: the GP state gets None, as
-    the JAX op gives it zero cotangents.  Reverse mode only."""
+    """Forward = the forward kernel with v saved when a gradient is needed;
+    backward = the backward kernel that ``grad_precision`` selects.  Only
+    the queries get a gradient: the GP state gets None, as the JAX op gives
+    it zero cotangents.  Reverse mode only."""
 
     @staticmethod
-    def forward(ctx, xq, xs, G, alpha, amp, inv_ls, kdiag):
+    def forward(ctx, xq, grad_precision, xs, G, alpha, amp, inv_ls, kdiag):
         fs = FusedState(xs, G, alpha, amp, inv_ls, kdiag)
         need_grad = ctx.needs_input_grad[0]
+        ctx.grad_precision = grad_precision
         mean, qf, v = fused_fwd(fs, xq, save_v=need_grad)
         if need_grad:
             ctx.save_for_backward(xq, xs, G, alpha, amp, inv_ls, kdiag, v)
@@ -267,14 +277,17 @@ class _FusedPCPredict(torch.autograd.Function):
             ct_mean = torch.zeros((xq.shape[0], xs.shape[0]), dtype=xq.dtype, device=xq.device)
         if ct_qf is None:
             ct_qf = torch.zeros_like(ct_mean)
-        ct_q = fused_bwd(fs, xq, v, ct_mean.t().contiguous(), ct_qf.t().contiguous())
-        return (ct_q.sum(0),) + (None,) * 6
+        ct_q = fused_bwd(fs, xq, v, ct_mean.t().contiguous(), ct_qf.t().contiguous(),
+                         ctx.grad_precision)
+        return (ct_q.sum(0),) + (None,) * 7
 
 
-def fused_pc_predict(fs: FusedState, xq: torch.Tensor):
+def fused_pc_predict(fs: FusedState, xq: torch.Tensor, grad_precision: str = "default"):
     """Fused GP-batch predict: (m, d) queries -> (mean (m, b), qform (m, b)).
 
     ``var = max(kdiag - qform, 0)`` is left to the caller.  Reverse-mode
-    differentiable w.r.t. ``xq`` only.
+    differentiable w.r.t. ``xq`` only; ``grad_precision`` picks the
+    backward kernel (values are the same either way).
     """
-    return _FusedPCPredict.apply(xq.contiguous(), *fs)
+    backward_kernel(grad_precision)  # an unknown value raises here, not in backward
+    return _FusedPCPredict.apply(xq.contiguous(), grad_precision, *fs)

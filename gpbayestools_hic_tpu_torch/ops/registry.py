@@ -1,0 +1,35 @@
+"""The one table of the port's hand-written kernels and their launch counts.
+
+Every kernel module registers its kernels here when it is imported
+(:func:`register`) and its wrapper calls :func:`count_launch` where it
+launches the kernel, and nowhere else.  A run can then show that a path
+really went through a kernel: reset the counts, drive the path, read them.
+"""
+
+from __future__ import annotations
+
+#: launches per kernel wrapper (incremented where the kernel is launched)
+LAUNCH_COUNTS: dict[str, int] = {}
+
+#: kernel -> (kernel source, file:line of the TPU kernel it replaces)
+KERNELS: dict[str, tuple[str, str]] = {}
+
+
+def register(name: str, source: str, replaces: str) -> None:
+    KERNELS[name] = (source, replaces)
+    LAUNCH_COUNTS.setdefault(name, 0)
+
+
+def count_launch(name: str) -> None:
+    LAUNCH_COUNTS[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[k] = 0
+
+
+def raise_on(err: int, what: str) -> None:
+    """Raise when a kernel's C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")

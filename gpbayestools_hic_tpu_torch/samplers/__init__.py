@@ -1,4 +1,5 @@
-"""Calibration: the Chain posterior and the HMC sampler."""
+"""Calibration: the Chain posterior, the ensemble sampler and HMC."""
 
 from .chain import Chain  # noqa: F401
+from .ensemble import EnsembleResult, run_ensemble  # noqa: F401
 from .hmc import HMCResult, run_hmc  # noqa: F401

@@ -1,23 +1,29 @@
-"""Bayesian calibration driver: box prior, PC-space Woodbury likelihood, HMC.
+"""Bayesian calibration: priors, likelihood, MCMC front-ends.
 
-PyTorch port of the main path of the JAX package's ``samplers/chain.py``:
+PyTorch port of the JAX package's ``samplers/chain.py``:
 
 - uniform box prior normalized by the prior volume; outside-box points get
   ``-inf``, or the widest finite value of the working dtype with
   ``finite=True``;
 - the vestigial ``extra_std`` term: its prior reduces to the constant
   ``2 log(1e-16)``, still added for parity with reference chain values;
-- per-emulator likelihood blocks over the diagonal experimental
-  covariance.  For PCA emulators (the flagship) that is the exact PC-space
-  Woodbury block (:func:`make_lowrank_block`);
+- with a diagonal experimental covariance the likelihood factorizes over
+  per-emulator blocks.  ``likelihood_mode="auto"`` picks per emulator the
+  exact PC-space Woodbury block (PCA emulators, the flagship;
+  :func:`make_lowrank_block`), the diagonal block (no-PCA and
+  ``exp_and_cov_diagonal`` emulators) or the dense per-block Cholesky;
+  ``"generic"`` takes the dense per-block Cholesky everywhere and
+  ``"stitched"`` one dense (nobs, nobs) factorization per walker, the
+  reference's own shape.  A dense experimental covariance always takes the
+  stitched form.  The dense forms go through
+  :func:`..ops.fused_mvn.mvn_loglike_best`;
+- ``run_mcmc``: the ensemble sampler with emcee semantics (two-phase
+  burn-in, top-lnprob resample, thinning, resume-by-append);
 - chain pickle contract ``{"chain": (nwalkers, nsteps, ndim)}``.
 
-Not ported yet (they raise ``NotImplementedError``): the diagonal,
-per-block Cholesky and stitched likelihood blocks (needed for no-PCA or
-``exp_and_cov_diagonal`` emulators, a dense experimental covariance, or
-``likelihood_mode`` other than ``"auto"``), the ensemble, PTLMC and SMC
-samplers, and HMC ``resume``/``warm_start``/``n_leapfrog="auto"``/device
-meshes (see ROADMAP.md).
+Not ported yet (they raise ``NotImplementedError``): the PTLMC and SMC
+samplers, HMC ``resume``/``warm_start``/``n_leapfrog="auto"``, and device
+meshes (``devices=``/``mesh=``) on every sampler (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, resolve_dtype
-from ..ops.linalg import spd_qform_logdet
+from ..ops.fused_mvn import mvn_loglike_best
+from ..ops.linalg import mvn_loglike_diagcov_batch, spd_qform_logdet
 from ..runtime import parse_model_parameter_file
 from ..utils.io import load_exp_data_pickle
 
@@ -103,6 +110,53 @@ def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
     return block_ll, bs
 
 
+def make_diag_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
+                    dtype: torch.dtype, device: torch.device):
+    """O(n) likelihood of an emulator whose covariance is diagonal (no-PCA
+    or ``exp_and_cov_diagonal``).  Returns ``(block_ll, bs)``."""
+    bs = {
+        "exp_block": torch.as_tensor(exp_mean, dtype=dtype, device=device),
+        "exp_var_block": torch.as_tensor(exp_var, dtype=dtype, device=device),
+    }
+
+    def block_ll(bs, x_safe):
+        mean, var = e.predict_diag(x_safe)
+        return mvn_loglike_diagcov_batch(mean - bs["exp_block"], var + bs["exp_var_block"])
+
+    return block_ll, bs
+
+
+def make_cholesky_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
+                        dtype: torch.dtype, device: torch.device):
+    """Dense per-walker likelihood of one emulator's block: the full
+    predictive covariance plus the experimental variances, through the
+    fused MVN kernel (float32 on CUDA) or the batched Cholesky.  Returns
+    ``(block_ll, bs)``."""
+    bs = {
+        "exp_block": torch.as_tensor(exp_mean, dtype=dtype, device=device),
+        "exp_var_diag": torch.diag(torch.as_tensor(exp_var, dtype=dtype, device=device)),
+    }
+
+    def block_ll(bs, x_safe):
+        zero = torch.zeros((x_safe.shape[0],), dtype=dtype, device=x_safe.device)
+        mu_i, cov_i = e._predict_full(x_safe, zero)
+        return mvn_loglike_best(mu_i - bs["exp_block"], cov_i + bs["exp_var_diag"])
+
+    return block_ll, bs
+
+
+def pick_block(e, *args):
+    """The cheapest exact block for emulator ``e`` (``likelihood_mode="auto"``)."""
+    if e.has_lowrank_cov:
+        return make_lowrank_block(e, *args)
+    if e.perform_no_PCA_ or e.exp_and_cov_diagonal_:
+        return make_diag_block(e, *args)
+    return make_cholesky_block(e, *args)
+
+
+LIKELIHOOD_MODES = ("auto", "generic", "stitched")
+
+
 class Chain:
     """High-level interface for running MCMC calibration and accessing results."""
 
@@ -139,7 +193,32 @@ class Chain:
         self.emuList: list = []
         self.chain = False
         self._device_fns = None
-        self.likelihood_mode = "auto"
+        self._likelihood_mode = "auto"
+
+    # ------------------------------------------------------------ mode knob
+
+    @property
+    def likelihood_mode(self):
+        """Likelihood assembly mode: ``"auto"`` (Woodbury/diagonal fast
+        paths), ``"generic"`` (per-block dense Cholesky), or ``"stitched"``
+        (full dense-covariance Cholesky, the reference's shape).  Assigning
+        a new mode drops the assembled posterior functions (they are built
+        for one mode), so a change after a posterior evaluation takes
+        effect."""
+        return self._likelihood_mode
+
+    @likelihood_mode.setter
+    def likelihood_mode(self, value):
+        if value not in LIKELIHOOD_MODES:
+            raise ValueError(
+                f"unknown likelihood_mode {value!r}: use 'auto' (Woodbury/"
+                "diagonal fast paths), 'generic' (per-block Cholesky), or "
+                "'stitched' (full dense-covariance Cholesky, the "
+                "reference's shape)"
+            )
+        if value != self._likelihood_mode:
+            self._device_fns = None
+        self._likelihood_mode = value
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=self._dtype, device=self.device)
@@ -174,8 +253,6 @@ class Chain:
         """Assemble the log-likelihood / log-posterior functions."""
         if not self.emuList:
             raise RuntimeError("loadEmulator before evaluating the posterior")
-        if self.likelihood_mode != "auto":
-            raise _not_ported(f"likelihood_mode={self.likelihood_mode!r}")
         dtype = self._dtype
         expdata_np = np.asarray(self.expdata, dtype=np.float64).flatten()
         expcov_np = np.asarray(self.expdata_cov, dtype=np.float64)
@@ -187,27 +264,28 @@ class Chain:
                 f"emulators predict {offsets[-1]} observables, experimental "
                 f"data has {nobs}"
             )
+        # A diagonal experimental covariance makes the total covariance
+        # block-diagonal per emulator, so the likelihood factorizes over
+        # blocks.  A dense one needs the stitched (nobs, nobs) matrix.
         off = expcov_np - np.diag(np.diagonal(expcov_np))
-        if not bool(np.all(off == 0.0)):
-            raise _not_ported("a dense experimental covariance (stitched likelihood)")
-        exp_var_np = np.diagonal(expcov_np)
+        exp_cov_is_diagonal = bool(np.all(off == 0.0))
+        exp_var_np = np.diagonal(expcov_np).copy()
 
+        mode = self.likelihood_mode  # validated by the property setter
+        use_stitched = (not exp_cov_is_diagonal) or mode == "stitched"
         block_fns, block_states = [], []
-        for e, i0, i1 in zip(emus, offsets[:-1], offsets[1:]):
-            if not e.has_lowrank_cov:
-                raise _not_ported(
-                    "the diagonal / Cholesky likelihood blocks (no-PCA or "
-                    "exp_and_cov_diagonal emulators)"
-                )
-            fn, bs = make_lowrank_block(
-                e, expdata_np[i0:i1], exp_var_np[i0:i1], dtype, self.device
-            )
-            block_fns.append(fn)
-            block_states.append(bs)
+        if not use_stitched:
+            maker = pick_block if mode == "auto" else make_cholesky_block
+            for e, i0, i1 in zip(emus, offsets[:-1], offsets[1:]):
+                fn, bs = maker(e, expdata_np[i0:i1], exp_var_np[i0:i1], dtype, self.device)
+                block_fns.append(fn)
+                block_states.append(bs)
 
         self._like_state = {
             "lo": self._tensor(self.min),
             "hi": self._tensor(self.max),
+            "expdata": self._tensor(expdata_np),
+            "expcov": self._tensor(expcov_np),
             "blocks": tuple(block_states),
         }
 
@@ -215,8 +293,8 @@ class Chain:
             """(m, ndim) -> mean (m, nobs), block-diagonal cov (m, nobs, nobs).
 
             ``extra_std`` (scalar or (m,)) is multiplied by each sample's
-            LAST parameter column and added to every emulator's predictive
-            PC standard deviation, as the reference's ``_predict`` does."""
+            LAST parameter column; its square is added to every emulator's
+            predictive PC variance, as the reference's ``_predict`` does."""
             m = x.shape[0]
             extra = extra_std * x[:, -1]
             mean = torch.zeros((m, nobs), dtype=dtype, device=x.device)
@@ -227,12 +305,25 @@ class Chain:
                 cov[:, i0:i1, i0:i1] = cov_i
             return mean, cov
 
-        def loglike_core(state, x):
+        def loglike_core_blocked(state, x):
+            """Likelihood factorized over per-emulator covariance blocks."""
             x_safe = torch.clamp(x, state["lo"], state["hi"])
             ll = torch.zeros((x.shape[0],), dtype=dtype, device=x.device)
             for fn, bs in zip(block_fns, state["blocks"]):
                 ll = ll + fn(bs, x_safe)
             return ll + _EXTRA_STD_CONST
+
+        def loglike_core_stitched(state, x):
+            """One dense (nobs, nobs) likelihood per walker."""
+            x_safe = torch.clamp(x, state["lo"], state["hi"])
+            zero = torch.zeros((), dtype=dtype, device=x.device)
+            mean, cov = model_predict(state, x_safe, zero)
+            return mvn_loglike_best(
+                mean - state["expdata"], cov + state["expcov"]) + _EXTRA_STD_CONST
+
+        # Outside points are masked below anyway; the clamp keeps extreme
+        # proposals numerically safe inside the emulator.
+        loglike_core = loglike_core_stitched if use_stitched else loglike_core_blocked
 
         # the reference's finite floor is -1e300, which overflows float32;
         # use the widest finite value the working dtype holds instead
@@ -305,13 +396,229 @@ class Chain:
             out = self.device_fns["log_posterior"](self._like_state, self._as_x(X))
         return out.cpu().numpy()
 
+    def log_likelihood_point_by_point(self, X, extra_std_prior_scale: float = 0.001):
+        """Kept for API parity; the batch path is identical here (the
+        reference loops per point)."""
+        return self.log_likelihood(X, extra_std_prior_scale)
+
     def random_pos(self, n: int = 1, seed=None):
         rng = np.random.default_rng(seed)
         return rng.uniform(self.min, self.max, (n, self.ndim))
 
+    @staticmethod
+    def map(f, args):
+        """Vectorized-pool shim kept for API parity with the reference."""
+        return f(args)
+
+    # ------------------------------------------------------------ ensemble
+
+    def _validate_resume_chain(self, prev: np.ndarray) -> None:
+        """Check a stored chain satisfies the walker-chain resume contract
+        ``(nwalkers, nsteps, ndim)``.  A flat 2-D chain (a weighted sample
+        without a walker axis) cannot seed walker restarts."""
+        if prev.ndim != 3:
+            raise ValueError(
+                f"existing chain at {self.mcmc_path} has shape "
+                f"{prev.shape}; resume needs the walker-chain contract "
+                f"(nwalkers, nsteps, ndim) -- a flat 2-D chain was "
+                f"likely written by run_pocoMC and cannot seed walker "
+                f"restarts"
+            )
+        if prev.shape[2] != self.ndim:
+            raise ValueError(
+                f"existing chain has ndim={prev.shape[2]}, "
+                f"posterior has ndim={self.ndim}"
+            )
+
+    def run_mcmc(
+        self,
+        nsteps: int = 500,
+        nburnsteps: int | None = None,
+        nwalkers: int | None = None,
+        status=None,
+        nthin: int = 10,
+        seed: int = 0,
+        skip_initial_state_check: bool = False,
+        move: str = "stretch",
+        devices: int | None = None,
+        mesh=None,
+    ):
+        """Ensemble-MCMC calibration with emcee semantics: two-phase burn-in
+        with walker resampling at the top-lnprob unique points, thinning,
+        and resume-by-append from an existing chain pickle.
+
+        ``move``: ``"stretch"`` (reference default), ``"de"``,
+        ``"snooker"``, or ``"de-snooker"`` -- see :mod:`.ensemble`.  The
+        posterior is the one ``likelihood_mode`` selects.  Returns an
+        :class:`.ensemble.EnsembleResult` of numpy arrays for the
+        production phase and writes its thinned chain to ``mcmc_path``.
+        """
+        from .ensemble import derive_seed
+
+        if devices is not None or mesh is not None:
+            raise _not_ported("multi-device ensemble sampling (devices=/mesh=)")
+        chain_data = {}
+        try:
+            with open(self.mcmc_path, "rb") as f:
+                chain_data = pickle.load(f)
+        except FileNotFoundError:
+            pass
+        burn_flag = "chain" not in chain_data
+        if not burn_flag:
+            self._validate_resume_chain(np.asarray(chain_data["chain"]))
+        if nburnsteps is None or nwalkers is None:
+            logger.error("must specify nburnsteps and nwalkers to start chain")
+            return
+
+        log_post, like_state = self.posterior_with_state()
+        logger.info("Starting MCMC ...")
+
+        if burn_flag:
+            logger.info("no existing chain found, starting initial burn-in")
+            nburn0 = nburnsteps // 2
+            k1, k2, k3 = (derive_seed(seed, i) for i in (1, 2, 3))
+            x0 = self.random_pos(nwalkers, seed=seed)
+            if not skip_initial_state_check:
+                self._check_initial_state(like_state, x0)
+            logger.info("running %d walkers for %d steps", nwalkers, nburn0)
+            res = self._run_segments(log_post, like_state, x0, nburn0, k1, status, move)
+
+            logger.info("resampling walker positions")
+            flat = res.chain.reshape(-1, self.ndim)
+            flat_lp = res.log_prob.reshape(-1)
+            # top-lnprob unique points, as the reference resamples
+            uniq_idx = np.unique(flat_lp, return_index=True)[1][-nwalkers:]
+            x0 = flat[uniq_idx]
+            if x0.shape[0] < nwalkers:  # degenerate: pad by repeating best
+                x0 = np.concatenate(
+                    [x0, np.repeat(x0[-1:], nwalkers - x0.shape[0], axis=0)])
+
+            nburn1 = nburnsteps - nburn0
+            logger.info("running %d walkers for %d steps", nwalkers, nburn1)
+            res = self._run_segments(log_post, like_state, x0, nburn1, k2, status, move)
+            x0 = res.final_state
+            logger.info("burn-in complete, starting production")
+            prod_seed = k3
+        else:
+            logger.info("restarting from last point of existing chain")
+            x0 = np.asarray(chain_data["chain"])[:, -1, :]
+            if not skip_initial_state_check:
+                self._check_initial_state(like_state, x0)
+            # fold the stored chain length into the seed: same-seed resumed
+            # segments would otherwise replay one random stream and
+            # cross-correlate the appended chain
+            prod_seed = derive_seed(seed, (1 << 20) + chain_data["chain"].shape[1])
+
+        logger.info("running %d walkers for %d steps", x0.shape[0], nsteps)
+        res = self._run_segments(log_post, like_state, x0, nsteps, prod_seed, status, move)
+        self._append_and_write_chain(chain_data, res.chain, nthin)
+        return res
+
+    def _check_initial_state(self, like_state, x0):
+        """emcee's initial-state check (skipped via
+        ``skip_initial_state_check=True``, same kwarg as emcee): every
+        starting walker must have a finite log-posterior, and the ensemble
+        must be linearly independent (a degenerate ensemble breaks the
+        stretch move's affine invariance)."""
+        with torch.no_grad():
+            lp0 = self.device_fns["log_posterior"](like_state, self._as_x(x0)).cpu().numpy()
+        n_bad = int(np.sum(~np.isfinite(lp0)))
+        if n_bad:
+            raise ValueError(
+                f"{n_bad} of {len(lp0)} initial walkers have non-finite "
+                "log-posterior; fix the starting state or pass "
+                "skip_initial_state_check=True"
+            )
+        x_np = np.asarray(x0, dtype=np.float64)
+        rank = np.linalg.matrix_rank(x_np - x_np.mean(axis=0))
+        if rank < min(self.ndim, x_np.shape[0] - 1):
+            raise ValueError(
+                "initial walker ensemble is linearly dependent (rank "
+                f"{rank} < {min(self.ndim, x_np.shape[0] - 1)}); the stretch "
+                "move cannot explore the full space from it; pass "
+                "skip_initial_state_check=True to bypass"
+            )
+
+    @staticmethod
+    def _log_acceptance(acceptance):
+        af = np.asarray(acceptance)
+        logger.info(
+            "acceptance fraction: mean %.4f, std %.4f, min %.4f, max %.4f",
+            af.mean(), af.std(), af.min(), af.max(),
+        )
+
+    def _run_segments(self, log_post, like_state, x0, nsteps, seed, status,
+                      move: str = "stretch"):
+        """Run ``nsteps`` ensemble steps from ``x0`` (numpy), logging
+        acceptance every ``status`` steps (``None``: ~10% of the segment).
+
+        Every chunk uses the same seed and its absolute step offset, so the
+        log cadence cannot change the sampled chain; the walker state stays
+        on the device between chunks.  Returns an ``EnsembleResult`` of
+        float64 numpy arrays.
+        """
+        from .ensemble import EnsembleResult, run_ensemble
+
+        if status is None:
+            status = max(nsteps // 10, 1)
+        chunked = bool(status) and status < nsteps
+        if not chunked:
+            status = max(nsteps, 1)
+        state_x = self._as_x(x0)
+        chains, lps, accs = [], [], []
+        done = 0
+        while True:
+            chunk = min(status, nsteps - done)
+            res = run_ensemble(log_post, state_x, chunk, seed, state=like_state,
+                               move=move, step_offset=done)
+            done += chunk
+            if chunked:
+                logger.info("step %d:", done)
+            acc = res.acceptance.cpu().numpy().astype(np.float64)
+            self._log_acceptance(acc)
+            chains.append(res.chain.cpu().numpy().astype(np.float64))
+            lps.append(res.log_prob.cpu().numpy().astype(np.float64))
+            accs.append(acc * chunk)
+            state_x = res.final_state
+            if done >= nsteps:
+                break
+        return EnsembleResult(
+            chain=np.concatenate(chains, axis=1),
+            log_prob=np.concatenate(lps, axis=1),
+            acceptance=sum(accs) / max(nsteps, 1),
+            final_state=res.final_state.cpu().numpy().astype(np.float64),
+            final_log_prob=res.final_log_prob.cpu().numpy().astype(np.float64),
+        )
+
+    # ------------------------------------------------------------- rescoring
+
+    def compute_log_likelihood_for_chain(
+        self, output_path: str = "./mcmc/log_likelihood.pkl", batch_size: int = 4096
+    ):
+        """Re-score a saved chain pointwise, in batches on the device.  A
+        walker chain scores as (nwalkers, nsteps); a flat (nsamples, ndim)
+        chain as (nsamples,)."""
+        if self.chain is False:
+            logger.error("Load chain before computing log likelihood")
+            with open(self.mcmc_path, "rb") as f:
+                self.chain = pickle.load(f)["chain"]
+        logger.info("Computing log likelihood for the chain...")
+        chain = np.asarray(self.chain)
+        flat = chain.reshape(-1, self.ndim)
+        out = np.empty(flat.shape[0])
+        for i in range(0, flat.shape[0], batch_size):
+            out[i : i + batch_size] = self.log_likelihood(flat[i : i + batch_size])
+        likelihood = out.reshape(chain.shape[:2]) if chain.ndim == 3 else out
+        with open(output_path, "wb") as f:
+            pickle.dump({"log_likelihood": likelihood}, f)
+        return likelihood
+
     # ------------------------------------------------------------ chain file
 
     def _append_and_write_chain(self, chain_data, res_chain, nthin):
+        """Thin the sampler output, append under the resume contract, and
+        persist.  Dumps the full dict, so extra keys written alongside the
+        chain survive a resume."""
         thinned = np.asarray(res_chain)[:, ::nthin, :]
         if "chain" in chain_data:
             chain_data["chain"] = np.concatenate((chain_data["chain"], thinned), axis=1)

@@ -227,3 +227,296 @@ def test_hmc_posterior_moments_match_jax_hmc(chains):
         a, b = stat(js), stat(ps)
         se = np.sqrt(a.var(0, ddof=1) / nw + b.var(0, ddof=1) / nw)
         assert np.all(np.abs(a.mean(0) - b.mean(0)) < 5 * se), (a.mean(0), b.mean(0), se)
+
+
+# ---------------------------------------------------------------- dense modes
+
+
+def _set_mode(chain, mode):
+    chain.likelihood_mode = mode
+    return chain
+
+
+@pytest.mark.parametrize("mode", ["generic", "stitched"])
+def test_dense_modes_match_jax_and_auto(chains, mode):
+    """One exact likelihood, three routes: the port's ``"generic"``
+    (per-block Cholesky) and ``"stitched"`` (one nobs x nobs Cholesky)
+    posterior against the JAX Chain in the same mode (rtol 1e-9, float64,
+    same factors) and against the port's own ``"auto"`` Woodbury value
+    (rtol 1e-8: a different algebraic route)."""
+    jc, pc, _ = chains
+    X = _points(5)
+    try:
+        auto = _set_mode(pc, "auto").log_posterior(X)
+        lp = _set_mode(pc, mode).log_posterior(X)
+        jlp = _set_mode(jc, mode).log_posterior(X)
+        ll = pc.log_likelihood(X)
+    finally:
+        _set_mode(pc, "auto"), _set_mode(jc, "auto")
+    assert np.all(np.isneginf(lp[-3:])) and np.all(np.isneginf(jlp[-3:]))
+    np.testing.assert_allclose(lp[:-3], jlp[:-3], rtol=1e-9)
+    np.testing.assert_allclose(lp[:-3], auto[:-3], rtol=1e-8)
+    np.testing.assert_array_equal(ll, lp)
+
+
+def test_generic_posterior_gradient_matches_jax(chains):
+    """Gradient of the generic (dense per-block) posterior, autograd through
+    cholesky_ex vs JAX autodiff through its Cholesky: 1e-8 relative."""
+    jc, pc, _ = chains
+    X = _points(6)[:-3]
+    try:
+        fn, state = _set_mode(pc, "generic").posterior_with_state()
+        x = torch.tensor(X, requires_grad=True)
+        (g,) = torch.autograd.grad(fn(state, x).sum(), x)
+        jfn, jstate = _set_mode(jc, "generic").posterior_with_state()
+        jg = np.asarray(jax.grad(lambda q: jnp.sum(jfn(jstate, q)))(jnp.asarray(X)))
+    finally:
+        _set_mode(pc, "auto"), _set_mode(jc, "auto")
+    np.testing.assert_allclose(g.numpy(), jg, rtol=1e-8, atol=1e-8 * np.abs(jg).max())
+
+
+def test_likelihood_mode_setter(chains):
+    """The setter validates, and a mode set after an evaluation takes
+    effect: the stitched functions replace the blocked ones (seen in the
+    state the posterior is built from), with the same value."""
+    _, pc, p = chains
+    c = Chain(mcmc_path=str(p["tmp"] / "mode" / "chain.pkl"), expdata_path=p["exp"],
+              model_parafile=p["par"], **F64)
+    c.loadEmulator(p["saves"])
+    assert c.likelihood_mode == "auto"
+    X = _points(7)[:4]
+    auto = c.log_posterior(X)
+    fns_auto = c.device_fns
+    assert len(c._like_state["blocks"]) == 2 and "p0" in c._like_state["blocks"][0]
+    c.likelihood_mode = "auto"                       # same mode: nothing rebuilt
+    assert c.device_fns is fns_auto
+    c.likelihood_mode = "generic"
+    assert c._device_fns is None
+    generic = c.log_posterior(X)
+    assert "exp_var_diag" in c._like_state["blocks"][0]
+    c.likelihood_mode = "stitched"
+    stitched = c.log_posterior(X)
+    assert c._like_state["blocks"] == ()
+    np.testing.assert_allclose(generic, auto, rtol=1e-8)
+    np.testing.assert_allclose(stitched, auto, rtol=1e-8)
+    with pytest.raises(ValueError, match="unknown likelihood_mode"):
+        c.likelihood_mode = "dense"
+    assert c.likelihood_mode == "stitched"
+
+
+def test_dense_experimental_covariance_switches_to_stitched(chains):
+    """A dense experimental covariance takes the stitched likelihood in
+    every mode; values against the JAX Chain given the same covariance
+    (rtol 1e-9) and against a hand assembly."""
+    jc, _, p = chains
+    c = Chain(mcmc_path=str(p["tmp"] / "dense" / "chain.pkl"), expdata_path=p["exp"],
+              model_parafile=p["par"], **F64)
+    c.loadEmulator(p["saves"])
+    rng = np.random.default_rng(8)
+    w = rng.normal(size=(c.nobs, c.nobs)) * 0.02
+    dense = np.asarray(c.expdata_cov) + w @ w.T
+    old = jc.expdata_cov
+    X = _points(9)[:5]
+    try:
+        c.expdata_cov = dense
+        jc.expdata_cov, jc._device_fns = dense, None
+        lp, jlp = c.log_posterior(X), jc.log_posterior(X)
+    finally:
+        jc.expdata_cov, jc._device_fns = old, None
+    assert c._like_state["blocks"] == () and c.likelihood_mode == "auto"
+    np.testing.assert_allclose(lp, jlp, rtol=1e-9)
+    mean, cov = c._predict(X)
+    for i in range(len(X)):
+        y = mean[i] - c.expdata.flatten()
+        cc = cov[i] + dense
+        want = -0.5 * y @ np.linalg.solve(cc, y) - 0.5 * np.linalg.slogdet(cc)[1] + 2 * np.log(1e-16)
+        np.testing.assert_allclose(lp[i], want, rtol=1e-9)
+
+
+@pytest.fixture(scope="module")
+def diag_chains(tmp_path_factory):
+    """JAX and port chains over a no-PCA, an exp_and_cov_diagonal and a PCA
+    emulator (the diagonal block twice, the Woodbury block once)."""
+    tmp = tmp_path_factory.mktemp("diag")
+    rng = np.random.default_rng(21)
+    ndim, nev = 3, 30
+    design = rng.uniform(0, 1, size=(nev, ndim))
+    par = tmp / "pars.txt"
+    par.write_text("".join(f"p{i}: $p_{i}$, 0.0, 1.0\n" for i in range(ndim)))
+    truth = np.array([0.45, 0.55, 0.5])
+    variants = [dict(perform_no_PCA=True), dict(logTrafo=True, exp_and_cov_diagonal=True), {}]
+    emus, saves, exp_obs = [], [], []
+    for b, (nobs, kw) in enumerate(zip([3, 4, 5], variants)):
+        freqs = rng.uniform(1, 2.5, size=(ndim, nobs))
+        base = 2.0 + np.sin(design @ freqs)
+        pkl = tmp / f"train{b}.pkl"
+        with open(pkl, "wb") as f:
+            pickle.dump({str(i): {"parameter": design[i],
+                                  "obs": np.stack([base[i], 0.01 * np.abs(base[i])])}
+                         for i in range(nev)}, f)
+        e = JEmulator(str(pkl), str(par), npc=2, gp_maxiter=0, **kw)
+        e.trainEmulatorAutoMask()
+        e.save(str(tmp / f"emu{b}.pkl"))
+        emus.append(e)
+        saves.append(str(tmp / f"emu{b}.pkl"))
+        exp_obs.append(2.0 + np.sin(truth @ freqs))
+    exp_mean = np.concatenate(exp_obs)
+    exp_pkl = tmp / "exp.pkl"
+    with open(exp_pkl, "wb") as f:
+        pickle.dump({"0": {"obs": np.stack([exp_mean, 0.05 * np.abs(exp_mean)])}}, f)
+    jc = JChain(mcmc_path=str(tmp / "j" / "chain.pkl"), expdata_path=str(exp_pkl),
+                model_parafile=str(par))
+    jc.loadEmulator(emus)
+    pc = Chain(mcmc_path=str(tmp / "p" / "chain.pkl"), expdata_path=str(exp_pkl),
+               model_parafile=str(par), **F64)
+    pc.loadEmulator(saves)
+    return jc, pc
+
+
+@pytest.mark.parametrize("mode", ["auto", "generic", "stitched"])
+def test_diagonal_block_emulators_match_jax(diag_chains, mode):
+    """No-PCA and exp_and_cov_diagonal emulators go through the diagonal
+    block in ``"auto"`` and through the dense forms otherwise; all three
+    agree with the JAX Chain in the same mode (rtol 1e-9) and with each
+    other (rtol 1e-8)."""
+    jc, pc = diag_chains
+    X = _points(10)
+    try:
+        auto = _set_mode(pc, "auto").log_posterior(X)
+        if mode == "auto":
+            kinds = [set(b) for b in pc._like_state["blocks"]]
+            assert kinds[0] == kinds[1] == {"exp_block", "exp_var_block"} and "p0" in kinds[2]
+        lp = _set_mode(pc, mode).log_posterior(X)
+        jlp = _set_mode(jc, mode).log_posterior(X)
+    finally:
+        _set_mode(pc, "auto"), _set_mode(jc, "auto")
+    assert np.isfinite(lp[:-3]).all() and np.all(np.isneginf(lp[-3:]))
+    np.testing.assert_allclose(lp[:-3], jlp[:-3], rtol=1e-9)
+    np.testing.assert_allclose(lp[:-3], auto[:-3], rtol=1e-8)
+
+
+# ------------------------------------------------------------------ run_mcmc
+
+
+@pytest.fixture
+def fresh_chain(chains):
+    """A port chain with its own (empty) chain file, in generic mode."""
+    _, _, p = chains
+    n = len(list(p["tmp"].glob("mcmc_*")))
+    c = Chain(mcmc_path=str(p["tmp"] / f"mcmc_{n}" / "chain.pkl"), expdata_path=p["exp"],
+              model_parafile=p["par"], **F64)
+    c.loadEmulator(p["saves"])
+    c.likelihood_mode = "generic"
+    return c
+
+
+def test_run_mcmc_contract_thinning_and_resume(fresh_chain):
+    """Chain pickle ``{"chain": (nwalkers, ceil(nsteps / nthin), ndim)}``;
+    a second call appends and draws another stream; extra keys in the
+    pickle survive; a chunked status log changes nothing."""
+    c = fresh_chain
+    assert c.run_mcmc(nsteps=5) is None          # no nburnsteps / nwalkers: refuses
+    res = c.run_mcmc(nsteps=9, nburnsteps=6, nwalkers=12, nthin=2, seed=4, status=4)
+    with open(c.mcmc_path, "rb") as f:
+        stored = pickle.load(f)
+    assert stored["chain"].shape == (12, math.ceil(9 / 2), 3)
+    np.testing.assert_array_equal(stored["chain"], res.chain[:, ::2, :])
+    assert res.chain.shape == (12, 9, 3) and res.log_prob.shape == (12, 9)
+    assert res.acceptance.shape == (12,) and np.isfinite(res.log_prob).all()
+    np.testing.assert_array_equal(res.final_state, res.chain[:, -1])
+    np.testing.assert_allclose(c.log_posterior(res.final_state), res.final_log_prob, rtol=1e-12)
+
+    stored["note"] = "kept"
+    with open(c.mcmc_path, "wb") as f:
+        pickle.dump(stored, f)
+    res2 = c.run_mcmc(nsteps=4, nburnsteps=6, nwalkers=12, nthin=1, seed=4, status=0)
+    with open(c.mcmc_path, "rb") as f:
+        again = pickle.load(f)
+    assert again["note"] == "kept" and again["chain"].shape == (12, 5 + 4, 3)
+    np.testing.assert_array_equal(again["chain"][:, :5], stored["chain"])
+    np.testing.assert_array_equal(again["chain"][:, 5:], res2.chain)
+    res3 = c.run_mcmc(nsteps=4, nburnsteps=6, nwalkers=12, nthin=1, seed=4)
+    assert not np.array_equal(res3.chain, res2.chain)   # the seed folds in the stored length
+    assert c.chain.shape == (12, 13, 3)
+
+    ll = c.compute_log_likelihood_for_chain(str(c.mcmc_path.parent / "ll.pkl"), batch_size=50)
+    assert ll.shape == (12, 13) and np.isfinite(ll).all()
+    np.testing.assert_allclose(ll[:, -1], c.log_likelihood(c.chain[:, -1]), rtol=1e-12)
+    np.testing.assert_allclose(c.log_likelihood_point_by_point(c.chain[:, -1]), ll[:, -1],
+                               rtol=1e-12)
+    assert Chain.map(len, [1, 2, 3]) == 3
+
+
+def test_run_mcmc_status_chunks_do_not_change_the_chain(chains):
+    _, _, p = chains
+    out = []
+    for i, status in enumerate((None, 3, 0)):
+        c = Chain(mcmc_path=str(p["tmp"] / f"status_{i}" / "chain.pkl"), expdata_path=p["exp"],
+                  model_parafile=p["par"], **F64)
+        c.loadEmulator(p["saves"])
+        out.append(c.run_mcmc(nsteps=8, nburnsteps=4, nwalkers=8, nthin=1, seed=2,
+                              status=status, move="de"))
+    for r in out[1:]:
+        np.testing.assert_array_equal(r.chain, out[0].chain)
+        np.testing.assert_array_equal(r.log_prob, out[0].log_prob)
+        np.testing.assert_allclose(r.acceptance, out[0].acceptance, rtol=1e-12)
+
+
+def test_run_mcmc_refuses_bad_resume_and_bad_starts(fresh_chain, monkeypatch):
+    c = fresh_chain
+    with pytest.raises(NotImplementedError, match="devices"):
+        c.run_mcmc(nsteps=2, nburnsteps=2, nwalkers=8, devices=2)
+    with open(c.mcmc_path, "wb") as f:
+        pickle.dump({"chain": np.zeros((40, 3))}, f)
+    with pytest.raises(ValueError, match="flat 2-D chain"):
+        c.run_mcmc(nsteps=2, nburnsteps=2, nwalkers=8)
+    with open(c.mcmc_path, "wb") as f:
+        pickle.dump({"chain": np.zeros((8, 5, 4))}, f)
+    with pytest.raises(ValueError, match="ndim=4"):
+        c.run_mcmc(nsteps=2, nburnsteps=2, nwalkers=8)
+    c.mcmc_path.unlink()
+
+    _, state = c.posterior_with_state()
+    good = c.random_pos(8, seed=0)
+    bad = good.copy()
+    bad[3, 0] = 1.5                                  # outside the box: -inf
+    with pytest.raises(ValueError, match="1 of 8 initial walkers"):
+        c._check_initial_state(state, bad)
+    flat = good.copy()
+    flat[:, 2] = flat[:, 0]                          # rank-deficient ensemble
+    with pytest.raises(ValueError, match="linearly dependent"):
+        c._check_initial_state(state, flat)
+    c._check_initial_state(state, good)
+    monkeypatch.setattr(c, "random_pos", lambda n, seed=None: bad)
+    with pytest.raises(ValueError, match="initial walkers"):
+        c.run_mcmc(nsteps=2, nburnsteps=2, nwalkers=8)
+    res = c.run_mcmc(nsteps=2, nburnsteps=2, nwalkers=8, skip_initial_state_check=True)
+    assert res.chain.shape == (8, 2, 3)
+
+
+def test_run_mcmc_posterior_moments_match_jax(chains):
+    """JAX run_mcmc and the port's, stretch move, generic likelihood: means
+    and variances agree within 5 Monte-Carlo standard errors of their
+    difference, from the spread over 8 groups of 6 walkers (the walkers of
+    an ensemble are coupled, groups of them much less)."""
+    jc, _, p = chains
+    pc = Chain(mcmc_path=str(p["tmp"] / "moments" / "chain.pkl"), expdata_path=p["exp"],
+               model_parafile=p["par"], **F64)
+    pc.loadEmulator(p["saves"])
+    kw = dict(nsteps=400, nburnsteps=100, nwalkers=48, nthin=1, seed=5, status=0)
+    jpath = jc.mcmc_path
+    try:
+        jc.mcmc_path = p["tmp"] / "moments" / "jchain.pkl"
+        _set_mode(jc, "generic"), _set_mode(pc, "generic")
+        jres = jc.run_mcmc(**kw)
+        pres = pc.run_mcmc(**kw)
+    finally:
+        jc.mcmc_path = jpath
+        _set_mode(jc, "auto")
+    js = np.asarray(jres.chain).reshape(8, -1, 3)
+    ps = np.asarray(pres.chain).reshape(8, -1, 3)
+    assert abs(float(np.mean(pres.acceptance)) - float(np.mean(jres.acceptance))) < 0.06
+    for stat in (lambda c: c.mean(1), lambda c: c.var(1)):
+        a, b = stat(js), stat(ps)
+        se = np.sqrt(a.var(0, ddof=1) / 8 + b.var(0, ddof=1) / 8)
+        assert np.all(np.abs(a.mean(0) - b.mean(0)) < 5 * se), (a.mean(0), b.mean(0), se)

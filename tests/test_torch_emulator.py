@@ -240,3 +240,34 @@ def test_isolation_ast_scan():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "gpbayestools_hic_tpu"), (f, mod)
+
+
+def test_grad_precision_wiring_and_save_round_trip(toy_files):
+    """As tests/test_pallas_predict.py::test_grad_precision_wiring_and_roundtrip:
+    ``gp_grad_precision`` set before training reaches ``GPConfig``; a JAX
+    save carries it into the port's loaded emulator (default "default");
+    an unknown value raises."""
+    tmp, pkl, par = toy_files
+    e = Emulator(pkl, par, npc=2, gp_maxiter=0, **F64)
+    assert e.gp_grad_precision == "default"
+    e.gp_grad_precision = "high"
+    e.trainEmulatorAutoMask()
+    assert e.gp_config.grad_precision == "high"
+    bad = Emulator(pkl, par, npc=2, gp_maxiter=0, **F64)
+    bad.gp_grad_precision = "bf16"
+    with pytest.raises(ValueError, match="grad_precision"):
+        bad.trainEmulatorAutoMask()
+
+    je = JEmulator(pkl, par, npc=2, gp_maxiter=0)
+    je.gp_grad_precision = "high"
+    je.trainEmulatorAutoMask()
+    path = tmp / "emu_high.pkl"
+    je.save(str(path))
+    loaded = Emulator.load(str(path), device="cpu")
+    assert loaded.gp_grad_precision == "high" and loaded.gp_config.grad_precision == "high"
+    assert loaded._fused is not None
+    x = torch.tensor(np.random.default_rng(1).uniform(0.1, 0.9, size=(4, 3)),
+                     dtype=torch.float32, requires_grad=True)
+    mean, var = loaded.predict_pc_raw_fastgrad(x)
+    (g,) = torch.autograd.grad(mean.sum() + var.sum(), x)
+    assert torch.isfinite(g).all()

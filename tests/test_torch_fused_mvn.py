@@ -1,0 +1,174 @@
+"""PyTorch port: the fused MVN log-likelihood module against the JAX package.
+
+On the CPU the port's wrapper takes the kernel's plain version (the same
+elimination as a column loop of batched torch ops); the CUDA kernel is
+held against that plain version by tests/test_torch_cuda_kernels.py
+(skipped without a GPU) and by ``chip_smoke.py`` on the card.  The JAX
+Pallas kernel runs in interpret mode, as tests/test_pallas.py runs it.
+Inputs come from numpy seeds and go through both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gpbayestools_hic_tpu.ops.pallas_mvn as pm
+from gpbayestools_hic_tpu.ops.linalg import mvn_loglike_batch as j_mvn_loglike_batch
+from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
+from gpbayestools_hic_tpu_torch.ops import registry
+from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(pm, "INTERPRET", True)
+
+
+def _problem(b, n, seed, dtype=np.float32, bad=None):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(b, n, n)).astype(dtype)
+    cov = a @ a.transpose(0, 2, 1) + n * np.eye(n, dtype=dtype)
+    if bad is not None:
+        cov[bad] = -np.eye(n, dtype=dtype)
+    y = rng.normal(size=(b, n)).astype(dtype)
+    return y, cov
+
+
+@pytest.mark.parametrize("b,n", [(4, 1), (4, 2), (4, 3), (4, 7), (2, 60), (8, 130)])
+def test_plain_and_batch_match_jax_pallas_and_xla(b, n):
+    """float32, the (b, n) cases of tests/test_pallas.py (n not a multiple
+    of 8 included): the plain elimination and the library path against the
+    JAX Pallas kernel (interpret mode) and the JAX XLA path, rtol 2e-4 as
+    there (float32 elimination vs float32 Cholesky, different order)."""
+    y, cov = _problem(b, n, seed=n)
+    j_pallas = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    j_xla = np.asarray(j_mvn_loglike_batch(jnp.asarray(y), jnp.asarray(cov)))
+    yt, ct = torch.tensor(y), torch.tensor(cov)
+    for got in (fm.fused_mvn_loglike_plain(yt, ct), mvn_loglike_batch(yt, ct),
+                fm.mvn_loglike_fused(yt, ct), fm.mvn_loglike_best(yt, ct)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), j_pallas, rtol=2e-4)
+        np.testing.assert_allclose(got.numpy(), j_xla, rtol=2e-4)
+
+
+def test_plain_f64_matches_jax_xla_f64():
+    """In float64 the elimination and the Cholesky agree to 1e-11 (the two
+    are the same factorization in a different order)."""
+    y, cov = _problem(5, 40, seed=1, dtype=np.float64)
+    want = np.asarray(j_mvn_loglike_batch(jnp.asarray(y), jnp.asarray(cov)))
+    yt, ct = torch.tensor(y), torch.tensor(cov)
+    np.testing.assert_allclose(fm.fused_mvn_loglike_plain(yt, ct).numpy(), want, rtol=1e-11)
+    np.testing.assert_allclose(mvn_loglike_batch(yt, ct).numpy(), want, rtol=1e-11)
+
+
+@pytest.mark.parametrize("kind", ["negative", "zero_pivot", "nan"])
+def test_nonpd_in_batch_gives_neg_inf_and_leaves_the_rest(kind):
+    """A bad matrix in the middle of a batch: -inf there (negative pivot ->
+    NaN through log, zero pivot -> +-inf, NaN input), the other entries
+    equal to the batch without it (exactly: batched ops are per matrix),
+    never a raise.  Same answers as the JAX Pallas kernel."""
+    y, cov = _problem(5, 12, seed=2)
+    clean = fm.fused_mvn_loglike_plain(torch.tensor(y), torch.tensor(cov))
+    if kind == "negative":
+        cov[2] = -np.eye(12, dtype=np.float32)
+    elif kind == "zero_pivot":
+        cov[2, 0, :] = 0.0
+        cov[2, :, 0] = 0.0
+    else:
+        cov[2, 3, 3] = np.nan
+    yt, ct = torch.tensor(y), torch.tensor(cov)
+    j = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    assert j[2] == -np.inf
+    keep = np.arange(5) != 2
+    for f in (fm.fused_mvn_loglike_plain, mvn_loglike_batch, fm.mvn_loglike_best):
+        got = f(yt, ct)
+        assert got[2] == -torch.inf
+        if f is fm.fused_mvn_loglike_plain:
+            np.testing.assert_array_equal(got.numpy()[keep], clean.numpy()[keep])
+        np.testing.assert_allclose(got.numpy()[keep], j[keep], rtol=2e-4)
+
+
+def test_gradients_match_jax():
+    """The closed-form backward of the fused op and autograd through the
+    library path against the JAX Pallas op's VJP and JAX autodiff through
+    XLA (float32: rtol 1e-3, atol 1e-5, the tolerance of
+    tests/test_pallas.py; float64 port paths against each other: 1e-9)."""
+    y, cov = _problem(2, 10, seed=3)
+    jy, jc = jnp.asarray(y), jnp.asarray(cov)
+    g_pl = jax.grad(lambda a, c: jnp.sum(pm.mvn_loglike_pallas(a, c)), argnums=(0, 1))(jy, jc)
+    g_xla = jax.grad(lambda a, c: jnp.sum(j_mvn_loglike_batch(a, c)), argnums=(0, 1))(jy, jc)
+    for f in (fm.mvn_loglike_fused, mvn_loglike_batch):
+        yt = torch.tensor(y, requires_grad=True)
+        ct = torch.tensor(cov, requires_grad=True)
+        gy, gc = torch.autograd.grad(f(yt, ct).sum(), (yt, ct))
+        for ref in (g_pl, g_xla):
+            np.testing.assert_allclose(gy.numpy(), np.asarray(ref[0]), rtol=1e-3, atol=1e-5)
+            np.testing.assert_allclose(gc.numpy(), np.asarray(ref[1]), rtol=1e-3, atol=1e-5)
+    y64, c64 = _problem(3, 9, seed=4, dtype=np.float64)
+    grads = []
+    for f in (fm.mvn_loglike_fused, mvn_loglike_batch):
+        yt = torch.tensor(y64, requires_grad=True)
+        ct = torch.tensor(c64, requires_grad=True)
+        grads.append(torch.autograd.grad(f(yt, ct).sum(), (yt, ct)))
+    np.testing.assert_allclose(grads[0][0].numpy(), grads[1][0].numpy(), rtol=1e-9)
+    np.testing.assert_allclose(grads[0][1].numpy(), grads[1][1].numpy(), rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("entry", ["mvn_loglike_fused", "mvn_loglike_batch"])
+def test_nonpd_gradient_is_zero_not_nan(entry):
+    """The -inf element contributes a ZERO gradient (a NaN would ride
+    through every later leapfrog update); the healthy element of the same
+    batch keeps its gradient, equal to the JAX op's (rtol 1e-3)."""
+    n = 8
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(n, n)).astype(np.float32)
+    cov = np.stack([a @ a.T + n * np.eye(n, dtype=np.float32), -np.eye(n, dtype=np.float32)])
+    y = rng.normal(size=(2, n)).astype(np.float32)
+    f = getattr(fm, entry, None) or mvn_loglike_batch
+    yt, ct = torch.tensor(y, requires_grad=True), torch.tensor(cov, requires_grad=True)
+    lp = f(yt, ct)
+    assert lp[1] == -torch.inf
+    gy, gc = torch.autograd.grad(torch.where(torch.isfinite(lp), lp, 0.0).sum(), (yt, ct))
+    assert torch.isfinite(gy).all() and torch.isfinite(gc).all()
+    np.testing.assert_array_equal(gy.numpy()[1], 0.0)
+    np.testing.assert_array_equal(gc.numpy()[1], 0.0)
+
+    def jloss(a, c):
+        v = pm.mvn_loglike_pallas(a, c)
+        return jnp.sum(jnp.where(jnp.isfinite(v), v, 0.0))
+
+    jgy, jgc = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(y), jnp.asarray(cov))
+    np.testing.assert_allclose(gy.numpy()[0], np.asarray(jgy)[0], rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(gc.numpy()[0], np.asarray(jgc)[0], rtol=1e-3, atol=1e-5)
+    # a non-finite incoming cotangent is sanitized too
+    lp = f(yt, ct)
+    gy2, _ = torch.autograd.grad(lp, (yt, ct), grad_outputs=torch.tensor([1.0, np.inf]))
+    assert torch.isfinite(gy2).all()
+
+
+def test_cpu_path_counts_no_launches_and_kernels_are_registered():
+    """CPU tensors take the plain version, so no launch is counted; both
+    routes of the kernel stand in the registry with their source."""
+    registry.reset_launch_counts()
+    y, cov = _problem(3, 6, seed=6)
+    fm.mvn_loglike_best(torch.tensor(y), torch.tensor(cov))
+    fm.fused_mvn_loglike(torch.tensor(y), torch.tensor(cov))
+    assert all(v == 0 for v in registry.LAUNCH_COUNTS.values())
+    for name in ("fused_mvn_loglike", "fused_mvn_loglike_panel"):
+        source, replaces = registry.KERNELS[name]
+        assert source.endswith("csrc/fused_mvn.cu") and replaces.endswith("pallas_mvn.py:61")
+    assert set(registry.KERNELS) == set(registry.LAUNCH_COUNTS)
+
+
+def test_kernel_source_calls_no_library_factorization():
+    """The CUDA source is self-contained: no cuSOLVER / cuBLAS / ATen."""
+    from gpbayestools_hic_tpu_torch.ops import _build
+
+    src = (_build._PKG_DIR / _build.SOURCES["fused_mvn"]).read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for word in ("cusolver", "cublas", "torch", "ATen", "potrf"):
+        assert word not in code, word
+    assert "__global__" in code and "kernel<<<" in code and "mvn_panel_kernel<<<" in code
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in code

@@ -19,7 +19,8 @@ from gpbayestools_hic_tpu.models.gp import finalize_gp_state as j_finalize
 from gpbayestools_hic_tpu.models.gp import gp_predict as j_gp_predict
 from gpbayestools_hic_tpu_torch.ops import _build
 from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
-from gpbayestools_hic_tpu_torch.models.gp import GPState, gp_predict
+from gpbayestools_hic_tpu_torch.ops import registry
+from gpbayestools_hic_tpu_torch.models.gp import GPConfig, GPState, gp_predict
 
 
 def _gp_problem(seed, b=3, n=50, d=5, m=37):
@@ -187,12 +188,16 @@ def test_plain_path_counts_no_launches():
     """CPU tensors take the plain version; only kernel launches count."""
     x, params, st, xq, _ = _gp_problem(4, b=2, n=20, d=3, m=5)
     fs = _port_state_f64(x, params, st)
-    fp.reset_launch_counts()
-    xq_t = torch.tensor(xq, requires_grad=True)
-    mean, qf = fp.fused_pc_predict(fs, xq_t)
-    (mean.sum() + qf.sum()).backward()
-    assert fp.LAUNCH_COUNTS == {"fused_predict_fwd": 0, "fused_predict_bwd": 0}
-    assert set(fp.KERNELS) == set(fp.LAUNCH_COUNTS)
+    registry.reset_launch_counts()
+    for prec in ("default", "high"):
+        xq_t = torch.tensor(xq, requires_grad=True)
+        mean, qf = fp.fused_pc_predict(fs, xq_t, prec)
+        (mean.sum() + qf.sum()).backward()
+    names = {"fused_predict_fwd", "fused_predict_bwd", "fused_predict_bwd_high"}
+    assert names <= set(registry.LAUNCH_COUNTS)
+    assert all(v == 0 for v in registry.LAUNCH_COUNTS.values())
+    assert set(registry.KERNELS) == set(registry.LAUNCH_COUNTS)
+    assert registry.KERNELS["fused_predict_bwd_high"][1].endswith("pallas_predict.py:281")
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -212,3 +217,55 @@ def test_fused_eligibility():
     assert fp.fused_eligible("RBF", torch.float32)
     assert not fp.fused_eligible("RBF", torch.float64)
     assert not fp.fused_eligible("Matern", torch.float32)
+
+
+def test_grad_precision_selects_the_backward_kernel():
+    """"default" -> the fast backward, "high"/"highest" -> the
+    full-precision one (its own entry point and counter), anything else
+    raises at call time, before any backward runs."""
+    assert GPConfig().grad_precision == "default"
+    assert fp.backward_kernel("default") == "fused_predict_bwd"
+    assert fp.backward_kernel("high") == fp.backward_kernel("highest") == "fused_predict_bwd_high"
+    x, params, st, xq, _ = _gp_problem(5, b=2, n=20, d=3, m=5)
+    fs = _port_state_f64(x, params, st)
+    with pytest.raises(ValueError, match="grad_precision"):
+        fp.fused_pc_predict(fs, torch.tensor(xq), "low")
+    with pytest.raises(ValueError, match="grad_precision"):
+        fp.fused_bwd(fs, torch.tensor(xq), None, None, None, "bf16")
+    src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
+    assert "int fused_predict_bwd_high(" in src and "launch_bwd<true>" in src
+
+
+def test_high_precision_gradient_matches_jax_pallas(interpret_force):
+    """grad_precision="high" in the port against the JAX fused_pc_predict
+    (its 3-pass backward, Pallas interpret mode) on O(1) factors: values
+    2e-4 and the gradient 5e-4 * scale, the tolerances of
+    tests/test_pallas_predict.py:69 and :105 for that kernel."""
+    x, params, _, xq, w = _gp_problem(6)
+    rng = np.random.default_rng(13)
+    b, n = params["log_amp"].shape[0], x.shape[0]
+    linv = np.tril(rng.normal(size=(b, n, n)) * 0.1) + np.eye(n)[None]
+    alpha = rng.normal(size=(b, n))
+    jfs = pp.attach_fused_factors(pp.build_fused_state(params, x), linv, alpha)
+    t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
+    fs = fp.build_fused_state({k: t(v) for k, v in params.items()}, t(x), t(linv), t(alpha))
+    xq32, w32 = xq.astype(np.float32), w.astype(np.float32)
+    grads = {}
+    for prec in ("high", "default"):
+        xq_t = torch.tensor(xq32, requires_grad=True)
+        mean, qf = fp.fused_pc_predict(fs, xq_t, prec)
+        (grads[prec],) = torch.autograd.grad(
+            (torch.sin(mean) * t(w32[0]).T).sum() + 1e-2 * (qf * t(w32[1]).T).sum(), xq_t)
+    jmean, jqf = pp.fused_pc_predict(jfs, jnp.asarray(xq32))
+    np.testing.assert_allclose(mean.detach().numpy(), np.asarray(jmean), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(qf.detach().numpy(), np.asarray(jqf), rtol=2e-4, atol=2e-4)
+
+    def jloss(q):
+        mn, qq = pp.fused_pc_predict(jfs, q)
+        return jnp.sum(jnp.sin(mn) * w32[0].T) + 1e-2 * jnp.sum(qq * w32[1].T)
+
+    jg = np.asarray(jax.grad(jloss)(jnp.asarray(xq32)))
+    scale = max(np.abs(jg).max(), 1.0)
+    np.testing.assert_allclose(grads["high"].numpy(), jg, atol=5e-4 * scale)
+    # on the CPU both settings take the plain (full-precision) backward
+    assert torch.equal(grads["high"], grads["default"])

@@ -2,11 +2,12 @@
 
 Run from the repository root on a CUDA machine:
 
-    python3 tools/torch_profile_posterior.py
+    python3 tools/torch_profile_posterior.py [--mode auto|generic|stitched]
 
 Builds the flagship chain with the port (17 parameters, 9 emulators x 4
-PCs on 1000 design points, 544 observables, ``gp_maxiter=0``), then at
-1024 walkers measures
+PCs on 1000 design points, 544 observables, ``gp_maxiter=0``).  With
+``--mode auto`` (the default: the Woodbury posterior that HMC samples) it
+measures at 1024 walkers
 
 - kernel launches per posterior value and per posterior gradient;
 - wall time per value and per value-and-gradient (host clock around
@@ -16,12 +17,20 @@ PCs on 1000 design points, 544 observables, ``gp_maxiter=0``), then at
   of device kernels per call and the top kernels by device time;
 - wall time of one windowed-HMC production step (L = 8).
 
+With ``--mode generic`` (dense per-block likelihood) or ``--mode stitched``
+(one 544 x 544 matrix per walker), the posterior the ensemble sampler
+calls, it measures the value only, on a half-ensemble of 512 walkers (what
+each of a step's two calls sees): kernel launches and wall time per call,
+the same ``torch.profiler`` breakdown, and the wall time of one
+stretch-move step of ``run_ensemble`` at 1024 walkers.
+
 Prints one JSON object as its last line (with the card's name and power
 limit).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -40,11 +49,15 @@ NWALKERS = 1024
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--mode", choices=("auto", "generic", "stitched"), default="auto")
+    mode = parser.parse_args().mode
     if not torch.cuda.is_available():
         print("torch_profile_posterior: no CUDA device", file=sys.stderr)
         return 2
-    from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
+    from gpbayestools_hic_tpu_torch.ops import registry
     from gpbayestools_hic_tpu_torch.samplers import hmc
+    from gpbayestools_hic_tpu_torch.samplers.ensemble import run_ensemble
     from gpbayestools_hic_tpu_torch.utils.synthetic import build_synthetic_chain
 
     dev = torch.device("cuda", 0)
@@ -53,14 +66,18 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-           "nwalkers": NWALKERS}
+           "nwalkers": NWALKERS, "mode": mode}
     with tempfile.TemporaryDirectory() as tmp:
         chain, _ = build_synthetic_chain(
             nev=1000, ndim=17, nobs_blocks=BLOCKS, npc=4, gp_maxiter=0,
             seed=0, tmpdir=tmp, device=dev,
         )
+        chain.likelihood_mode = mode
+        dense = mode != "auto"
         fn, state = chain.posterior_with_state()
-        x = torch.tensor(chain.random_pos(NWALKERS, seed=1), dtype=torch.float32, device=dev)
+        x_all = torch.tensor(chain.random_pos(NWALKERS, seed=1), dtype=torch.float32, device=dev)
+        x = x_all[: NWALKERS // 2] if dense else x_all
+        out["walkers_per_call"] = x.shape[0]
 
         def value():
             with torch.no_grad():
@@ -83,24 +100,27 @@ def main() -> int:
                 ts.append(1e3 * (time.perf_counter() - t0))
             return float(np.median(ts))
 
-        fp.reset_launch_counts()
+        registry.reset_launch_counts()
         value()
-        out["launches_per_value"] = dict(fp.LAUNCH_COUNTS)
-        fp.reset_launch_counts()
-        value_and_grad()
-        out["launches_per_value_and_grad"] = dict(fp.LAUNCH_COUNTS)
+        out["launches_per_value"] = dict(registry.LAUNCH_COUNTS)
         out["value_wall_ms"] = wall_ms(value)
-        out["value_and_grad_wall_ms"] = wall_ms(value_and_grad)
+        if not dense:
+            registry.reset_launch_counts()
+            value_and_grad()
+            out["launches_per_value_and_grad"] = dict(registry.LAUNCH_COUNTS)
+            out["value_and_grad_wall_ms"] = wall_ms(value_and_grad)
+        profiled = value if dense else value_and_grad
+        out["profiled_call"] = profiled.__name__
 
         from torch.profiler import ProfilerActivity, profile
 
         n_prof = 5
-        value_and_grad()
+        profiled()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n_prof):
-                value_and_grad()
+                profiled()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         dev_us = {}
@@ -114,9 +134,19 @@ def main() -> int:
         out["profile_wall_ms_per_call"] = 1e3 * wall / n_prof
         out["device_busy_ms_per_call"] = busy_ms
         out["device_idle_share"] = 1.0 - busy_ms / (1e3 * wall / n_prof)
+        unprofiled = out["value_wall_ms" if dense else "value_and_grad_wall_ms"]
+        out["device_idle_share_of_unprofiled_wall"] = 1.0 - busy_ms / unprofiled
         out["device_kernels_per_call"] = n_kernels / n_prof
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         out["top_device_ms_per_call"] = {k[:80]: v / 1e3 / n_prof for k, v in top}
+
+        if dense:
+            # one stretch-move step = two half-ensemble posterior calls
+            n_ens = 8
+            out["ensemble_step_wall_ms"] = wall_ms(
+                lambda: run_ensemble(fn, x_all, n_ens, 0, state=state), reps=3) / n_ens
+            print(json.dumps(out))
+            return 0
 
         # one windowed-HMC production step (L = 8, persist 0.7)
         tf = {"mu": torch.full((17,), 0.0, device=dev), "chol": torch.eye(17, device=dev),
