@@ -12,24 +12,29 @@ It imports nothing of JAX or the JAX package.  In order it
    parameters, 9 emulators x 4 PCs = 36 RBF GPs on 1000 design points,
    544 observables; ``gp_maxiter=0`` hyperparameters, factors on the card);
 3. checks each kernel against its plain PyTorch version at the shapes its
-   path gives it and times kernel, plain version, a library yardstick and
+   path gives it and times kernel, plain version, library yardsticks and
    the bound: the fused predict forward and both backwards at one
-   emulator's shape (b = 4, n = 1000, d = 17, m = 1024; the full-precision
-   backward against the plain backward in float64), the MVN elimination
-   on the path's own covariances at (b, n) = (1024, 170), (1024, 12) and,
-   stitched, (512, 544), one non-PD matrix planted in each batch;
+   emulator's shape (b = 4, n = 1000, d = 17, m = 1024; the forward
+   against its plain version in float32 and in float64, both backwards
+   against the plain backward in float64, and the fast backward must not
+   equal the full-precision one), the MVN elimination on the path's own
+   covariances at (b, n) = (1024, 170), (1024, 12) and, stitched,
+   (512, 544), one non-PD matrix planted in each batch;
 4. drives four paths, each with every launch count set to 0 just before
    it and read just after it (a path that never launched one of its
    kernels fails the run):
    a. ``likelihood_mode="auto"``: the f32 log-posterior on 1024 walkers,
-      held within 0.5 log-units of the f64 numpy oracle at 64 points, then
-      ``Chain.run_MCMC_HMC`` with 1024 walkers;
+      held within 0.5 log-units (and, for this route, 0.02) of the f64
+      numpy oracle at 64 points, then ``Chain.run_MCMC_HMC`` with 1024
+      walkers, and again with 256 walkers (``grad_precision="default"``);
    b. ``"generic"``: the log-posterior against the same gate and against
       the ``"auto"`` value, then ``Chain.run_mcmc`` (stretch move, 1024
       walkers, 32 burn-in + 64 production steps);
    c. ``"stitched"``: the log-posterior against the gate and the generic
       value, then a short ``run_mcmc`` (8 + 8 steps);
-   d. HMC with ``grad_precision="high"`` (256 walkers);
+   d. HMC with ``grad_precision="high"`` (256 walkers, the seed and steps
+      of the 256-walker run of a); the default's mean acceptance may not
+      fall more than 0.10 below it;
 5. prints the kernel table as one JSON line, the card's name and power
    limit, and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -65,18 +70,35 @@ HIGH_BURN = 8
 HIGH_STEPS = 16
 N_ORACLE = 64
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, TF32
+# on the tensor cores (dense), HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 # kernel-vs-plain tolerances, normwise (max |kernel - plain| / max |plain|):
 # both sides are float32 and differ only in summation order over the
 # n = 1000 contraction (and over the GP batch); the plain float32 path
-# itself sits at 2.5e-5 (values) / 4e-6 (gradient) of a float64
-# evaluation at this shape, so 20x / 250x that leaves room for the other
-# order while any tiling or masking fault shows up as O(1e-2) or worse.
+# itself sits at about 1e-5 of a float64 evaluation at this shape (the
+# float64 check below prints it), so 5e-4 leaves room for the other order
+# while any tiling or masking fault shows up as O(1e-2) or worse.
 TOL_VALUES = 5e-4
-TOL_GRAD = 1e-3
+# the forward against the plain forward in FLOAT64 on the same inputs,
+# mean and qf normwise: the 3xTF32 product keeps FP32-class accuracy (the
+# dropped lo*lo term is 2^-22 relative), so the kernel sits where the
+# float32 plain path does; ONE TF32 pass leaves 2^-11 per operand, which
+# the alpha-weighted mean turns into errors well above 1e-4, so a forward
+# that dropped to one pass cannot pass (tests/test_torch_fused_predict.py::
+# test_3xtf32_forward_arithmetic_on_real_factors).
+TOL_FWD64 = 1e-4
+# the fast backward against the plain backward in FLOAT64, normwise: its
+# G^T v product is one TF32 pass (rna rounding, 2^-11 relative per
+# operand, FP32 sums), the rest FP32.  That leaves O(1e-4); 2e-3 is ten
+# times looser than that and ten times tighter than the JAX package's own
+# fast-backward contract (atol 2e-2 max(max|g|, 1),
+# tests/test_pallas_predict.py:170-193), while a tiling or masking fault
+# shows up as O(1e-2) or worse.
+TOL_GRAD = 2e-3
 # the full-precision backward against the plain backward in FLOAT64 on the
 # same inputs, normwise: every product is FP32 FMA, so what is left is the
 # rounding of two chained FP32 sums over n = 1000.  Worst case n * 2^-24 =
@@ -93,6 +115,15 @@ TOL_GRAD_HIGH = 5e-5
 # covariances are worse conditioned than that test's, and the lp sums
 # O(n) terms, which is where the error comes from.
 TOL_MVN = 2e-4
+# the auto (Woodbury) route's f32 posterior against the f64 oracle: it sat
+# at 0.0068 log-units with the all-FP32 predict kernels; 0.02 is three
+# times that, well inside the package gate of 0.5, so a forward that lost
+# its FP32-class accuracy fails here first.
+AUTO_GATE = 0.02
+# the fast backward's gradient noise may cost HMC some acceptance, not
+# much: the default's mean acceptance against the full-precision run at the
+# same walkers, seed and steps
+MAX_ACCEPT_DROP = 0.10
 
 
 def log(*a):
@@ -122,22 +153,28 @@ def normwise(a, b) -> tuple[float, float]:
 
 
 def fwd_work(b, n, m, d, save_v):
-    """(flops, bytes) the forward needs on these inputs: the lower
-    triangle of G against k*, the mean and qf reductions, the k* build;
-    each input read once, each output written once (float32)."""
-    flops = b * (n * (n + 1) * m + 4 * n * m + n * m * (3 * d + 2))
+    """(TF32 tensor-core flops, FP32 flops, bytes) the forward needs on these
+    inputs: [G; alpha] against k* (lower triangle and the alpha row) in
+    three TF32 passes; the qf reduction and the k* build in FP32; each
+    input read once, each output written once (float32)."""
+    tc_flops = 3 * b * m * (n * (n + 1) + 2 * n)
+    fp32_flops = b * (2 * n * m + n * m * (3 * d + 2))
     nbytes = 4 * (b * n * n + b * n * d + m * d + b * d + b * n + b
                   + 2 * b * m + (b * n * m if save_v else 0))
-    return flops, nbytes
+    return tc_flops, fp32_flops, nbytes
 
 
-def bwd_work(b, n, m, d):
-    """(flops, bytes) of the backward: G^T against ct_v (lower triangle),
-    ct_v, the k* recompute and ct_z, the query cotangent."""
-    flops = b * (n * (n + 1) * m + 2 * n * m + n * m * (3 * d + 4) + 3 * n * m * d)
+def bwd_work(b, n, m, d, passes):
+    """(TF32 flops, FP32 flops, bytes) of a backward: G^T against v (lower
+    triangle) in ``passes`` TF32 passes (0: FP32); ct_v's scalings and the
+    alpha term, the k* recompute and ct_z, the query cotangent in FP32."""
+    prod = b * n * (n + 1) * m
+    fp32_flops = b * (2 * n * m + n * m * (3 * d + 4) + 3 * n * m * d)
     nbytes = 4 * (b * n * n + b * n * d + m * d + b * d + b * n + b
                   + b * n * m + 2 * b * m + b * m * d)
-    return flops, nbytes
+    if passes == 0:
+        return 0, prod + fp32_flops, nbytes
+    return passes * prod, fp32_flops, nbytes
 
 
 def mvn_work(b, n, n_bad=0):
@@ -152,9 +189,26 @@ def mvn_work(b, n, n_bad=0):
     return (b - n_bad) * per, 4 * (b * (n * (n + 1) // 2 + n) + b)
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes, tc_flops=0):
+    """The least time for the work: FP32 flops at the FP32 peak plus TF32
+    tensor-core flops at the TF32 peak, or the bytes at the memory rate,
+    whichever is larger."""
+    t_ops = flops / PEAK_FP32_FLOPS + tc_flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tf32_ms(fn):
+    """cuda_ms of ``fn`` with TF32 matmuls allowed (a yardstick only; the
+    port never allows them), the setting restored afterwards."""
+    import torch
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return cuda_ms(fn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def kernel_phase(chain, device):
@@ -173,6 +227,7 @@ def kernel_phase(chain, device):
     ct_mean = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=device)
     ct_qf = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=device)
 
+    fs64 = fp.FusedState(*(t.double() for t in fs))
     mean_k, qf_k, v_k = fp.fused_fwd(fs, xq, save_v=True)
     mean_p, qf_p, v_p = fp.fused_fwd_plain(fs, xq, save_v=True)
     torch.cuda.synchronize()
@@ -186,32 +241,40 @@ def kernel_phase(chain, device):
         f"summation order over n = {n}")
     if not max(r_mean, r_qf, r_v) <= TOL_VALUES:
         raise SystemExit("fused_predict_fwd disagrees with its plain version")
+    mean64, qf64, _ = fp.fused_fwd_plain(fs64, xq.double())
+    e_mean64, r_mean64 = normwise(mean_k, mean64)
+    e_qf64, r_qf64 = normwise(qf_k, qf64)
+    _, r_mean_p64 = normwise(mean_p, mean64)
+    _, r_qf_p64 = normwise(qf_p, qf64)
+    log(f"kernel fused_predict_fwd vs the plain forward in float64: mean max abs "
+        f"{e_mean64:.3e} (normwise {r_mean64:.3e}), qf max abs {e_qf64:.3e} "
+        f"(normwise {r_qf64:.3e}); the float32 plain path sits at {r_mean_p64:.3e} / "
+        f"{r_qf_p64:.3e}; tolerance {TOL_FWD64:g} normwise -- 3xTF32, FP32 sums")
+    if not max(r_mean64, r_qf64) <= TOL_FWD64:
+        raise SystemExit("fused_predict_fwd is not FP32-class against the float64 forward")
 
-    # kernel 2 against autograd through the plain forward
-    xq_a = xq.clone().requires_grad_(True)
-    mp, qp, _ = fp.fused_fwd_plain(fs, xq_a)
-    (g_plain,) = torch.autograd.grad((mp * ct_mean).sum() + (qp * ct_qf).sum(), xq_a)
+    # kernels 2 and 3 against the plain backward in float64 on the same inputs
     g_kern = fp.fused_bwd(fs, xq, v_k, ct_mean, ct_qf).sum(0)
-    torch.cuda.synchronize()
-    e_g, r_g = normwise(g_kern, g_plain)
-    log(f"kernel fused_predict_bwd vs autograd of the plain forward: max abs "
-        f"{e_g:.3e} (normwise {r_g:.3e}); tolerance {TOL_GRAD:g} normwise -- "
-        f"float32, different summation order over n = {n} and over the "
-        f"{b} GPs")
-    if not r_g <= TOL_GRAD:
-        raise SystemExit("fused_predict_bwd disagrees with autograd of the plain version")
-
-    # kernel 3 against the plain backward in float64 on the same inputs
     g_high = fp.fused_bwd(fs, xq, v_k, ct_mean, ct_qf, "high").sum(0)
     torch.cuda.synchronize()
-    g64 = fp.fused_bwd_plain(fp.FusedState(*(t.double() for t in fs)), xq.double(),
-                             v_k.double(), ct_mean.double(), ct_qf.double()).sum(0)
+    g_plain = fp.fused_bwd_plain(fs, xq, v_k, ct_mean, ct_qf).sum(0)
+    g64 = fp.fused_bwd_plain(fs64, xq.double(), v_k.double(), ct_mean.double(),
+                             ct_qf.double()).sum(0)
+    e_g, r_g = normwise(g_kern, g64)
+    _, r_plain64 = normwise(g_plain, g64)
+    log(f"kernel fused_predict_bwd vs the plain backward in float64: max abs "
+        f"{e_g:.3e} (normwise {r_g:.3e}; the float32 plain backward sits at "
+        f"{r_plain64:.3e}); tolerance {TOL_GRAD:g} normwise -- one TF32 pass on "
+        f"G^T v over n = {n}, the rest FP32")
+    if not r_g <= TOL_GRAD:
+        raise SystemExit("fused_predict_bwd disagrees with the float64 plain backward")
+    if torch.equal(g_kern, g_high):
+        raise SystemExit("fused_predict_bwd equals fused_predict_bwd_high bit for bit: "
+                         "the grad_precision knob is dead")
     e_h, r_h = normwise(g_high, g64)
-    _, r_fast64 = normwise(g_kern, g64)
     log(f"kernel fused_predict_bwd_high vs the plain backward in float64: max abs "
-        f"{e_h:.3e} (normwise {r_h:.3e}; the fast backward sits at {r_fast64:.3e}); "
-        f"tolerance {TOL_GRAD_HIGH:g} normwise -- every product FP32 FMA, two "
-        f"chained FP32 sums over n = {n}")
+        f"{e_h:.3e} (normwise {r_h:.3e}); tolerance {TOL_GRAD_HIGH:g} normwise -- "
+        f"every product FP32 FMA, two chained FP32 sums over n = {n}")
     if not r_h <= TOL_GRAD_HIGH:
         raise SystemExit("fused_predict_bwd_high disagrees with the float64 plain backward")
 
@@ -229,34 +292,33 @@ def kernel_phase(chain, device):
     per = len(states)
     t_fwd = cuda_ms(rot(lambda i, s: fp.fused_fwd(s, xq, save_v=True))) / per
     t_fwd_plain = cuda_ms(rot(lambda i, s: fp.fused_fwd_plain(s, xq, save_v=True))) / per
-    t_fwd_lib = cuda_ms(rot(lambda i, s: torch.bmm(s.G, kst[i]))) / per
+    fwd_lib = rot(lambda i, s: torch.bmm(s.G, kst[i]))
+    bwd_lib = rot(lambda i, s: torch.bmm(s.G.transpose(1, 2), cts[i]))
+    t_fwd_lib, t_fwd_lib32 = cuda_ms(fwd_lib) / per, tf32_ms(fwd_lib) / per
     t_bwd = cuda_ms(rot(lambda i, s: fp.fused_bwd(s, xq, vs[i], ct_mean, ct_qf))) / per
     t_high = cuda_ms(rot(lambda i, s: fp.fused_bwd(s, xq, vs[i], ct_mean, ct_qf, "high"))) / per
     t_bwd_plain = cuda_ms(rot(lambda i, s: fp.fused_bwd_plain(s, xq, vs[i], ct_mean, ct_qf))) / per
-    t_bwd_lib = cuda_ms(rot(lambda i, s: torch.bmm(s.G.transpose(1, 2), cts[i]))) / per
-    fl_f, by_f = fwd_work(b, n, m, d, save_v=True)
-    fl_b, by_b = bwd_work(b, n, m, d)
-    bd_f, why_f = bound_ms(fl_f, by_f)
-    bd_b, why_b = bound_ms(fl_b, by_b)
-    for name, t, tp, tl, bd, why, fl in (
-        ("fused_predict_fwd", t_fwd, t_fwd_plain, t_fwd_lib, bd_f, why_f, fl_f),
-        ("fused_predict_bwd", t_bwd, t_bwd_plain, t_bwd_lib, bd_b, why_b, fl_b),
-        ("fused_predict_bwd_high", t_high, t_bwd_plain, t_bwd_lib, bd_b, why_b, fl_b),
+    t_bwd_lib, t_bwd_lib32 = cuda_ms(bwd_lib) / per, tf32_ms(bwd_lib) / per
+    stats = {}
+    for name, t, tp, tl, tl32, (tc, fl, nbytes), err, precision in (
+        ("fused_predict_fwd", t_fwd, t_fwd_plain, t_fwd_lib, t_fwd_lib32,
+         fwd_work(b, n, m, d, save_v=True), max(e_mean, e_qf),
+         "3xTF32 tensor cores for [G; alpha] k*, FP32 k* and qf"),
+        ("fused_predict_bwd", t_bwd, t_bwd_plain, t_bwd_lib, t_bwd_lib32,
+         bwd_work(b, n, m, d, passes=1), e_g,
+         "one TF32 pass (tensor cores) for G^T v, FP32 for the rest"),
+        ("fused_predict_bwd_high", t_high, t_bwd_plain, t_bwd_lib, t_bwd_lib32,
+         bwd_work(b, n, m, d, passes=0), e_h, "FP32 FMA for every product"),
     ):
-        log(f"timing {name}: kernel {t:.4f} ms ({fl / t / 1e9:.1f} TFLOP/s), "
+        bd, why = bound_ms(fl, nbytes, tc)
+        log(f"timing {name}: kernel {t:.4f} ms ({(tc + fl) / t / 1e9:.1f} TFLOP/s), "
             f"plain {tp:.4f} ms, library yardstick (torch.bmm of the dominant "
-            f"product) {tl:.4f} ms, bound {bd:.4f} ms ({why})")
-    return {
-        "fused_predict_fwd": dict(max_abs_err=max(e_mean, e_qf), ms=t_fwd,
-                                  plain_ms=t_fwd_plain, bound_ms=bd_f,
-                                  bound_by=why_f, library_ms=t_fwd_lib),
-        "fused_predict_bwd": dict(max_abs_err=e_g, ms=t_bwd,
-                                  plain_ms=t_bwd_plain, bound_ms=bd_b,
-                                  bound_by=why_b, library_ms=t_bwd_lib),
-        "fused_predict_bwd_high": dict(max_abs_err=e_h, ms=t_high,
-                                       plain_ms=t_bwd_plain, bound_ms=bd_b,
-                                       bound_by=why_b, library_ms=t_bwd_lib),
-    }
+            f"product) {tl:.4f} ms in FP32, {tl32:.4f} ms in TF32, bound {bd:.4f} ms "
+            f"({why}: {tc / 1e9:.2f} GFLOP TF32 + {fl / 1e9:.2f} GFLOP FP32, "
+            f"{nbytes / 1e6:.1f} MB)")
+        stats[name] = dict(max_abs_err=err, ms=t, plain_ms=tp, bound_ms=bd, bound_by=why,
+                           library_ms=tl, library_tf32_ms=tl32, precision=precision)
+    return stats
 
 
 def mvn_phase(chain, device):
@@ -336,13 +398,14 @@ def mvn_phase(chain, device):
         # the kernels line reports each route at its largest flagship shape
         if name not in stats:
             stats[name] = dict(max_abs_err=e_p, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                               bound_by=why, library_ms=t_l)
+                               bound_by=why, library_ms=t_l, library_tf32_ms=None,
+                               precision="FP32 FMA")
     if failed:
         raise SystemExit(f"MVN kernel disagrees with its plain version: {failed}")
     return stats
 
 
-def check_posterior(chain, x, lp64, label, others=()):
+def check_posterior(chain, x, lp64, label, others=(), gate=None):
     """log_posterior on all walkers in the chain's current mode: finite,
     within the gate of the float64 oracle on the first points, and its
     distance to the values of the modes in ``others`` (name, values)."""
@@ -369,6 +432,9 @@ def check_posterior(chain, x, lp64, label, others=()):
             f"{float(np.abs(lp - other).max()):.4f} log-units")
     if not gap < PRECISION_GATE:
         raise SystemExit(f"{label}: f32 posterior outside the precision gate")
+    if gate is not None and not gap <= gate:
+        raise SystemExit(f"{label}: f32 posterior {gap:.4f} log-units from the f64 oracle, "
+                         f"above this route's {gate}")
     return lp
 
 
@@ -390,6 +456,7 @@ def hmc_run(chain, label, nwalkers, burn, steps):
     rep = chain.convergence_report()
     log(f"{label}: HMC convergence: max rhat {float(np.max(rep['rhat'])):.4f}, "
         f"max tau {float(np.nanmax(rep['tau'])):.2f}, ESS {rep['ess']:.0f}")
+    return float(np.mean(res.acceptance))
 
 
 def ensemble_run(chain, label, burn, steps):
@@ -419,11 +486,13 @@ def drive_paths(chain, tmp):
 
     x = chain.random_pos(NWALKERS, seed=2)
     lp64 = f64_log_posterior(chain, x[:N_ORACLE])
-    values = {}
+    values, accept = {}, {}
 
     def auto_hmc():
-        values["auto"] = check_posterior(chain, x, lp64, "auto")
+        values["auto"] = check_posterior(chain, x, lp64, "auto", gate=AUTO_GATE)
         hmc_run(chain, "auto", NWALKERS, HMC_BURN, HMC_STEPS)
+        accept["default"] = hmc_run(chain, "grad_precision=default", HIGH_WALKERS,
+                                    HIGH_BURN, HIGH_STEPS)
 
     def generic():
         chain.likelihood_mode = "generic"
@@ -442,7 +511,8 @@ def drive_paths(chain, tmp):
         for e in chain.emuList:
             e.gp_grad_precision = "high"
             e.gp_config = e.gp_config._replace(grad_precision="high")
-        hmc_run(chain, "grad_precision=high", HIGH_WALKERS, HIGH_BURN, HIGH_STEPS)
+        accept["high"] = hmc_run(chain, "grad_precision=high", HIGH_WALKERS, HIGH_BURN,
+                                 HIGH_STEPS)
 
     paths = (
         ("auto+hmc", auto_hmc, ("fused_predict_fwd", "fused_predict_bwd")),
@@ -465,6 +535,11 @@ def drive_paths(chain, tmp):
             raise SystemExit(f"path {name} never launched {missing}")
     if counts["hmc grad_precision=high"]["fused_predict_bwd"] != 0:
         raise SystemExit("grad_precision='high' still ran the fast backward")
+    log(f"HMC mean acceptance at {HIGH_WALKERS} walkers, same seed and steps: "
+        f"grad_precision=default {accept['default']:.3f}, high {accept['high']:.3f} "
+        f"(the default may be at most {MAX_ACCEPT_DROP} below)")
+    if accept["default"] < accept["high"] - MAX_ACCEPT_DROP:
+        raise SystemExit("the fast backward's gradients cost HMC too much acceptance")
     return counts
 
 

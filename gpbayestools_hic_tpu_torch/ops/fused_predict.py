@@ -7,33 +7,38 @@ evaluates, per GP k of an emulator's batch and per walker batch::
     mean  = kstar^T alpha                              # (m,)
     qform = |G kstar|^2,  G = L^-1                     # (m,)  -> var = kdiag - qform
 
-Kernels (``csrc/fused_predict.cu``, built by :mod:`._build`):
+Kernels (``csrc/fused_predict.cu``, built by :mod:`._build`), each with its
+precision contract and its bound on the H100 at the flagship shape
+(b = 4, n = 1000, d = 17, m = 1024):
 
 - ``fused_predict_fwd`` replaces ``gpbayestools_hic_tpu/ops/pallas_predict.py:
-  _fwd_kernel``: k* from direct FP32 differences, v = G k* and the mean in
-  one contraction (alpha as row n), the masked quadratic form, and v saved
-  for the backward when a gradient is needed.
+  _fwd_kernel``.  Value path, FP32-class accuracy for good (var = kdiag -
+  qform cancels, so one TF32 or bf16 pass is not allowed): k* from direct
+  FP32 differences, built once per call by a pre-pass; v = [G; alpha] k*
+  on the tensor cores in 3xTF32 (hi*hi + hi*lo + lo*hi, FP32 accumulation),
+  the mean from the alpha row, the masked quadratic form over the G rows,
+  and v saved for the backward when a gradient is needed.  Bound ~0.028 ms
+  (the 3xTF32 product at 495 TFLOP/s plus the k* build at 67 TFLOP/s FP32).
 - ``fused_predict_bwd`` replaces ``pallas_predict.py:_bwd_kernel_fast``:
-  ct_k* = G^T (2 v ct_qf) + alpha ct_mean, ct_z = k* ct_k* where z < 0, and
-  the query cotangent per GP.  Its two cotangent products may drop below
-  FP32 (today they are FP32 FMA); ``grad_precision="default"`` selects it.
+  ct_k* = 2 ct_qf G^T v + alpha ct_mean, ct_z = k* ct_k* where z < 0, and
+  the query cotangent per GP.  ``grad_precision="default"`` selects it; its
+  G^T v product runs in ONE TF32 pass on the tensor cores (the TPU ran it
+  in one bf16 pass), everything else in FP32.  Bound ~0.015 ms.
 - ``fused_predict_bwd_high`` replaces ``pallas_predict.py:_bwd_kernel``: the
-  same cotangent with every product in FP32 FMA or better, for good;
-  ``grad_precision="high"`` / ``"highest"`` select it.
+  same cotangent with every product in FP32 FMA, for good;
+  ``grad_precision="high"`` / ``"highest"`` select it.  Bound 0.068 ms at
+  67 TFLOP/s FP32.
 
-What bounds them on the H100: both are length-n contractions over the
-(n, n) factor -- 2 n^2 m flops per GP against 4 n^2 bytes of G -- so at the
-flagship shape (n = 1000, m = 1024) they are bound by FP32 operations
-(~500 flop/byte, far above the card's ~20 flop/byte FP32 ridge).  The
-design keeps k* out of device memory (each block recomputes its k* chunk
-from xs and the query tile), skips the zero upper triangle of G (about half
-the product), and accumulates 4x4 outputs per thread in registers from
-shared-memory tiles.  Tensor cores (3xTF32 / wgmma) are later work.
+The tensor-core kernels run ``mma.sync`` TF32 tiles from a ``cp.async``
+ring of shared-memory stages, and pair the light and heavy row tiles of
+the triangular factor so that every block does the same work (the source's
+header says more).
 
-The port keeps none of the TPU layout (no bf16 hi/lo splits, no feature
-padding to 128, no 1e30 padding rows): the fused state is plain
+The port keeps none of the TPU layout (no bf16 hi/lo splits in memory, no
+feature padding to 128, no 1e30 padding rows): the fused state is plain
 ``xs = x / ls`` (b, n, d), ``G`` (b, n, n), ``alpha`` (b, n), ``amp`` (b,),
-``inv_ls`` (b, d) and ``kdiag`` (b,), all float32.
+``inv_ls`` (b, d) and ``kdiag`` (b,), all float32.  The kernels split G
+into TF32 halves as they read it.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version.  There is no fallback from one to the other.
@@ -153,8 +158,8 @@ def _lib():
 
     lib = load("fused_predict")
     if not getattr(lib, "_gpbt_typed", False):
-        lib.fused_predict_row_block.restype = _I
-        lib.fused_predict_row_block.argtypes = []
+        lib.fused_predict_scratch.restype = ctypes.c_longlong
+        lib.fused_predict_scratch.argtypes = [_I] * 5
         lib.fused_predict_max_dim.restype = _I
         lib.fused_predict_max_dim.argtypes = []
         lib.fused_predict_fwd.restype = _I
@@ -190,20 +195,19 @@ def _fwd_cuda(fs: FusedState, xq: torch.Tensor, save_v: bool):
     lib = _lib()
     if d > lib.fused_predict_max_dim():
         raise ValueError(f"fused predict supports d <= {lib.fused_predict_max_dim()}, got {d}")
-    bi = lib.fused_predict_row_block()
-    nrb = (n + 1 + bi - 1) // bi
     opts = dict(dtype=torch.float32, device=xq.device)
     mean = torch.empty((b, m), **opts)
     qf = torch.empty((b, m), **opts)
-    qf_part = torch.empty((b, nrb, m), **opts)
+    # k* and the per-block partial sums of qf
+    scratch = torch.empty(lib.fused_predict_scratch(0, b, n, m, d), **opts)
     v = torch.empty((b, n, m), **opts) if save_v else None
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     with torch.cuda.device(xq.device):
         err = lib.fused_predict_fwd(
             fs.xs.data_ptr(), xq.data_ptr(), fs.inv_ls.data_ptr(),
             fs.G.data_ptr(), fs.alpha.data_ptr(), fs.amp.data_ptr(),
-            mean.data_ptr(), qf_part.data_ptr(), qf.data_ptr(),
-            v.data_ptr() if save_v else None, b, n, m, d, stream,
+            mean.data_ptr(), qf.data_ptr(), v.data_ptr() if save_v else None,
+            scratch.data_ptr(), b, n, m, d, stream,
         )
     raise_on(err, "fused_predict_fwd launch")
     count_launch("fused_predict_fwd")
@@ -216,10 +220,10 @@ def _bwd_cuda(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
     if v.shape != (b, n, m) or ct_mean.shape != (b, m) or ct_qf.shape != (b, m):
         raise ValueError(f"{kernel}: v / cotangent shape mismatch")
     lib = _lib()
-    bi = lib.fused_predict_row_block()
-    nlb = (n + bi - 1) // bi
     opts = dict(dtype=torch.float32, device=xq.device)
-    ct_part = torch.empty((b, nlb, m, d), **opts)
+    entry = 1 if kernel == "fused_predict_bwd" else 2
+    # per-block partial sums of the query cotangent
+    ct_part = torch.empty(lib.fused_predict_scratch(entry, b, n, m, d), **opts)
     ct_q = torch.empty((b, m, d), **opts)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     with torch.cuda.device(xq.device):

@@ -7,12 +7,17 @@ JAX-configuring conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
-Tolerances: float32 on both sides, differing only in summation order over
-the length-n contraction: 5e-4 normwise for values, 1e-3 for the
-gradient, as chip_smoke.py states.  The full-precision backward is held
-against the plain backward in float64 at 5e-5 normwise, and the MVN
-elimination against its plain version at 2e-4 relative (the tolerance of
-the JAX package's own kernel test).
+Tolerances, normwise, as chip_smoke.py states them:
+- the forward (3xTF32 product, FP32 k*) against its float32 plain version
+  5e-4 (summation order over the length-n contraction), and against the
+  plain forward in float64 1e-4 in mean and qf (FP32-class; one TF32 pass
+  would miss it);
+- the fast backward (one TF32 pass on G^T v) against the plain backward in
+  float64 2e-3, ten times tighter than the JAX package's fast-backward
+  contract, and never bit-equal to the full-precision backward;
+- the full-precision backward against the plain backward in float64 5e-5;
+- the MVN elimination against its plain version 2e-4 relative (the
+  tolerance of the JAX package's own kernel test).
 """
 
 import numpy as np
@@ -55,21 +60,32 @@ def _rel(a, b):
     return (a - b).abs().max().item() / b.abs().max().item()
 
 
-@pytest.mark.parametrize("m", [200, 64, 1])
-def test_cuda_kernels_match_plain(cuda_device, m):
-    """Kernel 1 (mean, qf, saved v) and kernel 2 (per-GP query cotangent)
-    vs the plain version on the same inputs; each call launches once."""
-    fs, xq, ctm, ctq = _problem(cuda_device, m=m)
+def _f64(fs, *ts):
+    return (fp.FusedState(*(t.double() for t in fs)),) + tuple(t.double() for t in ts)
+
+
+@pytest.mark.parametrize("n", [1, 40, 257, 1000])
+@pytest.mark.parametrize("m", [1, 37, 200, 1024])
+def test_cuda_kernels_match_plain(cuda_device, n, m):
+    """Kernel 1 (mean, qf, saved v) against the plain forward in float32
+    and in float64, kernel 2 (per-GP query cotangent) against the plain
+    backward in float64, at ragged n and m (16-byte and 4-byte copy routes,
+    partial tiles, odd row-tile pairs); each call launches once."""
+    fs, xq, ctm, ctq = _problem(cuda_device, n=n, m=m)
     before = dict(LAUNCH_COUNTS)
     mk, qk, vk = fp.fused_fwd(fs, xq, save_v=True)
-    mp, qp, vp = fp.fused_fwd_plain(fs, xq, save_v=True)
     gk = fp.fused_bwd(fs, xq, vk, ctm, ctq)
-    gp = fp.fused_bwd_plain(fs, xq, vp, ctm, ctq)
     torch.cuda.synchronize()
     assert LAUNCH_COUNTS["fused_predict_fwd"] == before["fused_predict_fwd"] + 1
     assert LAUNCH_COUNTS["fused_predict_bwd"] == before["fused_predict_bwd"] + 1
-    for a, b_, tol in ((mk, mp, 5e-4), (qk, qp, 5e-4), (vk, vp, 5e-4), (gk, gp, 1e-3)):
-        assert _rel(a, b_) <= tol
+    mp, qp, vp = fp.fused_fwd_plain(fs, xq, save_v=True)
+    for a, b_ in ((mk, mp), (qk, qp), (vk, vp)):
+        assert _rel(a, b_) <= 5e-4
+    fs64, xq64, v64, ctm64, ctq64 = _f64(fs, xq, vk, ctm, ctq)
+    m64, q64, _ = fp.fused_fwd_plain(fs64, xq64)
+    assert _rel(mk.double(), m64) <= 1e-4 and _rel(qk.double(), q64) <= 1e-4
+    g64 = fp.fused_bwd_plain(fs64, xq64, v64, ctm64, ctq64)
+    assert _rel(gk.double(), g64) <= 2e-3
 
 
 def test_cuda_autograd_function_matches_plain_autograd(cuda_device):
@@ -109,12 +125,74 @@ def test_cuda_high_precision_backward_matches_f64_plain(cuda_device, m):
     torch.cuda.synchronize()
     assert LAUNCH_COUNTS["fused_predict_bwd_high"] == before["fused_predict_bwd_high"] + 2
     assert LAUNCH_COUNTS["fused_predict_bwd"] == before["fused_predict_bwd"]
-    g64 = fp.fused_bwd_plain(fp.FusedState(*(t.double() for t in fs)), xq.double(),
-                             v.double(), ctm.double(), ctq.double())
+    g64 = fp.fused_bwd_plain(*_f64(fs, xq, v, ctm, ctq))
     assert _rel(g_high.double(), g64) <= 5e-5
     assert torch.equal(g_high, g_highest)
     with pytest.raises(ValueError, match="grad_precision"):
         fp.fused_bwd(fs, xq, v, ctm, ctq, "low")
+
+
+def test_cuda_fast_backward_is_tf32_not_high(cuda_device):
+    """Kernel 2 (one TF32 pass on G^T v) stays within 2e-3 of the float64
+    backward but is not bit-equal to kernel 3 (a dead grad_precision knob
+    would make them equal), and misses kernel 3's 5e-5: it really is the
+    reduced-precision program."""
+    fs, xq, ctm, ctq = _problem(cuda_device, n=1000, m=256)
+    _, _, v = fp.fused_fwd(fs, xq, save_v=True)
+    g_fast = fp.fused_bwd(fs, xq, v, ctm, ctq)
+    g_high = fp.fused_bwd(fs, xq, v, ctm, ctq, "high")
+    torch.cuda.synchronize()
+    g64 = fp.fused_bwd_plain(*_f64(fs, xq, v, ctm, ctq))
+    assert not torch.equal(g_fast, g_high)
+    assert 5e-5 < _rel(g_fast.double(), g64) <= 2e-3
+
+
+def _illconditioned_posterior(dev, rng, grad_precision):
+    """A GP posterior with Hessian condition ~1e6 (per-observable precisions
+    spanning 1e3), driving HMC through the CUDA kernels: values from the
+    forward, gradients from the full-precision ("high") or the one-pass
+    TF32 ("default") backward.  The port of the JAX package's helper of
+    the same name (tests/test_pallas_predict.py)."""
+    b, n, d = 4, 48, 4
+    x = rng.uniform(0, 1, size=(n, d))
+    params = {
+        "log_ls": np.log(rng.uniform(0.5, 3.0, size=(b, d))),
+        "log_amp": np.log(rng.uniform(0.8, 1.2, size=b)),
+        "log_noise": np.log(np.full(b, 0.05)),
+    }
+    linv = np.tril(rng.normal(size=(b, n, n)) * 0.1) + np.eye(n)[None]
+    alpha = rng.normal(size=(b, n))
+    t = lambda a: torch.tensor(np.asarray(a), device=dev)  # noqa: E731
+    fs = fp.build_fused_state({k: t(v) for k, v in params.items()}, t(x), t(linv), t(alpha))
+    target = torch.tensor([0.2, -0.1, 0.3, 0.0], dtype=torch.float32, device=dev)
+    inv_sigma = torch.tensor([1e3, 1e2, 1e1, 1e0], dtype=torch.float32, device=dev)
+
+    def log_prob(state, xq):
+        mn, _ = fp.fused_pc_predict(state, xq.float(), grad_precision)
+        r = (mn - target[None, :]) * inv_sigma[None, :]
+        return -0.5 * (r * r).sum(-1).to(xq.dtype)
+
+    return log_prob, fs
+
+
+def test_cuda_fastbwd_acceptance_safe_on_illconditioned_posterior(cuda_device):
+    """The JAX package's safety envelope of grad_precision="default", on the
+    port: on a posterior whose curvature spans 1e6, the TF32 backward keeps
+    HMC acceptance within 0.20 of the full-precision gradient's and above
+    0.4 (the thresholds of tests/test_pallas_predict.py)."""
+    from gpbayestools_hic_tpu_torch.samplers.hmc import run_hmc
+
+    accs = {}
+    for precision in ("high", "default"):
+        log_prob, fs = _illconditioned_posterior(cuda_device, np.random.default_rng(7),
+                                                 precision)
+        x0 = np.random.default_rng(8).uniform(0.3, 0.7, (32, 4))
+        res = run_hmc(log_prob, x0, 96, seed=3, state=fs, lo=np.zeros(4), hi=np.ones(4),
+                      n_leapfrog=6, warmup=64, device=cuda_device)
+        accs[precision] = float(np.mean(res.acceptance))
+        assert np.all(np.isfinite(res.chain)), precision
+    assert accs["default"] > accs["high"] - 0.20, accs
+    assert accs["default"] > 0.4, accs
 
 
 def _mvn_problem(dev, b, n, seed=0, bad=None):

@@ -233,8 +233,10 @@ def _imports(path: Path):
 
 
 def test_isolation_ast_scan():
-    """No port file (nor chip_smoke.py) imports jax or the JAX package."""
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """No port file (nor chip_smoke.py, nor the port's tools/torch_*.py)
+    imports jax or the JAX package."""
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "tools").glob("torch_*.py")))
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

@@ -169,6 +169,104 @@ def test_f32_mean_accuracy_on_real_factors(interpret_force):
     assert port_err < 5e-5 and jax_err > 2e-4, (port_err, jax_err)
 
 
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 explicit mantissa bits), ties
+    away from zero: what ``cvt.rna.tf32.f32`` gives the tensor cores."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    hi = _round_tf32(x)
+    return hi, _round_tf32(x - hi)
+
+
+def test_round_tf32_helper():
+    """Round to nearest on the low 13 mantissa bits, ties away from zero,
+    sign kept; TF32 values are fixed points."""
+    u = 2.0 ** -10  # TF32 ulp at 1
+    x = torch.tensor([1 + u / 2, 1 + u / 4, -(1 + u / 2), 1 + 3 * u / 4, 3.0, 0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([1 + u, 1.0, -(1 + u), 1 + u, 3.0, 0.0], dtype=torch.float32)
+    assert torch.equal(_round_tf32(x), want)
+    y = _round_tf32(torch.randn(1000, generator=torch.Generator().manual_seed(0)))
+    assert torch.equal(_round_tf32(y), y)
+    assert torch.all(y.view(torch.int32) & 0x1FFF == 0)
+
+
+def _real_factor_problem():
+    """The real GP factor of test_f32_mean_accuracy_on_real_factors (alpha
+    up to ~15), as the port's float32 state, its float64 copy, the JAX
+    fused state and queries / cotangents."""
+    x, params, st, xq, w = _gp_problem(2)
+    linv, alpha = np.asarray(st.linv), np.asarray(st.alpha_vec)
+    t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
+    fs = fp.build_fused_state({k: t(v) for k, v in params.items()}, t(x), t(linv), t(alpha))
+    fs64 = fp.FusedState(*(a.double() for a in fs))
+    jfs = pp.attach_fused_factors(pp.build_fused_state(params, x), linv, alpha)
+    return fs, fs64, jfs, xq.astype(np.float32), w.astype(np.float32)
+
+
+def _normwise(a, ref):
+    return float((a.double() - ref).abs().max() / ref.abs().max())
+
+
+def test_3xtf32_forward_arithmetic_on_real_factors(interpret_force):
+    """The forward kernel's arithmetic -- v = [G; alpha] k* as hi*hi + hi*lo
+    + lo*hi of TF32 halves with FP32 sums -- on the real GP factor stays
+    within 1e-4 normwise of a float64 evaluation in mean and qf (the check
+    chip_smoke.py makes on the card), closer than the JAX Pallas kernel's
+    bf16 3-pass mean; one TF32 pass on the same product misses 1e-4, so the
+    tolerance tells the two apart."""
+    fs, fs64, jfs, xq32, _ = _real_factor_problem()
+    xq = torch.tensor(xq32)
+    m64, q64, _ = fp.fused_fwd_plain(fs64, xq.double())
+    _, _, kstar = fp._kstar_plain(fs, xq)
+    n = fs.G.shape[1]
+    gaug = torch.cat([fs.G, fs.alpha[:, None, :]], 1)
+    (gh, gl), (kh, kl) = _split_tf32(gaug), _split_tf32(kstar)
+    passes = {
+        "3xtf32": torch.bmm(gl, kh) + torch.bmm(gh, kl) + torch.bmm(gh, kh),
+        "1xtf32": torch.bmm(gh, kh),
+    }
+    err = {name: (_normwise(v[:, n], m64), _normwise((v[:, :n] ** 2).sum(1), q64))
+           for name, v in passes.items()}
+    jmean, _ = pp.fused_pc_predict(jfs, jnp.asarray(xq32))
+    jax_err = _normwise(torch.tensor(np.asarray(jmean)).T, m64)
+    assert max(err["3xtf32"]) <= 1e-4, err
+    assert err["3xtf32"][0] < jax_err, (err, jax_err)
+    assert max(err["1xtf32"]) > 1e-4, err
+
+
+def test_tf32_backward_arithmetic_beats_jax_bf16(interpret_force):
+    """The fast backward kernel's arithmetic -- one TF32 pass on G^T v, the
+    2 ct_qf scaling, the alpha ct_mean term, ct_z and the query contraction
+    in FP32 -- on the real GP factor is closer to the float64 gradient than
+    the JAX fast backward's one bf16 pass (Pallas interpret mode), and well
+    inside chip_smoke.py's 2e-3 normwise tolerance for the kernel."""
+    fs, fs64, jfs, xq32, w32 = _real_factor_problem()
+    xq = torch.tensor(xq32)
+    ctm, ctq = torch.tensor(w32[0]), torch.tensor(w32[1])
+    _, _, v64 = fp.fused_fwd_plain(fs64, xq.double(), save_v=True)
+    g64 = fp.fused_bwd_plain(fs64, xq.double(), v64, ctm.double(), ctq.double()).sum(0)
+    _, _, v = fp.fused_fwd_plain(fs, xq, save_v=True)
+    qs, z, kstar = fp._kstar_plain(fs, xq)
+    ct_k = (2.0 * ctq[:, None, :] * torch.bmm(_round_tf32(fs.G).transpose(1, 2), _round_tf32(v))
+            + fs.alpha[:, :, None] * ctm[:, None, :])
+    ct_z = torch.where(z < 0, kstar * ct_k, torch.zeros_like(kstar))
+    ct_qs = torch.stack([(ct_z * (fs.xs[:, :, j, None] - qs[:, None, :, j])).sum(1)
+                         for j in range(qs.shape[-1])], dim=-1)
+    g_tf32 = (ct_qs * fs.inv_ls[:, None, :]).sum(0)
+
+    def jloss(q):
+        mn, qq = pp.fused_pc_predict_fastbwd(jfs, q)
+        return jnp.sum(mn * w32[0].T) + jnp.sum(qq * w32[1].T)
+
+    g_jax = torch.tensor(np.asarray(jax.grad(jloss)(jnp.asarray(xq32))))
+    e_tf32, e_jax = _normwise(g_tf32, g64), _normwise(g_jax, g64)
+    assert e_tf32 < e_jax and e_tf32 < 2e-3, (e_tf32, e_jax)
+
+
 def test_plain_backward_matches_autograd_of_plain_forward():
     """The hand-written plain backward (the kernel's reference) equals
     autograd through the plain forward, f64 to 1e-10 (same arithmetic,
@@ -233,7 +331,8 @@ def test_grad_precision_selects_the_backward_kernel():
     with pytest.raises(ValueError, match="grad_precision"):
         fp.fused_bwd(fs, torch.tensor(xq), None, None, None, "bf16")
     src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
-    assert "int fused_predict_bwd_high(" in src and "launch_bwd<true>" in src
+    assert "int fused_predict_bwd_high(" in src and "bwd_fp32_kernel<<<" in src
+    assert "int fused_predict_bwd(" in src and "bwd_tc_kernel<true>" in src
 
 
 def test_high_precision_gradient_matches_jax_pallas(interpret_force):
@@ -269,3 +368,22 @@ def test_high_precision_gradient_matches_jax_pallas(interpret_force):
     np.testing.assert_allclose(grads["high"].numpy(), jg, atol=5e-4 * scale)
     # on the CPU both settings take the plain (full-precision) backward
     assert torch.equal(grads["high"], grads["default"])
+
+
+def test_predict_variant_edits_apply_to_the_source():
+    """tools/torch_predict_variants.py times design alternatives of the
+    forward kernel as text edits of csrc/fused_predict.cu; every edit must
+    still apply exactly once, and the kept variant is the source itself."""
+    import importlib.util
+
+    path = _build._PKG_DIR.parent / "tools" / "torch_predict_variants.py"
+    spec = importlib.util.spec_from_file_location("torch_predict_variants", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
+    assert set(tool.VARIANTS) == {"kept", "g_split_in_memory", "cvt_rounding", "no_promotion",
+                                  "rows_1_at_a_time", "rows_16_at_a_time", "no_copies",
+                                  "no_products"}
+    assert tool.variant_source(src, tool.VARIANTS["kept"]) == src
+    for name, edits in tool.VARIANTS.items():
+        assert tool.variant_source(src, edits) != src or name == "kept"
