@@ -18,8 +18,10 @@ It imports nothing of JAX or the JAX package.  In order it
    against its plain version in float32 and in float64, both backwards
    against the plain backward in float64, and the fast backward must not
    equal the full-precision one), the MVN elimination on the path's own
-   covariances at (b, n) = (1024, 170), (1024, 12) and, stitched,
-   (512, 544), one non-PD matrix planted in each batch;
+   covariances at (b, n) = (1024, 170), (1024, 73), (1024, 12) and,
+   stitched, (512, 544), one non-PD matrix planted in each batch (the MVN
+   kernel timed by replaying a CUDA graph of its launches, so that the
+   host's enqueue stays out of the measured time);
 4. drives four paths, each with every launch count set to 0 just before
    it and read just after it (a path that never launched one of its
    kernels fails the run):
@@ -100,12 +102,13 @@ TOL_FWD64 = 1e-4
 # shows up as O(1e-2) or worse.
 TOL_GRAD = 2e-3
 # the full-precision backward against the plain backward in FLOAT64 on the
-# same inputs, normwise: every product is FP32 FMA, so what is left is the
-# rounding of two chained FP32 sums over n = 1000.  Worst case n * 2^-24 =
-# 6e-5 per sum; the expected sqrt(n) growth is ~4e-6 (the float32 plain
-# path's own distance from float64 at this shape).  5e-5 is ten times the
-# expected error and ten times below what one TF32 product leaves (2^-11 =
-# 5e-4), so a backward that dropped below FP32 cannot pass.
+# same inputs, normwise: FP32-class (3xTF32 with FP32 promotion), so what
+# is left is the rounding of two chained FP32 sums over n = 1000.  Worst
+# case n * 2^-24 = 6e-5 per sum; the expected sqrt(n) growth is ~4e-6 (the
+# float32 plain path's own distance from float64 at this shape).  5e-5 is
+# ten times the expected error and below what one TF32 pass leaves (1.4e-4
+# for the fast backward here), so a backward that dropped below FP32-class
+# cannot pass.
 TOL_GRAD_HIGH = 5e-5
 # the MVN elimination against its plain version, both float32 and the same
 # recurrence in another operation order (the kernel scales the row, the
@@ -144,6 +147,32 @@ def cuda_ms(fn, reps: int = 9) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
+    """Device time of one call of ``fn`` in ms: ``reps`` calls captured in
+    one CUDA graph, replayed once to warm up, then ``replays`` times between
+    two CUDA events.  The host's enqueue of each launch stays outside the
+    timed window, which it does not with :func:`cuda_ms` when a kernel is
+    shorter than its launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def normwise(a, b) -> tuple[float, float]:
@@ -274,7 +303,7 @@ def kernel_phase(chain, device):
     e_h, r_h = normwise(g_high, g64)
     log(f"kernel fused_predict_bwd_high vs the plain backward in float64: max abs "
         f"{e_h:.3e} (normwise {r_h:.3e}); tolerance {TOL_GRAD_HIGH:g} normwise -- "
-        f"every product FP32 FMA, two chained FP32 sums over n = {n}")
+        f"3xTF32 G^T v with FP32 promotion, two chained FP32 sums over n = {n}")
     if not r_h <= TOL_GRAD_HIGH:
         raise SystemExit("fused_predict_bwd_high disagrees with the float64 plain backward")
 
@@ -308,7 +337,8 @@ def kernel_phase(chain, device):
          bwd_work(b, n, m, d, passes=1), e_g,
          "one TF32 pass (tensor cores) for G^T v, FP32 for the rest"),
         ("fused_predict_bwd_high", t_high, t_bwd_plain, t_bwd_lib, t_bwd_lib32,
-         bwd_work(b, n, m, d, passes=0), e_h, "FP32 FMA for every product"),
+         bwd_work(b, n, m, d, passes=3), e_h,
+         "3xTF32 tensor cores for G^T v (FP32 promotion per step), FP32 for the rest"),
     ):
         bd, why = bound_ms(fl, nbytes, tc)
         log(f"timing {name}: kernel {t:.4f} ms ({(tc + fl) / t / 1e9:.1f} TFLOP/s), "
@@ -317,20 +347,17 @@ def kernel_phase(chain, device):
             f"({why}: {tc / 1e9:.2f} GFLOP TF32 + {fl / 1e9:.2f} GFLOP FP32, "
             f"{nbytes / 1e6:.1f} MB)")
         stats[name] = dict(max_abs_err=err, ms=t, plain_ms=tp, bound_ms=bd, bound_by=why,
-                           library_ms=tl, library_tf32_ms=tl32, precision=precision)
+                           library_ms=tl, library_tf32_ms=tl32, precision=precision,
+                           timing="CUDA events around 9 rotations over the 9 emulators")
     return stats
 
 
-def mvn_phase(chain, device):
-    """The MVN elimination against its plain version on the covariances the
-    dense paths hand it: the 170- and the 12-observable block at 1024
-    walkers (shared-memory route) and the stitched 544 x 544 matrix at a
-    half-ensemble of 512 (panel route), one matrix of each batch replaced
-    by a non-PD one.  Library yardstick: the port's ``mvn_loglike_batch``
-    (``cholesky_ex`` + ``solve_triangular`` + reductions)."""
+def mvn_inputs(chain, device):
+    """``block_inputs(idx, m)``: the residual y (m, n) and covariance
+    (m, n, n) that the generic path hands the MVN kernel for emulator block
+    ``idx`` (its emulator's predictive covariance plus the experimental
+    variances) at the first m of 1024 walkers drawn with seed 3."""
     import torch
-    from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
-    from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
 
     x = torch.tensor(chain.random_pos(NWALKERS, seed=3), dtype=torch.float32, device=device)
     exp = torch.tensor(np.asarray(chain.expdata).flatten(), dtype=torch.float32, device=device)
@@ -344,6 +371,25 @@ def mvn_phase(chain, device):
             mu, cov = chain.emuList[idx]._predict_full(x[:m], torch.zeros(m, device=device))
         return (mu - exp[i0:i1]).contiguous(), (cov + torch.diag(exp_var[i0:i1])).contiguous()
 
+    return block_inputs
+
+
+def mvn_phase(chain, device):
+    """The MVN elimination against its plain version on the covariances the
+    dense paths hand it: the 170-, 73- and 12-observable blocks at 1024
+    walkers (shared-memory route) and the stitched 544 x 544 matrix at a
+    half-ensemble of 512 (panel route), one matrix of each batch replaced
+    by a non-PD one.  The kernel is timed by CUDA-graph replay
+    (:func:`graph_ms`); the plain version and the library yardstick, the
+    port's ``mvn_loglike_batch`` (``cholesky_ex`` + ``solve_triangular`` +
+    reductions), with CUDA events around their eager calls."""
+    import torch
+    from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
+    from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
+
+    block_inputs = mvn_inputs(chain, device)
+    offsets = np.cumsum([0] + list(BLOCKS))
+
     def stitched_inputs(m):
         ys, cov = [], torch.zeros((m, chain.nobs, chain.nobs), dtype=torch.float32,
                                   device=device)
@@ -356,6 +402,7 @@ def mvn_phase(chain, device):
 
     cases = (
         ("fused_mvn_loglike", block_inputs(BLOCKS.index(170), NWALKERS), 9),
+        ("fused_mvn_loglike", block_inputs(BLOCKS.index(73), NWALKERS), 9),
         ("fused_mvn_loglike", block_inputs(BLOCKS.index(12), NWALKERS), 9),
         ("fused_mvn_loglike_panel", stitched_inputs(NWALKERS // 2), 2),
     )
@@ -377,7 +424,7 @@ def mvn_phase(chain, device):
         e_p, r_p = normwise(got[keep], plain[keep])
         e_64, _ = normwise(got[keep], plain64[keep])
         e_l64, _ = normwise(lib[keep], plain64[keep])
-        t_k = cuda_ms(lambda: fm.fused_mvn_loglike(y, cov), reps=reps)
+        t_k = graph_ms(lambda: fm.fused_mvn_loglike(y, cov), reps=2 * reps)
         t_p = cuda_ms(lambda: fm.fused_mvn_loglike_plain(y, cov), reps=min(reps, 3))
         t_l = cuda_ms(lambda: mvn_loglike_batch(y, cov), reps=reps)
         flops, nbytes = mvn_work(b, n, n_bad=1)
@@ -388,18 +435,22 @@ def mvn_phase(chain, device):
             f"{e_64:.3e} (library call: {e_l64:.3e}); max |lp| "
             f"{float(plain[keep].abs().max()):.1f}")
         if name == "fused_mvn_loglike":
-            log(f"occupancy {name} (n={n}): {fm.smem_blocks_per_sm(n)} blocks per SM")
-        log(f"timing {name} (b={b}, n={n}): kernel {t_k:.4f} ms "
+            log(f"occupancy {name} (n={n}): {fm.smem_blocks_per_sm(n)} blocks per SM, "
+                f"panel width {fm.smem_panel()}")
+        log(f"timing {name} (b={b}, n={n}): kernel {t_k:.4f} ms by CUDA-graph replay "
             f"({flops / t_k / 1e9:.2f} TFLOP/s, {nbytes / t_k / 1e6:.1f} GB/s), plain "
             f"{t_p:.4f} ms, library yardstick (mvn_loglike_batch: cholesky_ex + "
-            f"solve_triangular) {t_l:.4f} ms, bound {bd:.4f} ms ({why})")
+            f"solve_triangular) {t_l:.4f} ms (both CUDA events), bound {bd:.4f} ms ({why})")
         if not r_p <= TOL_MVN:
             failed.append(f"{name} (b={b}, n={n})")
         # the kernels line reports each route at its largest flagship shape
         if name not in stats:
+            blocked = (f"blocked, {fm.smem_panel()}-column panels in shared memory"
+                       if name == "fused_mvn_loglike" else "blocked, 32-column panels")
             stats[name] = dict(max_abs_err=e_p, ms=t_k, plain_ms=t_p, bound_ms=bd,
                                bound_by=why, library_ms=t_l, library_tf32_ms=None,
-                               precision="FP32 FMA")
+                               precision=f"FP32 FMA ({blocked})",
+                               timing="CUDA-graph replay (kernel), CUDA events (plain, library)")
     if failed:
         raise SystemExit(f"MVN kernel disagrees with its plain version: {failed}")
     return stats

@@ -18,26 +18,48 @@
 //
 // Nothing of the TPU layout is kept (no lane padding to 128, no identity
 // block, no (b, 128) output, no batch chunks sized for VMEM).  The work is
-// sequential in k with a barrier per pivot, so one thread block owns one
-// matrix and the batch fills the card.  Two routes, picked by the wrapper
-// from n:
+// sequential in k, so one thread block owns one matrix and the batch fills
+// the card.  Both routes are the reference's blocked right-looking form
+// (pallas_mvn.py:_mvn_kernel, PANEL 32): factor a panel of columns, then
+// apply its cumulative trailing update
+//     A[i][j] -= sum_k P[i][k] P[j][k] / p_k      (k in the panel, j <= i)
+// as one matrix product.  Trailing entries at or left of the panel go
+// stale and are never read again: a later step only reads columns > k.
+// Two routes, picked by the wrapper from n:
 //
-// - mvn_smem_kernel, n <= 339: the lower triangle of the augmented matrix
-//   lives packed in the block's shared memory (A[i][j] at i(i+1)/2 + j;
-//   n = 170: 59 KB, so three blocks share an SM's 227 KB and hide each
-//   other's barrier and shared-memory latency).  Only the lower triangle
-//   of cov is read from device memory, once, which is the bound at these
-//   sizes: n^3/3 flops against 4 n^2 bytes is below the card's FP32 ridge
-//   (~20 flop/byte) for n < ~240.  In a pivot step a warp owns rows and its
-//   lanes own columns; each lane keeps its columns' A[j][k] in registers
-//   for the whole step, so a row update is one broadcast load, then
-//   load-FMA-store triples.  Rows are contiguous, and the
-//   column reads A[j][k] for 32 consecutive j fall into 32 distinct banks
-//   (triangular numbers are a complete residue system modulo 32).  What
-//   the rank-1 form leaves is shared-memory traffic: every trailing entry
-//   is read and written once per pivot, n^3/3 accesses per matrix, and that
-//   is what the kernel's time follows; a blocked update over several
-//   pivots in registers is the next step.
+// - mvn_smem_kernel, n <= fused_mvn_smem_max_n() (318): the lower triangle
+//   of the augmented matrix lives packed in the block's shared memory
+//   (A[i][j] at i(i+1)/2 + j), beside a copy of the current panel;
+//   n = 170 takes 73.9 KB, so three blocks share an SM's 227 KB and hide
+//   each other's barriers.  Only the lower triangle of cov is read from
+//   device memory, once, with several loads in flight per thread.  Bound
+//   on the H100 at n = 170: n^3/3 FP32 flops, 0.026 ms per 1024 matrices,
+//   against 0.018 ms for the bytes.  What held the rank-1 form back was
+//   shared-memory traffic (each trailing entry read and written once per
+//   pivot) and a block barrier per pivot.  Per panel of SMEM_PANEL columns
+//   the kernel
+//     1. factors the panel's diagonal block in one warp, right-looking:
+//        lane r holds row c0 + r in registers and takes the pivot and the
+//        other rows' column j by shuffle, so the chain per pivot is a
+//        shuffle, a reciprocal and two FMAs, with no shared memory and no
+//        barrier in it; the logarithms and 1 / sqrt(p) come after it, one
+//        lane per pivot;
+//     2. finishes the panel's rows below it, a thread per row, by the
+//        substitution x_j -= sum_{k<j} x_k D[j][k] / p_k against the
+//        factored block (read four entries at a time, a broadcast), and
+//        writes them as Cholesky entries L[i][k] = x_k / sqrt(p_k) into the
+//        panel copy, whose 16-byte rows make the trailing update one
+//        symmetric product L L^T with no scaling in its loop;
+//     3. applies the trailing update in 32 x 32 tiles, four tiles at a
+//        time, 4 x 4 outputs per thread in registers, both operands read
+//        four panel columns at a time (a warp's rows at a stride of
+//        SMEM_PANEL + 4 floats fall in distinct banks): each trailing entry
+//        is read and written once per panel, and there are three block
+//        barriers per panel instead of one per pivot.
+//   A bad pivot is found by the factoring warp, which raises a flag in
+//   shared memory; every thread reads it after the next barrier and leaves.
+//   FP32 FMA throughout (1.7 GFLOP per 1024 matrices at n = 170 does not
+//   need the tensor cores).
 // - mvn_panel_kernel, larger n (the stitched 544 x 544 likelihood: 1.19 MB
 //   per matrix): blocked right-looking elimination.  A 32-column panel of
 //   the rows below it is held in shared memory (545 x 33 floats = 72 KB),
@@ -59,8 +81,9 @@
 
 namespace {
 
+constexpr int SMEM_PANEL = 16;     // panel width of the shared-memory route
 constexpr int NT = 256;            // threads per block (panel route)
-constexpr int PANEL = 32;          // panel width
+constexpr int PANEL = 32;          // panel width (panel route)
 constexpr int PLD = PANEL + 1;     // panel row stride (odd: no bank conflicts)
 constexpr int TILE = 64;           // trailing-update tile, 16 x 16 threads x (4 x 4)
 constexpr int SMEM_LIMIT = 232448; // bytes of shared memory one block may use
@@ -80,103 +103,224 @@ __device__ __forceinline__ bool bad_pivot(float p) {
 // offset of row i in the packed lower triangle
 __host__ __device__ constexpr int tri(int i) { return i * (i + 1) / 2; }
 
+// the packed triangle of rows 0 .. n1 - 1, rounded up to whole float4s
+__host__ __device__ constexpr int tri_aligned(int n1) { return (tri(n1) + 3) & ~3; }
+
+// shared memory of the blocked route: the triangle, the panel's Cholesky
+// rows and diagonal block (row stride SMEM_PANEL + 4), 1 / sqrt(p) and the
+// flag
 __host__ __device__ constexpr long long smem_bytes(int n) {
-  return (long long)tri(n + 1) * 4;
+  return ((long long)tri_aligned(n + 1) + (long long)(n + 1 + SMEM_PANEL) * (SMEM_PANEL + 4) +
+          SMEM_PANEL + 1) * 4;
 }
 
 __host__ __device__ constexpr long long panel_bytes(int n) {
   return ((long long)(n + 1) * PLD + PANEL) * 4;
 }
 
-// T: column slots per lane, 32 * T >= n + 1.  Up to T = 6 (n <= 191, at
-// most 74 KB) three blocks fit an SM, so registers are capped for that.
-template <int T>
-__global__ void __launch_bounds__(256, T <= 6 ? 3 : 1)
+// The packed lower triangle of the augmented matrix into a: entry e of the
+// triangle is A[i][e - tri(i)].  Each thread keeps kLoads global loads in
+// flight (one latency per batch, not per row), neighbouring threads read
+// neighbouring entries of a row.
+__device__ __forceinline__ void load_triangle(float* a, const float* __restrict__ cov_b,
+                                              const float* __restrict__ y_b, int n) {
+  constexpr int kLoads = 8;
+  const int total = tri(n + 1), nthreads = blockDim.x;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kLoads * nthreads) {
+    float v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * nthreads;
+      v[u] = 0.f;
+      if (e < total) {
+        int i = (int)((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);  // row of e, then exact
+        i += (tri(i + 1) <= e) - (tri(i) > e);
+        const int j = e - tri(i);
+        if (i < n) v[u] = cov_b[(size_t)i * n + j];
+        else if (j < n) v[u] = y_b[j];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * nthreads;
+      if (e < total) a[e] = v[u];
+    }
+  }
+}
+
+// Blocked elimination in shared memory (the route's header note above),
+// P = SMEM_PANEL columns per panel.  Shared memory, in floats: the packed triangle; the
+// panel's rows c1 .. n as Cholesky entries l[(i - c1) LD + q] =
+// A[i][c0 + q] / sqrt(p_q) (16-byte rows, zero past the panel's width); the
+// diagonal block's scaled rows dg[r LD + q] = A[c0 + r][c0 + q] / p_q,
+// q < r; the panel's 1 / sqrt(p); the bad-pivot flag.
+__global__ void __launch_bounds__(256, 3)
 mvn_smem_kernel(const float* __restrict__ y,    // (b, n)
                 const float* __restrict__ cov,  // (b, n, n)
                 float* __restrict__ out,        // (b,)
                 int n) {
-  extern __shared__ float a[];  // rows 0 .. n of the lower triangle, packed
+  constexpr int P = SMEM_PANEL, LD = P + 4;
+  static_assert(P % 4 == 0 && P <= 32, "whole float4 columns, one warp's lanes");
+  extern __shared__ __align__(16) float a[];  // rows 0 .. n of the lower triangle, packed
+  const int n1 = n + 1;
+  float* l = a + tri_aligned(n1);
+  float* dg = l + (size_t)n1 * LD;
+  float* isq = dg + P * LD;
+  int* bad = reinterpret_cast<int*>(isq + P);
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
   const float* cov_b = cov + (size_t)blockIdx.x * n * n;
   const float* y_b = y + (size_t)blockIdx.x * n;
 
-  for (int i = warp; i <= n; i += nwarps) {
-    float* row = a + tri(i);
-    if (i < n) {
-      for (int j = lane; j <= i; j += 32) row[j] = cov_b[(size_t)i * n + j];
-    } else {
-      for (int j = lane; j < n; j += 32) row[j] = y_b[j];
-      if (lane == 0) row[n] = 0.f;
-    }
-  }
+  load_triangle(a, cov_b, y_b, n);
+  if (tid == 0) *bad = 0;
 
-  float logdet_half = 0.f;
-  bool ok = true;
-  for (int k = 0; k < n; ++k) {
-    __syncthreads();  // step k - 1 wrote column k and the pivot
-    const float p = a[tri(k) + k];
-    if (bad_pivot(p)) {  // the same p in every thread: a uniform exit
-      ok = false;
-      break;
-    }
-    logdet_half += 0.5f * logf(p);
-    const float inv_p = 1.f / p;
-    // this lane's columns j = k + 1 + lane + 32 t of column k, held for the
-    // whole step (column k is only read in step k)
-    float c[T];
+  float logdet_half = 0.f;  // warp 0's sum
+  for (int c0 = 0; c0 < n; c0 += P) {
+    const int pw = min(P, n - c0), c1 = c0 + pw;
+    __syncthreads();  // the load or the previous trailing update is written
+
+    // 1. the diagonal block, one warp, right-looking: lane r holds row
+    // c0 + r in registers; at pivot j it takes p_j and the other rows'
+    // column j by shuffle and updates its columns right of j.  The chain
+    // per pivot is a shuffle, a reciprocal and two FMAs; the logarithms and
+    // 1 / sqrt(p) come after, a lane each.
+    if (warp == 0) {
+      float x[P];
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const int j = k + 1 + lane + 32 * t;
-      c[t] = (j <= n) ? a[tri(j) + k] : 0.f;
-    }
-    for (int i = k + 1 + warp; i <= n; i += nwarps) {
-      float* row = a + tri(i);
-      const float s = row[k] * inv_p;
+      for (int q = 0; q < P; ++q) x[q] = (q <= lane && lane < pw) ? a[tri(c0 + lane) + c0 + q] : 0.f;
+      float mine = 1.f;  // lane r's pivot p_r
 #pragma unroll
-      for (int t = 0; t < T; ++t) {
-        if (k + 1 + 32 * t > i) break;  // uniform in the warp: the row ends
-        const int j = k + 1 + lane + 32 * t;
-        if (j <= i) row[j] = fmaf(-s, c[t], row[j]);
+      for (int j = 0; j < P; ++j) {
+        if (j >= pw) break;
+        const float p = __shfl_sync(0xffffffffu, x[j], j);  // lane j's diagonal
+        if (bad_pivot(p)) {  // the same p in every lane
+          if (lane == 0) *bad = 1;
+          break;
+        }
+        if (lane == j) mine = p;
+        const float s = x[j] * __frcp_rn(p);  // this row's multiplier A[r][j] / p_j
+        if (lane > j && lane < pw) dg[lane * LD + j] = s;
+        // A[r][q] -= A[r][j] A[q][j] / p_j with A[q][j] from lane q (past
+        // the row's end the entries are never read)
+#pragma unroll
+        for (int q = j + 1; q < P; ++q) x[q] = fmaf(-s, __shfl_sync(0xffffffffu, x[j], q), x[q]);
+      }
+      if (lane < pw) isq[lane] = 1.f / sqrtf(mine);
+      float lg = (lane < pw) ? 0.5f * logf(mine) : 0.f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) lg += __shfl_xor_sync(0xffffffffu, lg, o);
+      logdet_half += lg;  // a bad pivot's panel ends the matrix anyway
+    }
+    __syncthreads();
+    if (*bad) break;  // every thread reads the same flag: a uniform exit
+
+    // 2. the panel's rows below it, a thread per row: the substitution
+    // against the factored block (its scaled rows read four at a time, a
+    // broadcast), then the row's Cholesky entries into l
+    for (int i = c1 + tid; i <= n; i += nthreads) {
+      const float* row = a + tri(i) + c0;
+      float x[P];
+#pragma unroll
+      for (int q = 0; q < P; ++q) x[q] = (q < pw) ? row[q] : 0.f;
+#pragma unroll
+      for (int j = 1; j < P; ++j) {
+        if (j >= pw) break;
+#pragma unroll
+        for (int k0 = 0; k0 < j; k0 += 4) {
+          const float4 d4 = *reinterpret_cast<const float4*>(dg + j * LD + k0);
+          x[j] = fmaf(-x[k0], d4.x, x[j]);
+          if (k0 + 1 < j) x[j] = fmaf(-x[k0 + 1], d4.y, x[j]);
+          if (k0 + 2 < j) x[j] = fmaf(-x[k0 + 2], d4.z, x[j]);
+          if (k0 + 3 < j) x[j] = fmaf(-x[k0 + 3], d4.w, x[j]);
+        }
+      }
+      float* lr = l + (size_t)(i - c1) * LD;
+#pragma unroll
+      for (int q = 0; q < P; q += 4) {
+        const float4 s4 = *reinterpret_cast<const float4*>(isq + q);
+        *reinterpret_cast<float4*>(lr + q) =
+            make_float4(q < pw ? x[q] * s4.x : 0.f, q + 1 < pw ? x[q + 1] * s4.y : 0.f,
+                        q + 2 < pw ? x[q + 2] * s4.z : 0.f, q + 3 < pw ? x[q + 3] * s4.w : 0.f);
+      }
+    }
+    __syncthreads();
+
+    // 3. trailing update of rows / columns [c1, n], A[i][j] -= sum_q
+    // L[i][q] L[j][q], in 32 x 32 tiles of the lower triangle, a group of
+    // 64 threads per tile, 4 x 4 outputs per thread (rows ty + 8 r, columns
+    // tx + 8 c), both operands read from l four columns at a time (a warp's
+    // 8 rows at a 16-byte stride of LD fall in distinct banks)
+    const int m = n1 - c1;
+    const int nt = (m + 31) / 32, ntile = tri(nt);
+    const int tx = tid & 7, ty = (tid >> 3) & 7;
+    for (int t = tid >> 6; t < ntile; t += nthreads >> 6) {
+      int ti = 0;
+      while (tri(ti + 1) <= t) ++ti;
+      const int r0 = ti * 32 + ty, s0 = (t - tri(ti)) * 32 + tx;
+      int lu[4], lv[4];  // rows of l
+#pragma unroll
+      for (int r = 0; r < 4; ++r) lu[r] = min(r0 + 8 * r, m - 1) * LD;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) lv[c] = min(s0 + 8 * c, m - 1) * LD;
+      float acc[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+#pragma unroll
+      for (int q = 0; q < P; q += 4) {
+        if (q >= pw) break;
+        float4 u[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) u[r] = *reinterpret_cast<const float4*>(l + lu[r] + q);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 v = *reinterpret_cast<const float4*>(l + lv[c] + q);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            acc[r][c] = fmaf(u[r].x, v.x, acc[r][c]);
+            acc[r][c] = fmaf(u[r].y, v.y, acc[r][c]);
+            acc[r][c] = fmaf(u[r].z, v.z, acc[r][c]);
+            acc[r][c] = fmaf(u[r].w, v.w, acc[r][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int ri = r0 + 8 * r;
+        if (ri >= m) break;
+        float* row = a + tri(c1 + ri) + c1;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int rj = s0 + 8 * c;
+          if (rj <= ri) row[rj] -= acc[r][c];
+        }
       }
     }
   }
   __syncthreads();
   if (tid == 0) {
     const float lp = 0.5f * a[tri(n) + n] - logdet_half;
-    out[blockIdx.x] = (ok && isfinite(lp)) ? lp : -CUDART_INF_F;
+    out[blockIdx.x] = (!*bad && isfinite(lp)) ? lp : -CUDART_INF_F;
   }
 }
 
-using SmemKernel = void (*)(const float*, const float*, float*, int);
-
-// the instantiation with enough column slots for n + 1 columns
-SmemKernel smem_kernel_for(int n) {
-  const int slots = (n + 1 + 31) / 32;
-  if (slots <= 1) return mvn_smem_kernel<1>;
-  if (slots <= 2) return mvn_smem_kernel<2>;
-  if (slots <= 4) return mvn_smem_kernel<4>;
-  if (slots <= 6) return mvn_smem_kernel<6>;
-  if (slots <= 8) return mvn_smem_kernel<8>;
-  return mvn_smem_kernel<11>;  // n + 1 <= 340 <= 352
-}
-
-// enough warps to cover the rows of a pivot step, at most 8 (more warps
-// only add column loads: the step is bound by shared-memory traffic)
+// threads per block: whole groups of 64 for the trailing tiles, at most
+// 256 (four tiles at a time); enough for the panel rows of a mid-size n
 constexpr int smem_threads(int n) {
-  return n < 16 ? 32 : n < 32 ? 64 : n < 64 ? 128 : 256;
+  return n < 32 ? 64 : n < 64 ? 128 : 256;
 }
 
 // Shared memory for one block, and the whole L1/shared array as shared
 // memory: without the carveout the runtime may size it for one block only.
-cudaError_t prepare_smem(SmemKernel kernel, int bytes) {
+cudaError_t prepare_smem(int bytes) {
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      mvn_smem_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && bytes > 48 * 1024)
     e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        mvn_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return e;
 }
 
@@ -298,6 +442,9 @@ int fused_mvn_smem_max_n() {
   return n;
 }
 
+// Panel width of the shared-memory route (where its panel boundaries fall).
+int fused_mvn_smem_panel() { return SMEM_PANEL; }
+
 int fused_mvn_panel_max_n() {
   return (int)((SMEM_LIMIT / 4 - PANEL) / PLD) - 1;
 }
@@ -306,12 +453,11 @@ int fused_mvn_panel_max_n() {
 // occupancy, for the measurement scripts); -1 if it cannot be asked.
 int fused_mvn_smem_blocks_per_sm(int n) {
   if (n < 1 || smem_bytes(n) > SMEM_LIMIT) return -1;
-  const SmemKernel kernel = smem_kernel_for(n);
   const int bytes = (int)smem_bytes(n);
   int blocks = 0;
-  if (prepare_smem(kernel, bytes) != cudaSuccess ||
+  if (prepare_smem(bytes) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kernel, smem_threads(n), bytes) != cudaSuccess)
+          &blocks, mvn_smem_kernel, smem_threads(n), bytes) != cudaSuccess)
     return -1;
   return blocks;
 }
@@ -319,11 +465,11 @@ int fused_mvn_smem_blocks_per_sm(int n) {
 int fused_mvn_loglike_smem(const float* y, const float* cov, float* out,
                            int b, int n, void* stream) {
   if (b < 1 || n < 1 || smem_bytes(n) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  const SmemKernel kernel = smem_kernel_for(n);
   const int bytes = (int)smem_bytes(n);
-  const cudaError_t e = prepare_smem(kernel, bytes);
+  const cudaError_t e = prepare_smem(bytes);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<b, smem_threads(n), bytes, static_cast<cudaStream_t>(stream)>>>(y, cov, out, n);
+  mvn_smem_kernel<<<b, smem_threads(n), bytes, static_cast<cudaStream_t>(stream)>>>(
+      y, cov, out, n);
   return (int)cudaGetLastError();
 }
 

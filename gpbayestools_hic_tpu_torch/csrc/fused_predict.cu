@@ -44,10 +44,15 @@
 //   z < 0 mask, ct_z and the query contraction (in its difference form
 //   sum_l ct_z (xs - qs); the split form xs^T ct_z - qs sum ct_z cancels)
 //   stay FP32 FMA.  Bound: one TF32 pass plus those FP32 parts, ~0.015 ms.
-// - fused_predict_bwd_high (bwd_fp32_kernel): grad_precision="high" /
-//   "highest".  EVERY product is FP32 FMA, for good: 4x4 register tiles
-//   from shared memory, bound 0.068 ms at 67 TFLOP/s FP32.  Leave its body
-//   as it is; a faster backward belongs in bwd_tc_kernel.
+// - fused_predict_bwd_high (bwd_tc_kernel with three passes):
+//   grad_precision="high" / "highest".  The same cotangent at FP32-class
+//   accuracy, for good: G^T v runs on the tensor cores in 3xTF32, G and v
+//   split into TF32 halves as their fragments are read, each 8-deep step's
+//   hi*hi + hi*lo + lo*hi summed into a fresh fragment that is added to
+//   the accumulator in FP32 (the forward's promotion); the rest is FP32 FMA
+//   as in the fast backward.  The TPU kernel ran both cotangent products in
+//   3-pass bf16 (_dot3), so this is stricter than the reference.  Bound:
+//   three TF32 passes plus the FP32 parts, ~0.031 ms.
 //
 // The tensor-core kernels (fwd_tc_kernel, bwd_tc_kernel) share one design:
 // - mma.sync.m16n8k8 TF32 from shared memory, 8 warps per block, each warp
@@ -82,9 +87,9 @@
 //   tiles) go through per-block partial sums and a second, deterministic
 //   pass (rowsum_kernel).  No float atomics.
 // What holds them back on the H100 (PERF.md): mma.sync issues at a fraction
-// of the wgmma rate, and in the forward the copies and the products add up
-// instead of overlapping; the backward's FP32 epilogue is about a third of
-// its time.
+// of the wgmma rate, and the ring's copies and the products add up instead
+// of overlapping; in the one-pass backward the FP32 epilogue is about a
+// third of the time, in the three-pass one the products lead.
 //
 // The augmented row trick of the TPU kernel is kept in index form only
 // (forward: row n of the contraction operand is alpha, rows past n are
@@ -468,13 +473,15 @@ fwd_tc_kernel(const float* __restrict__ G,       // (b, n, n)
   if (tid < TN && j0 + tid < m) qf_part[((size_t)k * npairs + p) * m + j0 + tid] = qf_acc;
 }
 
-// ct_k* = 2 ct_qf G^T v (one TF32 pass) + alpha ct_mean for the training-row
-// tiles (p, R - 1 - p) of one (GP, walker tile), then ct_z and the query
+// ct_k* = 2 ct_qf G^T v + alpha ct_mean for the training-row tiles
+// (p, R - 1 - p) of one (GP, walker tile), then ct_z and the query
 // cotangent in FP32; ct_part holds the pair's partial sum.
+// kPasses: 1 = G^T v in one TF32 pass (fused_predict_bwd); 3 = 3xTF32 with
+// each step's products promoted to FP32 (fused_predict_bwd_high).
 // kVec: 16-byte aligned rows of G and v, 16-byte copies, two blocks per SM.
 // Otherwise (ragged n or m) 4-byte copies, whose addressing needs more than
 // the 128 registers that two blocks per SM leave: one block per SM.
-template <bool kVec>
+template <bool kVec, int kPasses>
 __global__ void __launch_bounds__(TC_NT, kVec ? 2 : 1)
 bwd_tc_kernel(const float* __restrict__ xs,      // (b, n, d)
               const float* __restrict__ xq,      // (m, d)
@@ -562,21 +569,52 @@ bwd_tc_kernel(const float* __restrict__ xs,      // (b, n, d)
       for (int kk = 0; kk < TK / 8; ++kk) {
         // rows i < l of G are zero in column l
         if (l0 + kt * TK + kk * 8 + 7 < col_first) continue;
-        uint32_t bf[4][2];
+        if constexpr (kPasses == 1) {
+          uint32_t bf[4][2];
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+          for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            bf[ni][h] = tf32_rna(Vs[(kk * 8 + t + 4 * h) * B_LD + wn * 32 + ni * 8 + g]);
+            for (int h = 0; h < 2; ++h)
+              bf[ni][h] = tf32_rna(Vs[(kk * 8 + t + 4 * h) * B_LD + wn * 32 + ni * 8 + g]);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          // A[l][i] = G[i][l]: fragment rows are columns of the G tile
-          const float* gr = Gs + (kk * 8 + t) * A_BWD_LD + wm * 32 + mi * 16 + g;
-          const uint32_t af[4] = {tf32_rna(gr[0]), tf32_rna(gr[8]),
-                                  tf32_rna(gr[4 * A_BWD_LD]),
-                                  tf32_rna(gr[4 * A_BWD_LD + 8])};
+          for (int mi = 0; mi < 2; ++mi) {
+            // A[l][i] = G[i][l]: fragment rows are columns of the G tile
+            const float* gr = Gs + (kk * 8 + t) * A_BWD_LD + wm * 32 + mi * 16 + g;
+            const uint32_t af[4] = {tf32_rna(gr[0]), tf32_rna(gr[8]),
+                                    tf32_rna(gr[4 * A_BWD_LD]),
+                                    tf32_rna(gr[4 * A_BWD_LD + 8])};
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], af, bf[ni]);
+            for (int ni = 0; ni < 4; ++ni) mma_tf32(acc[mi][ni], af, bf[ni]);
+          }
+        } else {
+          static_assert(kPasses == 3, "one or three TF32 passes");
+          uint32_t vh[4][2], vl[4][2];
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              split_tf32(Vs[(kk * 8 + t + 4 * h) * B_LD + wn * 32 + ni * 8 + g],
+                         vh[ni][h], vl[ni][h]);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const float* gr = Gs + (kk * 8 + t) * A_BWD_LD + wm * 32 + mi * 16 + g;
+            uint32_t gh[4], gl[4];
+            split_tf32(gr[0], gh[0], gl[0]);
+            split_tf32(gr[8], gh[1], gl[1]);
+            split_tf32(gr[4 * A_BWD_LD], gh[2], gl[2]);
+            split_tf32(gr[4 * A_BWD_LD + 8], gh[3], gl[3]);
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) {
+              // a fresh fragment per step, added in FP32 (the tensor
+              // cores' own sums are not rounded to nearest)
+              float step[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(step, gl, vh[ni]);
+              mma_tf32(step, gh, vl[ni]);
+              mma_tf32(step, gh, vh[ni]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mi][ni][e] += step[e];
+            }
+          }
         }
       }
     };
@@ -712,146 +750,33 @@ int fwd_pairs(int n) { return ((n + 1 + TM - 1) / TM + 1) / 2; }
 int bwd_pairs(int n) { return ((n + TM - 1) / TM + 1) / 2; }
 int kstar_ld(int m) { return (m + 3) / 4 * 4; }
 
-// ------------------------------------ full-precision backward (kernel 3)
-
-constexpr int BI = 64;    // output rows per block (rows of ct_k*)
-constexpr int BJ = 64;    // queries (walkers) per block
-constexpr int BL = 32;    // contraction chunk
-constexpr int NT = 256;   // 16 x 16 threads, each owns 4 x 4 outputs
-
-__global__ void __launch_bounds__(NT)
-bwd_fp32_kernel(const float* __restrict__ xs,      // (b, n, d)
-                const float* __restrict__ xq,      // (m, d)
-                const float* __restrict__ inv_ls,  // (b, d)
-                const float* __restrict__ G,       // (b, n, n)
-                const float* __restrict__ alpha,   // (b, n)
-                const float* __restrict__ amp,     // (b,)
-                const float* __restrict__ v,       // (b, n, m)
-                const float* __restrict__ ct_mean, // (b, m)
-                const float* __restrict__ ct_qf,   // (b, m)
-                float* __restrict__ ct_part,       // (b, nlb, m, d)
-                int n, int m, int d, int nlb) {
-  const int k = blockIdx.z;
-  const int lb = blockIdx.y;
-  const int l0 = lb * BI;
-  const int j0 = blockIdx.x * BJ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  __shared__ float qs_s[BJ][DMAX + 1];
-  __shared__ float xs_s[BI][DMAX + 1];
-  __shared__ float ctm_s[BJ], ctq_s[BJ];
-  // two contraction tiles during the loop, the ct_z tile afterwards
-  __shared__ float buf[BL * BI + BL * BJ];
-  float(*g_s)[BI] = reinterpret_cast<float(*)[BI]>(buf);            // [BL][BI]
-  float(*c_s)[BJ] = reinterpret_cast<float(*)[BJ]>(buf + BL * BI);  // [BL][BJ]
-  float(*cz_s)[BJ] = reinterpret_cast<float(*)[BJ]>(buf);           // [BI][BJ]
-
-  const float* xs_k = xs + (size_t)k * n * d;
-  const float* g_k = G + (size_t)k * n * n;
-  const float* a_k = alpha + (size_t)k * n;
-  const float* v_k = v + (size_t)k * n * m;
-  const float amp_k = amp[k];
-
-  for (int e = tid; e < BJ * d; e += NT) {
-    const int jj = e / d, dd = e % d, j = j0 + jj;
-    qs_s[jj][dd] = (j < m) ? xq[(size_t)j * d + dd] * inv_ls[k * d + dd] : 0.f;
-  }
-  for (int e = tid; e < BI * d; e += NT) {
-    const int ll = e / d, dd = e % d, l = l0 + ll;
-    xs_s[ll][dd] = (l < n) ? xs_k[(size_t)l * d + dd] : 0.f;
-  }
-  if (tid < BJ) {
-    const int j = j0 + tid;
-    ctm_s[tid] = (j < m) ? ct_mean[(size_t)k * m + j] : 0.f;
-    ctq_s[tid] = (j < m) ? ct_qf[(size_t)k * m + j] : 0.f;
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  // ct_k*[l, j] = sum_i Gaug[i, l] ct_v[i, j]; G is lower triangular, so
-  // only rows i >= l0 contribute; row n is alpha against ct_mean.
-  for (int i0 = l0; i0 <= n; i0 += BL) {
-    __syncthreads();
-    for (int e = tid; e < BL * BI; e += NT) {
-      const int ii = e / BI, ll = e % BI, i = i0 + ii, l = l0 + ll;
-      float g = 0.f;
-      if (l < n) {
-        if (i < n) g = g_k[(size_t)i * n + l];
-        else if (i == n) g = a_k[l];
-      }
-      g_s[ii][ll] = g;
-    }
-    for (int e = tid; e < BL * BJ; e += NT) {
-      const int ii = e / BJ, jj = e % BJ, i = i0 + ii, j = j0 + jj;
-      float cv = 0.f;
-      if (j < m) {
-        if (i < n) cv = 2.f * v_k[(size_t)i * m + j] * ctq_s[jj];
-        else if (i == n) cv = ctm_s[jj];
-      }
-      c_s[ii][jj] = cv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int ii = 0; ii < BL; ++ii) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = g_s[ii][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = c_s[ii][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], bv[c], acc[r][c]);
-    }
-  }
-
-  // ct_z = k* ct_k* where z < 0, recomputing k* from xs and the query tile
-  float cz[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int ll = ty + 16 * r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int jj = tx + 16 * c;
-      float d2 = 0.f;
-      for (int dd = 0; dd < d; ++dd) {
-        const float t = xs_s[ll][dd] - qs_s[jj][dd];
-        d2 = fmaf(t, t, d2);
-      }
-      const float z = -0.5f * d2;
-      const float kst = amp_k * expf(fminf(z, 0.f));
-      cz[r][c] = (z < 0.f && l0 + ll < n) ? kst * acc[r][c] : 0.f;
-    }
-  }
-  __syncthreads();  // the contraction tiles are consumed; buf becomes cz_s
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) cz_s[ty + 16 * r][tx + 16 * c] = cz[r][c];
-  __syncthreads();
-
-  // ct_xq[j, dd] partial over this block's training rows
-  for (int e = tid; e < BJ * d; e += NT) {
-    const int jj = e % BJ, dd = e / BJ, j = j0 + jj;
-    const float q = qs_s[jj][dd];
-    float s = 0.f;
-    for (int ll = 0; ll < BI; ++ll) s = fmaf(cz_s[ll][jj], xs_s[ll][dd] - q, s);
-    if (j < m) {
-      ct_part[(((size_t)k * nlb + lb) * m + j) * d + dd] = s * inv_ls[k * d + dd];
-    }
-  }
-}
-
 bool bad_shape(int b, int n, int m, int d) {
   return d < 1 || d > DMAX || n < 1 || m < 1 || b < 1;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// both backward entries: the tensor-core backward with kPasses TF32 passes
+template <int kPasses>
+int launch_bwd(const float* xs, const float* xq, const float* inv_ls,
+               const float* G, const float* alpha, const float* amp,
+               const float* v, const float* ct_mean, const float* ct_qf,
+               float* scratch, float* ct_q, int b, int n, int m, int d, void* stream) {
+  if (bad_shape(b, n, m, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nlb = (n + TM - 1) / TM, npairs = bwd_pairs(n);
+  const dim3 grid((m + TN - 1) / TN, npairs, b);
+  const bool vec = n % 4 == 0 && m % 4 == 0 && aligned16(G) && aligned16(v);
+  auto kernel = vec ? bwd_tc_kernel<true, kPasses> : bwd_tc_kernel<false, kPasses>;
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      BWD_SMEM);
+  if (err != 0) return err;
+  kernel<<<grid, TC_NT, BWD_SMEM, s>>>(xs, xq, inv_ls, G, alpha, amp, v, ct_mean, ct_qf,
+                                       scratch, n, m, d, nlb, npairs);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_rowsum(scratch, ct_q, b, npairs, (long long)m * d, s);
+}
 
 }  // namespace
 
@@ -866,8 +791,7 @@ long long fused_predict_scratch(int entry, int b, int n, int m, int d) {
   if (entry == 0) {
     return (long long)b * n * kstar_ld(m) + (long long)b * fwd_pairs(n) * m;
   }
-  if (entry == 1) return (long long)b * bwd_pairs(n) * m * d;
-  return (long long)b * ((n + BI - 1) / BI) * m * d;
+  return (long long)b * bwd_pairs(n) * m * d;
 }
 
 int fused_predict_fwd(const float* xs, const float* xq, const float* inv_ls,
@@ -903,36 +827,17 @@ int fused_predict_bwd(const float* xs, const float* xq, const float* inv_ls,
                       const float* v, const float* ct_mean, const float* ct_qf,
                       float* scratch, float* ct_q,
                       int b, int n, int m, int d, void* stream) {
-  if (bad_shape(b, n, m, d)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nlb = (n + TM - 1) / TM, npairs = bwd_pairs(n);
-  const dim3 grid((m + TN - 1) / TN, npairs, b);
-  const bool vec = n % 4 == 0 && m % 4 == 0 && aligned16(G) && aligned16(v);
-  auto kernel = vec ? bwd_tc_kernel<true> : bwd_tc_kernel<false>;
-  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      BWD_SMEM);
-  if (err != 0) return err;
-  kernel<<<grid, TC_NT, BWD_SMEM, s>>>(xs, xq, inv_ls, G, alpha, amp, v, ct_mean, ct_qf,
-                                       scratch, n, m, d, nlb, npairs);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return launch_rowsum(scratch, ct_q, b, npairs, (long long)m * d, s);
+  return launch_bwd<1>(xs, xq, inv_ls, G, alpha, amp, v, ct_mean, ct_qf, scratch, ct_q,
+                       b, n, m, d, stream);
 }
 
 int fused_predict_bwd_high(const float* xs, const float* xq, const float* inv_ls,
                            const float* G, const float* alpha, const float* amp,
                            const float* v, const float* ct_mean, const float* ct_qf,
-                           float* ct_part, float* ct_q,
+                           float* scratch, float* ct_q,
                            int b, int n, int m, int d, void* stream) {
-  if (bad_shape(b, n, m, d)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nlb = (n + BI - 1) / BI;
-  const dim3 grid((m + BJ - 1) / BJ, nlb, b);
-  bwd_fp32_kernel<<<grid, NT, 0, s>>>(
-      xs, xq, inv_ls, G, alpha, amp, v, ct_mean, ct_qf, ct_part, n, m, d, nlb);
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return launch_rowsum(ct_part, ct_q, b, nlb, (long long)m * d, s);
+  return launch_bwd<3>(xs, xq, inv_ls, G, alpha, amp, v, ct_mean, ct_qf, scratch, ct_q,
+                       b, n, m, d, stream);
 }
 
 }  // extern "C"

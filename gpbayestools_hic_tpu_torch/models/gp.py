@@ -34,7 +34,8 @@ class GPConfig(NamedTuple):
     ``grad_precision`` chooses the backward kernel of the fused predict
     (:mod:`..ops.fused_predict`): ``"default"`` the fast backward, whose
     cotangent products may drop below FP32, ``"high"`` / ``"highest"`` the
-    backward that keeps every product in FP32.  It never touches posterior
+    backward that keeps them FP32-class (3xTF32 with FP32 promotion on the
+    card).  It never touches posterior
     values, only the gradient that shapes HMC proposals.  The plain
     (non-fused) paths are full precision whatever it says.  The JAX
     package's ``var_precision`` chooses between bf16 pass counts on the

@@ -11,11 +11,17 @@ augmented matrix ``[[C, y], [y^T, 0]]`` symmetrically, lower triangle
 only: the pivots give the log-determinant and the last entry ends as
 ``-y^T C^-1 y``, so there is no separate solve.  A pivot that is not
 positive and finite, or a non-finite result, gives ``-inf``.  One thread
-block owns one matrix.  Two routes, chosen from ``n`` alone:
+block owns one matrix.  Both routes run the reference's blocked
+right-looking order (factor a panel of columns, then apply its trailing
+update as one product), FP32 FMA throughout, and are chosen from ``n``
+alone:
 
-- ``fused_mvn_loglike`` (n <= 339): the lower triangle packed in the
-  block's shared memory; cov's lower triangle and y are read once.  Bound
-  by bytes at the flagship block sizes (n = 12 ... 170).
+- ``fused_mvn_loglike`` (n <= 318): the lower triangle packed in the
+  block's shared memory beside a copy of the current 16-column panel; the
+  panel's diagonal block factored by one warp, its rows below by a thread
+  each, the trailing update in 4 x 4 register tiles.  cov's lower triangle
+  and y are read once; three blocks share an SM at n = 170.  Bound by FP32
+  operations at n = 170 (by bytes at the small flagship blocks).
 - ``fused_mvn_loglike_panel`` (larger n, the stitched 544 x 544 matrix):
   32-column panels factored in shared memory, the trailing update applied
   in register tiles to a scratch copy in device memory that the wrapper
@@ -82,7 +88,7 @@ def _lib():
 
     lib = load("fused_mvn")
     if not getattr(lib, "_gpbt_typed", False):
-        for name in ("fused_mvn_smem_max_n", "fused_mvn_panel_max_n"):
+        for name in ("fused_mvn_smem_max_n", "fused_mvn_panel_max_n", "fused_mvn_smem_panel"):
             getattr(lib, name).restype = _I
             getattr(lib, name).argtypes = []
         lib.fused_mvn_smem_blocks_per_sm.restype = _I
@@ -141,6 +147,16 @@ def smem_blocks_per_sm(n: int) -> int:
     """Thread blocks of the shared-memory route one SM holds at this ``n``
     (needs the built library, so a CUDA machine)."""
     return _lib().fused_mvn_smem_blocks_per_sm(int(n))
+
+
+def smem_panel() -> int:
+    """Panel width of the shared-memory route (needs the built library)."""
+    return _lib().fused_mvn_smem_panel()
+
+
+def smem_max_n() -> int:
+    """Largest n the shared-memory route takes (needs the built library)."""
+    return _lib().fused_mvn_smem_max_n()
 
 
 def fused_mvn_loglike(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:

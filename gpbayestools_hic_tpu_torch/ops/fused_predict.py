@@ -25,13 +25,14 @@ precision contract and its bound on the H100 at the flagship shape
   G^T v product runs in ONE TF32 pass on the tensor cores (the TPU ran it
   in one bf16 pass), everything else in FP32.  Bound ~0.015 ms.
 - ``fused_predict_bwd_high`` replaces ``pallas_predict.py:_bwd_kernel``: the
-  same cotangent with every product in FP32 FMA, for good;
-  ``grad_precision="high"`` / ``"highest"`` select it.  Bound 0.068 ms at
-  67 TFLOP/s FP32.
+  same cotangent at FP32-class accuracy, for good; ``grad_precision="high"``
+  / ``"highest"`` select it.  The same tensor-core kernel with three passes:
+  G^T v in 3xTF32, each step's products promoted to FP32 as in the forward
+  (the TPU kernel ran 3-pass bf16), the rest FP32.  Bound ~0.031 ms.
 
-The tensor-core kernels run ``mma.sync`` TF32 tiles from a ``cp.async``
-ring of shared-memory stages, and pair the light and heavy row tiles of
-the triangular factor so that every block does the same work (the source's
+All three run ``mma.sync`` TF32 tiles from a ``cp.async`` ring of
+shared-memory stages, and pair the light and heavy row tiles of the
+triangular factor so that every block does the same work (the source's
 header says more).
 
 The port keeps none of the TPU layout (no bf16 hi/lo splits in memory, no
@@ -76,7 +77,7 @@ def backward_kernel(grad_precision: str) -> str:
     except KeyError:
         raise ValueError(
             f"unknown grad_precision {grad_precision!r}: use 'default' (the "
-            "fast backward) or 'high' / 'highest' (every product in FP32)"
+            "fast backward) or 'high' / 'highest' (the FP32-class backward)"
         ) from None
 
 

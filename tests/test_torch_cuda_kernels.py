@@ -15,7 +15,8 @@ Tolerances, normwise, as chip_smoke.py states them:
 - the fast backward (one TF32 pass on G^T v) against the plain backward in
   float64 2e-3, ten times tighter than the JAX package's fast-backward
   contract, and never bit-equal to the full-precision backward;
-- the full-precision backward against the plain backward in float64 5e-5;
+- the full-precision backward (3xTF32 with FP32 promotion) against the
+  plain backward in float64 5e-5;
 - the MVN elimination against its plain version 2e-4 relative (the
   tolerance of the JAX package's own kernel test).
 """
@@ -110,14 +111,16 @@ def test_cuda_rejects_wrong_inputs(cuda_device):
         fp.fused_fwd(fs, xq[:, :5].contiguous())
 
 
-@pytest.mark.parametrize("m", [200, 1])
-def test_cuda_high_precision_backward_matches_f64_plain(cuda_device, m):
-    """Kernel 3 (grad_precision="high"/"highest": every product FP32 FMA)
-    vs the plain backward evaluated in float64 on the same inputs: 5e-5
-    normwise, about n * 2^-24 for the n = 300 .. 1000 sums it takes, ten
-    times below what a TF32 product would leave (5e-4).  It has its own
-    launch counter."""
-    fs, xq, ctm, ctq = _problem(cuda_device, m=m)
+@pytest.mark.parametrize("n", [40, 257, 1000])
+@pytest.mark.parametrize("m", [1, 37, 200])
+def test_cuda_high_precision_backward_matches_f64_plain(cuda_device, n, m):
+    """Kernel 3 (grad_precision="high"/"highest": G^T v in 3xTF32 with each
+    step promoted to FP32, the rest FP32) vs the plain backward evaluated
+    in float64 on the same inputs: 5e-5 normwise, about n * 2^-24 for the
+    length-n sums it takes, well below what one TF32 pass leaves (~1e-4 and
+    more).  Ragged n and m take the 4-byte copy route, n = 1000 with m =
+    200 the 16-byte one.  It has its own launch counter."""
+    fs, xq, ctm, ctq = _problem(cuda_device, n=n, m=m)
     _, _, v = fp.fused_fwd(fs, xq, save_v=True)
     before = dict(LAUNCH_COUNTS)
     g_high = fp.fused_bwd(fs, xq, v, ctm, ctq, "high")
@@ -205,19 +208,42 @@ def _mvn_problem(dev, b, n, seed=0, bad=None):
     return torch.tensor(y, device=dev), torch.tensor(cov, device=dev)
 
 
+def _mvn_size(n):
+    """A size of the MVN cases: an int, or one named by the shared-memory
+    route's panel width P ("P-1", "P", "P+1", "2P+1") or its largest n
+    ("max"), read from the built library."""
+    if isinstance(n, int):
+        return n
+    if n == "max":
+        return fm.smem_max_n()
+    p = fm.smem_panel()
+    return {"P-1": p - 1, "P": p, "P+1": p + 1, "2P+1": 2 * p + 1}[n]
+
+
 @pytest.mark.parametrize("route,b,n", [
     ("smem", 4, 1), ("smem", 4, 2), ("smem", 4, 7), ("smem", 64, 12), ("smem", 9, 60),
-    ("smem", 8, 130), ("smem", 33, 170), ("smem", 3, 240), ("smem", 2, 339),
+    ("smem", 6, "P-1"), ("smem", 6, "P"), ("smem", 6, "P+1"), ("smem", 6, "2P+1"),
+    ("smem", 8, 130), ("smem", 33, 170), ("smem", 5, 171), ("smem", 3, 240),
+    ("smem", 3, "max"),
     ("panel", 4, 1), ("panel", 4, 7), ("panel", 5, 31), ("panel", 5, 32), ("panel", 5, 33),
     ("panel", 8, 130), ("panel", 6, 340), ("panel", 3, 544),
 ])
 def test_cuda_mvn_matches_plain(cuda_device, route, b, n):
     """Kernel 4, both routes, vs the plain elimination and the library
     factorization on the same float32 inputs (rtol 2e-4: summation order);
-    a non-PD matrix in the middle of the batch gives -inf there and leaves
-    the others alone."""
+    a non-PD matrix in the middle of the batch gives -inf there, and so
+    does a second one whose bad pivot falls in the middle of a panel of the
+    shared-memory route (its earlier pivots are good); the others are left
+    alone.  The shared-memory cases straddle its panel boundaries."""
+    n = _mvn_size(n)
     bad = b // 2
     y, cov = _mvn_problem(cuda_device, b, n, seed=n, bad=bad)
+    bads = [bad]
+    if b >= 3:
+        panel = fm.smem_panel()
+        k = panel + panel // 2 if n > panel + panel // 2 else n // 2
+        bads.append((bad + 1) % b)
+        cov[bads[1], k, k] = -1.0
     name = "fused_mvn_loglike" if route == "smem" else "fused_mvn_loglike_panel"
     before = LAUNCH_COUNTS[name]
     got = fm._mvn_cuda(y, cov, route=route)
@@ -225,8 +251,10 @@ def test_cuda_mvn_matches_plain(cuda_device, route, b, n):
     assert LAUNCH_COUNTS[name] == before + 1
     want = fm.fused_mvn_loglike_plain(y, cov)
     lib = mvn_loglike_batch(y, cov)
-    assert got[bad] == -torch.inf and want[bad] == -torch.inf
-    keep = torch.arange(b, device=cuda_device) != bad
+    for i in bads:
+        assert got[i] == -torch.inf and want[i] == -torch.inf
+    keep = torch.ones(b, dtype=torch.bool, device=cuda_device)
+    keep[bads] = False
     torch.testing.assert_close(got[keep], want[keep], rtol=2e-4, atol=0)
     torch.testing.assert_close(got[keep], lib[keep], rtol=2e-4, atol=0)
 
@@ -262,4 +290,4 @@ def test_cuda_mvn_rejects_wrong_inputs(cuda_device):
     with pytest.raises(ValueError, match="shape"):
         fm._mvn_cuda(y, cov[:, :4, :4].contiguous())
     with pytest.raises(ValueError, match="n <="):
-        fm._mvn_cuda(*_mvn_problem(cuda_device, 1, 400), route="smem")
+        fm._mvn_cuda(*_mvn_problem(cuda_device, 1, fm.smem_max_n() + 1), route="smem")

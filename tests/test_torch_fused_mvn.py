@@ -53,6 +53,91 @@ def test_plain_and_batch_match_jax_pallas_and_xla(b, n):
         np.testing.assert_allclose(got.numpy(), j_xla, rtol=2e-4)
 
 
+def _blocked_elimination(y: torch.Tensor, cov: torch.Tensor, panel: int) -> torch.Tensor:
+    """The shared-memory kernel's blocked order, in plain torch (on no path):
+    per panel of ``panel`` columns, (1) the diagonal block eliminated pivot
+    by pivot (right-looking, as the kernel's factoring warp does), (2) the
+    rows below it finished by substitution against the block's scaled rows
+    D[j][k] / p_k, (3) the trailing update A -= L L^T with the panel's
+    Cholesky entries L[i][k] = P[i][k] / sqrt(p_k).  A matrix whose pivot is
+    not positive and finite gives -inf; the others never see it."""
+    b, n = y.shape
+    a = torch.zeros((b, n + 1, n + 1), dtype=cov.dtype)
+    a[:, :n, :n] = cov
+    a[:, n, :n] = y
+    a = torch.tril(a)
+    logdet_half = torch.zeros((b,), dtype=cov.dtype)
+    ok = torch.ones((b,), dtype=torch.bool)
+    for c0 in range(0, n, panel):
+        c1 = min(c0 + panel, n)
+        pw = c1 - c0
+        x = a[:, c0:c1, c0:c1].clone()
+        dg = torch.zeros((b, pw, pw), dtype=cov.dtype)
+        for j in range(pw):
+            p = x[:, j, j]
+            ok &= (p > 0) & ~torch.isinf(p)
+            s = x[:, :, j] / p[:, None]
+            dg[:, :, j] = s
+            x[:, j + 1:, j + 1:] -= torch.tril(s[:, j + 1:, None] * x[:, None, j + 1:, j])
+        piv = torch.diagonal(x, dim1=1, dim2=2)
+        logdet_half = logdet_half + 0.5 * torch.log(piv).sum(-1)
+        rows = a[:, c1:, c0:c1].clone()
+        for j in range(1, pw):
+            rows[:, :, j] -= (rows[:, :, :j] * dg[:, j, None, :j]).sum(-1)
+        chol = rows / torch.sqrt(piv)[:, None, :]
+        a[:, c1:, c1:] -= torch.tril(torch.bmm(chol, chol.transpose(1, 2)))
+    lp = 0.5 * a[:, n, n] - logdet_half
+    return torch.where(ok & torch.isfinite(lp), lp, torch.full_like(lp, -torch.inf))
+
+
+#: the kernel's panel width (csrc/fused_mvn.cu SMEM_PANEL), and the others
+#: it was measured against
+PANEL = 16
+PANELS = (8, 16, 32)
+
+
+@pytest.mark.parametrize("n", [1, PANEL - 1, PANEL, PANEL + 1, 2 * PANEL + 1, 73, 170])
+def test_blocked_order_matches_jax_pallas_and_plain(n):
+    """The shared-memory kernel's blocked elimination, emulated in float32
+    at each measured panel width, against the JAX Pallas kernel (interpret
+    mode) and the plain elimination, rtol 2e-4 (the JAX package's own
+    kernel tolerance): n on both sides of the panel boundaries, the
+    flagship's 73- and 170-observable blocks."""
+    y, cov = _problem(3, n, seed=40 + n)
+    j_pallas = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    yt, ct = torch.tensor(y), torch.tensor(cov)
+    plain = fm.fused_mvn_loglike_plain(yt, ct).numpy()
+    for panel in PANELS:
+        got = _blocked_elimination(yt, ct, panel)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), j_pallas, rtol=2e-4)
+        np.testing.assert_allclose(got.numpy(), plain, rtol=2e-4)
+
+
+@pytest.mark.parametrize("where", ["mid_panel", "panel_end"])
+def test_blocked_order_bad_pivot_inside_a_panel(where):
+    """A pivot that goes bad in the middle of the second panel, or at its
+    last column (the earlier pivots stay good: only the leading minors up
+    to it see the planted diagonal), gives -inf there; the other matrices
+    of the batch keep the values they have without it, as in the JAX
+    Pallas kernel."""
+    n, bad = 60, 2
+    k = PANEL + PANEL // 2 if where == "mid_panel" else 2 * PANEL - 1
+    y, cov = _problem(5, n, seed=7)
+    clean = _blocked_elimination(torch.tensor(y), torch.tensor(cov), PANEL)
+    cov[bad, k, k] = -1.0
+    j = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    assert j[bad] == -np.inf
+    keep = np.arange(5) != bad
+    for panel in PANELS:
+        got = _blocked_elimination(torch.tensor(y), torch.tensor(cov), panel)
+        assert got[bad] == -torch.inf
+        assert torch.isfinite(got[keep]).all()
+        np.testing.assert_allclose(got.numpy()[keep], j[keep], rtol=2e-4)
+    got = _blocked_elimination(torch.tensor(y), torch.tensor(cov), PANEL)
+    np.testing.assert_array_equal(got.numpy()[keep], clean.numpy()[keep])
+
+
 def test_plain_f64_matches_jax_xla_f64():
     """In float64 the elimination and the Cholesky agree to 1e-11 (the two
     are the same factorization in a different order)."""
@@ -172,3 +257,31 @@ def test_kernel_source_calls_no_library_factorization():
         assert word not in code, word
     assert "__global__" in code and "kernel<<<" in code and "mvn_panel_kernel<<<" in code
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in code
+    # the panel width the blocked-order tests emulate is the kernel's
+    assert f"constexpr int SMEM_PANEL = {PANEL};" in code
+
+
+def test_mvn_variant_tool_edits_apply_to_the_source():
+    """tools/torch_mvn_variants.py times the shared-memory route at other
+    panel widths by editing SMEM_PANEL in csrc/fused_mvn.cu: the edit must
+    still apply, give every measured width once, and keep the rest of the
+    source as it is."""
+    import importlib.util
+
+    from gpbayestools_hic_tpu_torch.ops import _build
+
+    path = _build._PKG_DIR.parent / "tools" / "torch_mvn_variants.py"
+    spec = importlib.util.spec_from_file_location("torch_mvn_variants", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (_build._PKG_DIR / _build.SOURCES["fused_mvn"]).read_text()
+    variants = tool.variant_sources(src)
+    assert variants["kept"] == src
+    widths = {name: int(tool.WIDTH_LINE.findall(text)[0]) for name, text in variants.items()}
+    assert set(widths.values()) == set(PANELS)
+    for name, text in variants.items():
+        if name in tool.EDITS:  # edits of the committed width, which they change
+            assert widths[name] == PANEL and text != src, name
+        elif name != "kept":
+            assert tool.WIDTH_LINE.sub("", text) == tool.WIDTH_LINE.sub("", src), name
+    assert set(tool.DIAGNOSTIC) <= set(tool.EDITS)

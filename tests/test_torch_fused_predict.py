@@ -267,6 +267,51 @@ def test_tf32_backward_arithmetic_beats_jax_bf16(interpret_force):
     assert e_tf32 < e_jax and e_tf32 < 2e-3, (e_tf32, e_jax)
 
 
+def _backward_with_product(fs, xq, ctm, ctq, gtv):
+    """The backward kernels' FP32 arithmetic around a given G^T v product:
+    the 2 ct_qf column scale, the alpha ct_mean term, ct_z under the z < 0
+    mask and the difference-form query contraction, summed over the GPs."""
+    qs, z, kstar = fp._kstar_plain(fs, xq)
+    ct_k = 2.0 * ctq[:, None, :] * gtv + fs.alpha[:, :, None] * ctm[:, None, :]
+    ct_z = torch.where(z < 0, kstar * ct_k, torch.zeros_like(kstar))
+    ct_qs = torch.stack([(ct_z * (fs.xs[:, :, j, None] - qs[:, None, :, j])).sum(1)
+                         for j in range(qs.shape[-1])], dim=-1)
+    return (ct_qs * fs.inv_ls[:, None, :]).sum(0)
+
+
+def test_3xtf32_backward_arithmetic_on_real_factors(interpret_force):
+    """The full-precision backward kernel's arithmetic -- G^T v as hi*hi +
+    hi*lo + lo*hi of TF32 halves with FP32 sums, the rest of the backward
+    in FP32 -- on the real GP factor stays within 5e-5 normwise of the
+    float64 gradient (chip_smoke.py's TOL_GRAD_HIGH for the kernel) and
+    closer to it than the JAX 3-pass bf16 backward (_bwd_kernel, the
+    gradient of fused_pc_predict in Pallas interpret mode); one TF32 pass
+    on the same product misses 5e-5, so the tolerance tells the two
+    apart."""
+    fs, fs64, jfs, xq32, w32 = _real_factor_problem()
+    xq = torch.tensor(xq32)
+    ctm, ctq = torch.tensor(w32[0]), torch.tensor(w32[1])
+    _, _, v64 = fp.fused_fwd_plain(fs64, xq.double(), save_v=True)
+    g64 = fp.fused_bwd_plain(fs64, xq.double(), v64, ctm.double(), ctq.double()).sum(0)
+    _, _, v = fp.fused_fwd_plain(fs, xq, save_v=True)
+    (gh, gl), (vh, vl) = _split_tf32(fs.G.transpose(1, 2)), _split_tf32(v)
+    products = {
+        "3xtf32": torch.bmm(gl, vh) + torch.bmm(gh, vl) + torch.bmm(gh, vh),
+        "1xtf32": torch.bmm(gh, vh),
+    }
+    err = {name: _normwise(_backward_with_product(fs, xq, ctm, ctq, p), g64)
+           for name, p in products.items()}
+
+    def jloss(q):
+        mn, qq = pp.fused_pc_predict(jfs, q)
+        return jnp.sum(mn * w32[0].T) + jnp.sum(qq * w32[1].T)
+
+    g_jax = torch.tensor(np.asarray(jax.grad(jloss)(jnp.asarray(xq32))))
+    e_jax = _normwise(g_jax, g64)
+    assert err["3xtf32"] <= 5e-5 and err["3xtf32"] < e_jax, (err, e_jax)
+    assert err["1xtf32"] > 5e-5, err
+
+
 def test_plain_backward_matches_autograd_of_plain_forward():
     """The hand-written plain backward (the kernel's reference) equals
     autograd through the plain forward, f64 to 1e-10 (same arithmetic,
@@ -331,8 +376,9 @@ def test_grad_precision_selects_the_backward_kernel():
     with pytest.raises(ValueError, match="grad_precision"):
         fp.fused_bwd(fs, torch.tensor(xq), None, None, None, "bf16")
     src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
-    assert "int fused_predict_bwd_high(" in src and "bwd_fp32_kernel<<<" in src
-    assert "int fused_predict_bwd(" in src and "bwd_tc_kernel<true>" in src
+    assert "int fused_predict_bwd_high(" in src and "launch_bwd<3>(" in src
+    assert "int fused_predict_bwd(" in src and "launch_bwd<1>(" in src
+    assert "bwd_tc_kernel<true, kPasses>" in src and "bwd_fp32_kernel" not in src
 
 
 def test_high_precision_gradient_matches_jax_pallas(interpret_force):
@@ -383,7 +429,7 @@ def test_predict_variant_edits_apply_to_the_source():
     src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
     assert set(tool.VARIANTS) == {"kept", "g_split_in_memory", "cvt_rounding", "no_promotion",
                                   "rows_1_at_a_time", "rows_16_at_a_time", "no_copies",
-                                  "no_products"}
+                                  "no_products", "high_one_block_per_sm"}
     assert tool.variant_source(src, tool.VARIANTS["kept"]) == src
     for name, edits in tool.VARIANTS.items():
         assert tool.variant_source(src, edits) != src or name == "kept"

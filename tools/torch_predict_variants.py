@@ -4,7 +4,11 @@ timed at the flagship shape.
 
 Run from the repository root on a CUDA machine:
 
-    python3 tools/torch_predict_variants.py
+    python3 tools/torch_predict_variants.py [--parent DIR]
+
+``--parent DIR`` adds the ``fused_predict.cu`` of another checkout (e.g. the
+parent commit unpacked with ``git archive``) as the variant ``parent``, so
+that the two are timed in one process on one card.
 
 Each variant is the committed source with a few text edits (the script
 fails if an edit no longer applies to the source):
@@ -17,7 +21,10 @@ fails if an edit no longer applies to the source):
   two A tiles per ring stage and no split in the kernel; two ring stages so
   that two blocks still fit on an SM;
 - ``cvt_rounding``: TF32 rounding by ``cvt.rna.tf32.f32``;
-- ``no_promotion``: the products accumulate straight into the accumulator;
+- ``no_promotion``: the forward's products accumulate straight into the
+  accumulator;
+- ``high_one_block_per_sm``: the three-pass backward (kernel 3) given one
+  block per SM, and so up to 255 registers, on its 16-byte route too;
 - ``rows_1_at_a_time`` / ``rows_16_at_a_time``: the backward's xs rows
   loaded one / sixteen per thread at a time;
 - ``no_copies`` / ``no_products``: the ring's copies / the tensor-core
@@ -25,15 +32,17 @@ fails if an edit no longer applies to the source):
   the time is the other part plus the epilogue).
 
 For each it prints the ptxas registers and spills of the tensor-core
-kernels, the forward's and the fast backward's device time (CUDA events
+kernels, the device time of the forward, the fast backward and the
+three-pass backward (CUDA events
 around a rotation over the 9 emulators' factors of the flagship chain,
 1024 walkers), their normwise errors against the plain forward and
-backward in float64 (the backward is given the plain forward's v), then
+backward in float64 (the backwards are given the plain forward's v), then
 the card's name and power limit and one JSON line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -122,6 +131,11 @@ VARIANTS = {
         ("    if (nxt < ktiles) load(ring + (nxt % STAGES) * kStage, nxt);", ""),
     ],
     "no_products": [("    compute(ring + (kt % STAGES) * kStage, kt);", "")],
+    "high_one_block_per_sm": [
+        ("__global__ void __launch_bounds__(TC_NT, kVec ? 2 : 1)\nbwd_tc_kernel(",
+         "__global__ void __launch_bounds__(TC_NT, (kVec && kPasses == 1) ? 2 : 1)\n"
+         "bwd_tc_kernel("),
+    ],
     "no_promotion": [
         ("            float part[4] = {0.f, 0.f, 0.f, 0.f};\n"
          "            mma_tf32(part, al, bh[ni]);   // small terms first\n"
@@ -144,16 +158,20 @@ def variant_source(text: str, edits) -> str:
     return text
 
 
-def build(tmp: str) -> dict:
+def build(tmp: str, parent: str | None = None) -> dict:
     """Compile every variant at once (one nvcc each); name -> CDLL."""
     from gpbayestools_hic_tpu_torch.ops import _build
 
-    src = open(os.path.join(ROOT, "gpbayestools_hic_tpu_torch", _build.SOURCES["fused_predict"])).read()
+    rel = os.path.join("gpbayestools_hic_tpu_torch", _build.SOURCES["fused_predict"])
+    src = open(os.path.join(ROOT, rel)).read()
+    sources = {name: variant_source(src, edits) for name, edits in VARIANTS.items()}
+    if parent is not None:
+        sources["parent"] = open(os.path.join(parent, rel)).read()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, text in sources.items():
         cu, so = os.path.join(tmp, f"{name}.cu"), os.path.join(tmp, f"lib{name}.so")
         with open(cu, "w") as f:
-            f.write(variant_source(src, edits))
+            f.write(text)
         procs[name] = (subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
@@ -170,7 +188,7 @@ def build(tmp: str) -> dict:
         extra = 2 if name == "g_split_in_memory" else 0
         lib.fused_predict_fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                                           + [ctypes.c_void_p] * (1 + extra))
-        for entry in ("fused_predict_bwd",):
+        for entry in ("fused_predict_bwd", "fused_predict_bwd_high"):
             getattr(lib, entry).restype = ctypes.c_int
             getattr(lib, entry).argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         libs[name] = lib
@@ -178,16 +196,18 @@ def build(tmp: str) -> dict:
 
 
 def ptxas_report(log: str) -> dict:
-    """{kernel: "R registers, S bytes spilled"} for the tensor-core kernels."""
+    """{kernel: "R registers, S bytes spilled"} for the tensor-core kernels
+    (the backward's instances by copy route and pass count)."""
     out, lines = {}, log.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"\d(fwd_tc_kernel|bwd_tc_kernel)ILb([01])E", line)
+        m = re.search(r"\d(fwd_tc_kernel|bwd_tc_kernel)ILb([01])E(?:Li(\d)E)?", line)
         if "Compiling entry" in line and m:
             spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
             regs = re.search(r"Used (\d+) registers", lines[i + 3])
             route = "16-byte" if m.group(2) == "1" else "4-byte"
-            out[f"{m.group(1)} ({route})"] = (f"{regs.group(1)} registers, "
-                                              f"{spill.group(1)} bytes spilled")
+            passes = f", {m.group(3)} pass{'es' if m.group(3) != '1' else ''}" if m.group(3) else ""
+            out[f"{m.group(1)} ({route}{passes})"] = (f"{regs.group(1)} registers, "
+                                                      f"{spill.group(1)} bytes spilled")
     return out
 
 
@@ -202,11 +222,14 @@ def main() -> int:
     from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
     from gpbayestools_hic_tpu_torch.utils.synthetic import build_synthetic_chain
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", help="root of another checkout to time beside this one")
+    parent = parser.parse_args().parent
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="predict_variants_") as tmp:
-        libs, ptxas = build(tmp)
+        libs, ptxas = build(tmp, parent)
         chain, _ = build_synthetic_chain(nev=cs.NEV, ndim=cs.NDIM, nobs_blocks=cs.BLOCKS,
                                          npc=cs.NPC, gp_maxiter=0, seed=0, tmpdir=tmp, device=dev)
         states = [e._fused for e in chain.emuList]
@@ -250,12 +273,13 @@ def main() -> int:
                     raise SystemExit(f"variant {name}: CUDA error {err}")
                 return mean, qf
 
-            def bwd(i, lib=lib):
+            def bwd(i, lib=lib, entry="fused_predict_bwd"):
                 s = states[i]
                 f32 = dict(dtype=torch.float32, device=dev)
-                part = torch.empty(lib.fused_predict_scratch(1, b, n, m, d), **f32)
+                part = torch.empty(lib.fused_predict_scratch(1 if entry == "fused_predict_bwd"
+                                                             else 2, b, n, m, d), **f32)
                 ct_q = torch.empty((b, m, d), **f32)
-                err = lib.fused_predict_bwd(
+                err = getattr(lib, entry)(
                     s.xs.data_ptr(), xq.data_ptr(), s.inv_ls.data_ptr(), s.G.data_ptr(),
                     s.alpha.data_ptr(), s.amp.data_ptr(), vs[i].data_ptr(), ct_mean.data_ptr(),
                     ct_qf.data_ptr(), part.data_ptr(), ct_q.data_ptr(), b, n, m, d, stream)
@@ -265,16 +289,21 @@ def main() -> int:
 
             mean, qf = fwd(0)
             g = bwd(0)
+            g_high = bwd(0, entry="fused_predict_bwd_high")
             torch.cuda.synchronize()
             rot = range(len(states))
             ms = cs.cuda_ms(lambda: [fwd(i) for i in rot]) / len(states)
             ms_bwd = cs.cuda_ms(lambda: [bwd(i) for i in rot]) / len(states)
+            ms_high = cs.cuda_ms(lambda: [bwd(i, entry="fused_predict_bwd_high")
+                                          for i in rot]) / len(states)
             err_mean, err_qf = cs.normwise(mean, mean64)[1], cs.normwise(qf, qf64)[1]
-            err_g = cs.normwise(g, g64)[1]
+            err_g, err_high = cs.normwise(g, g64)[1], cs.normwise(g_high, g64)[1]
             results[name] = dict(ms=ms, mean_vs_f64=err_mean, qf_vs_f64=err_qf,
-                                 bwd_ms=ms_bwd, bwd_vs_f64=err_g, ptxas=ptxas[name])
-            print(f"{name:18s} forward {ms:.4f} ms (mean {err_mean:.3e}, qf {err_qf:.3e} "
+                                 bwd_ms=ms_bwd, bwd_vs_f64=err_g, bwd_high_ms=ms_high,
+                                 bwd_high_vs_f64=err_high, ptxas=ptxas[name])
+            print(f"{name:21s} forward {ms:.4f} ms (mean {err_mean:.3e}, qf {err_qf:.3e} "
                   f"normwise vs float64); fast backward {ms_bwd:.4f} ms ({err_g:.3e}); "
+                  f"three-pass backward {ms_high:.4f} ms ({err_high:.3e}); "
                   f"ptxas {ptxas[name]}", flush=True)
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
