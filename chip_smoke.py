@@ -18,10 +18,13 @@ It imports nothing of JAX or the JAX package.  In order it
    against its plain version in float32 and in float64, both backwards
    against the plain backward in float64, and the fast backward must not
    equal the full-precision one), the MVN elimination on the path's own
-   covariances at (b, n) = (1024, 170), (1024, 73), (1024, 12) and,
-   stitched, (512, 544), one non-PD matrix planted in each batch (the MVN
-   kernel timed by replaying a CUDA graph of its launches, so that the
-   host's enqueue stays out of the measured time);
+   covariances at (b, n) = (1024, 170), (1024, 73), (1024, 12) (the
+   shared-memory route), stitched (512, 544) (the cluster route, with its
+   cluster size, panel width and the clusters the card places) and, for
+   the panel route, 16 stitched matrices grown to the cluster route's
+   largest n + 1, one non-PD matrix planted in each batch (the MVN kernel
+   timed by replaying a CUDA graph of its launches, so that the host's
+   enqueue stays out of the measured time);
 4. drives four paths, each with every launch count set to 0 just before
    it and read just after it (a path that never launched one of its
    kernels fails the run):
@@ -33,7 +36,8 @@ It imports nothing of JAX or the JAX package.  In order it
       the ``"auto"`` value, then ``Chain.run_mcmc`` (stretch move, 1024
       walkers, 32 burn-in + 64 production steps);
    c. ``"stitched"``: the log-posterior against the gate and the generic
-      value, then a short ``run_mcmc`` (8 + 8 steps);
+      value, then a short ``run_mcmc`` (8 + 8 steps), through the MVN
+      kernel's cluster route;
    d. HMC with ``grad_precision="high"`` (256 walkers, the seed and steps
       of the 256-walker run of a); the default's mean acceptance may not
       fall more than 0.10 below it;
@@ -112,7 +116,8 @@ TOL_GRAD = 2e-3
 TOL_GRAD_HIGH = 5e-5
 # the MVN elimination against its plain version, both float32 and the same
 # recurrence in another operation order (the kernel scales the row, the
-# plain version the column, and the panel route sums 32 pivots at a time):
+# plain version the column, and the blocked routes sum 16 or 32 pivots at a
+# time):
 # max |kernel - plain| / max |plain| over the batch.  2e-4 is the rtol the
 # JAX package holds its own kernel to (tests/test_pallas.py); the path's
 # covariances are worse conditioned than that test's, and the lp sums
@@ -374,23 +379,15 @@ def mvn_inputs(chain, device):
     return block_inputs
 
 
-def mvn_phase(chain, device):
-    """The MVN elimination against its plain version on the covariances the
-    dense paths hand it: the 170-, 73- and 12-observable blocks at 1024
-    walkers (shared-memory route) and the stitched 544 x 544 matrix at a
-    half-ensemble of 512 (panel route), one matrix of each batch replaced
-    by a non-PD one.  The kernel is timed by CUDA-graph replay
-    (:func:`graph_ms`); the plain version and the library yardstick, the
-    port's ``mvn_loglike_batch`` (``cholesky_ex`` + ``solve_triangular`` +
-    reductions), with CUDA events around their eager calls."""
+def stitched_inputs(chain, device, block_inputs):
+    """``stitched(m)``: the residual (m, 544) and the block-diagonal
+    stitched covariance (m, 544, 544) the stitched path hands the MVN
+    kernel, from the same walkers as ``block_inputs``."""
     import torch
-    from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
-    from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
 
-    block_inputs = mvn_inputs(chain, device)
     offsets = np.cumsum([0] + list(BLOCKS))
 
-    def stitched_inputs(m):
+    def stitched(m):
         ys, cov = [], torch.zeros((m, chain.nobs, chain.nobs), dtype=torch.float32,
                                   device=device)
         for idx in range(len(BLOCKS)):
@@ -400,19 +397,55 @@ def mvn_phase(chain, device):
             cov[:, i0:i1, i0:i1] = c_i
         return torch.cat(ys, dim=1).contiguous(), cov
 
+    return stitched
+
+
+def mvn_phase(chain, device):
+    """The MVN elimination against its plain version on the covariances the
+    dense paths hand it: the 170-, 73- and 12-observable blocks at 1024
+    walkers (shared-memory route), the stitched 544 x 544 matrix at a
+    half-ensemble of 512 (cluster route) and, for the panel route, 16
+    stitched matrices grown past the cluster route's largest n (each one
+    block-diagonal with a leading block of itself), one matrix of each
+    batch replaced by a non-PD one.  Each case goes through the wrapper's
+    own choice of route, which must be the one named.  The kernel is timed
+    by CUDA-graph replay (:func:`graph_ms`); the plain version and the
+    library yardstick, the port's ``mvn_loglike_batch`` (``cholesky_ex`` +
+    ``solve_triangular`` + reductions), with CUDA events around their eager
+    calls."""
+    import torch
+    from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
+    from gpbayestools_hic_tpu_torch.ops import registry
+    from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
+
+    block_inputs = mvn_inputs(chain, device)
+    stitched = stitched_inputs(chain, device, block_inputs)
+
+    def grown(m, n):
+        y, cov = stitched(m)
+        extra = n - y.shape[1]
+        big = torch.zeros((m, n, n), dtype=torch.float32, device=device)
+        big[:, :y.shape[1], :y.shape[1]] = cov
+        big[:, y.shape[1]:, y.shape[1]:] = cov[:, :extra, :extra]
+        return torch.cat([y, y[:, :extra]], dim=1).contiguous(), big
+
     cases = (
         ("fused_mvn_loglike", block_inputs(BLOCKS.index(170), NWALKERS), 9),
         ("fused_mvn_loglike", block_inputs(BLOCKS.index(73), NWALKERS), 9),
         ("fused_mvn_loglike", block_inputs(BLOCKS.index(12), NWALKERS), 9),
-        ("fused_mvn_loglike_panel", stitched_inputs(NWALKERS // 2), 2),
+        ("fused_mvn_loglike_cluster", stitched(NWALKERS // 2), 4),
+        ("fused_mvn_loglike_panel", grown(16, fm.route_max_n("cluster") + 1), 4),
     )
     stats, failed = {}, []
     for name, (y, cov), reps in cases:
         b, n = y.shape
         bad = b // 2
         cov[bad] = -torch.eye(n, device=device)
+        before = registry.LAUNCH_COUNTS[name]
         got = fm.fused_mvn_loglike(y, cov)
         torch.cuda.synchronize()
+        if registry.LAUNCH_COUNTS[name] != before + 1:
+            raise SystemExit(f"n = {n} did not take the route {name}")
         plain = fm.fused_mvn_loglike_plain(y, cov)
         lib = mvn_loglike_batch(y, cov)
         plain64 = fm.fused_mvn_loglike_plain(y.double(), cov.double())
@@ -437,6 +470,17 @@ def mvn_phase(chain, device):
         if name == "fused_mvn_loglike":
             log(f"occupancy {name} (n={n}): {fm.smem_blocks_per_sm(n)} blocks per SM, "
                 f"panel width {fm.smem_panel()}")
+            blocked = f"blocked, {fm.smem_panel()}-column panels in shared memory"
+        elif name == "fused_mvn_loglike_cluster":
+            info = fm.cluster_info(n)
+            log(f"occupancy {name} (n={n}): clusters of C = {info['c']} CTAs, panel width "
+                f"P = {info['p']}, {info['bytes']} B of shared memory per CTA, "
+                f"{info['active_clusters']} clusters placed at once "
+                f"(cudaOccupancyMaxActiveClusters)")
+            blocked = (f"blocked, {info['p']}-column panels, the matrix in the shared "
+                       f"memory of a {info['c']}-CTA cluster")
+        else:
+            blocked = "blocked, 32-column panels, trailing update in device memory"
         log(f"timing {name} (b={b}, n={n}): kernel {t_k:.4f} ms by CUDA-graph replay "
             f"({flops / t_k / 1e9:.2f} TFLOP/s, {nbytes / t_k / 1e6:.1f} GB/s), plain "
             f"{t_p:.4f} ms, library yardstick (mvn_loglike_batch: cholesky_ex + "
@@ -445,11 +489,9 @@ def mvn_phase(chain, device):
             failed.append(f"{name} (b={b}, n={n})")
         # the kernels line reports each route at its largest flagship shape
         if name not in stats:
-            blocked = (f"blocked, {fm.smem_panel()}-column panels in shared memory"
-                       if name == "fused_mvn_loglike" else "blocked, 32-column panels")
             stats[name] = dict(max_abs_err=e_p, ms=t_k, plain_ms=t_p, bound_ms=bd,
                                bound_by=why, library_ms=t_l, library_tf32_ms=None,
-                               precision=f"FP32 FMA ({blocked})",
+                               precision=f"FP32 FMA ({blocked})", shape=[b, n],
                                timing="CUDA-graph replay (kernel), CUDA events (plain, library)")
     if failed:
         raise SystemExit(f"MVN kernel disagrees with its plain version: {failed}")
@@ -529,9 +571,10 @@ def ensemble_run(chain, label, burn, steps):
         raise SystemExit(f"{label}: run_mcmc produced a malformed chain or non-finite log-probs")
 
 
-def drive_paths(chain, tmp):
+def drive_paths(chain, tmp, on_paths):
     """The four paths, each between a reset and a reading of the launch
-    counts.  Returns ``{path: {kernel: launches}}``."""
+    counts; adds the kernels each path must launch to ``on_paths``.
+    Returns ``{path: {kernel: launches}}``."""
     from gpbayestools_hic_tpu_torch.ops import registry
     from gpbayestools_hic_tpu_torch.utils.validation import f64_log_posterior
 
@@ -568,11 +611,12 @@ def drive_paths(chain, tmp):
     paths = (
         ("auto+hmc", auto_hmc, ("fused_predict_fwd", "fused_predict_bwd")),
         ("generic+ensemble", generic, ("fused_mvn_loglike",)),
-        ("stitched+ensemble", stitched, ("fused_mvn_loglike_panel",)),
+        ("stitched+ensemble", stitched, ("fused_mvn_loglike_cluster",)),
         ("hmc grad_precision=high", hmc_high, ("fused_predict_fwd", "fused_predict_bwd_high")),
     )
     counts = {}
     for name, run, kernels in paths:
+        on_paths.update(kernels)
         # each path writes its own chain file: run_mcmc resumes from one it finds
         chain.mcmc_path = Path(tmp) / name.split()[0].replace("+", "_") / "chain.pkl"
         chain.mcmc_path.parent.mkdir(parents=True, exist_ok=True)
@@ -632,11 +676,13 @@ def main() -> int:
 
         stats = kernel_phase(chain, device)
         stats.update(mvn_phase(chain, device))
-        counts = drive_paths(chain, tmp)
+        on_paths = set()
+        counts = drive_paths(chain, tmp, on_paths)
     launches = {k: sum(c[k] for c in counts.values()) for k in registry.KERNELS}
-    log(f"kernel launches over the four paths: {launches}")
+    log(f"kernel launches over the four paths: {launches} (the MVN panel route, for "
+        f"n past the cluster route's, is on none of the flagship's paths)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
-    missing = [k for k, c in launches.items() if c == 0]
+    missing = [k for k in on_paths if launches[k] == 0]
     if missing:
         raise SystemExit(f"no path launched {missing}")
 

@@ -11,21 +11,29 @@ augmented matrix ``[[C, y], [y^T, 0]]`` symmetrically, lower triangle
 only: the pivots give the log-determinant and the last entry ends as
 ``-y^T C^-1 y``, so there is no separate solve.  A pivot that is not
 positive and finite, or a non-finite result, gives ``-inf``.  One thread
-block owns one matrix.  Both routes run the reference's blocked
-right-looking order (factor a panel of columns, then apply its trailing
-update as one product), FP32 FMA throughout, and are chosen from ``n``
-alone:
+block (or one cluster) owns one matrix.  All routes run the reference's
+blocked right-looking order (factor a panel of columns, then apply its
+trailing update as one product), FP32 FMA throughout, and are chosen from
+``n`` alone:
 
-- ``fused_mvn_loglike`` (n <= 318): the lower triangle packed in the
+- ``fused_mvn_loglike`` (n <= 319): the lower triangle packed in the
   block's shared memory beside a copy of the current 16-column panel; the
   panel's diagonal block factored by one warp, its rows below by a thread
   each, the trailing update in 4 x 4 register tiles.  cov's lower triangle
   and y are read once; three blocks share an SM at n = 170.  Bound by FP32
   operations at n = 170 (by bytes at the small flagship blocks).
-- ``fused_mvn_loglike_panel`` (larger n, the stitched 544 x 544 matrix):
-  32-column panels factored in shared memory, the trailing update applied
-  in register tiles to a scratch copy in device memory that the wrapper
-  allocates.  Bound by FP32 operations.
+- ``fused_mvn_loglike_cluster`` (up to n = 766, the stitched 544 x 544
+  matrix): one thread-block cluster of C CTAs per matrix (C the smallest
+  of 2 .. 8 whose shared memory holds it: 4 at n = 544), the rows dealt
+  out block-cyclically in 16-row blocks, each CTA's rows packed in its own
+  shared memory; the diagonal block and each panel's Cholesky rows reach
+  the other CTAs through distributed shared memory, two cluster barriers
+  per panel.  cov is read once and nothing but the output is allocated.
+  :func:`cluster_layout` mirrors the kernel's layout.
+- ``fused_mvn_loglike_panel`` (larger n, up to 1759): 32-column panels
+  factored in shared memory, the trailing update applied in register
+  tiles to a scratch copy in device memory that the wrapper allocates.
+  Bound by FP32 operations.
 
 None of the TPU layout is kept (lane padding to 128, identity block,
 ``(b, 128)`` output, VMEM-sized batch chunks).
@@ -40,6 +48,7 @@ matrix that is not positive definite and for a non-finite cotangent.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +58,83 @@ from .registry import count_launch, raise_on, register
 _SOURCE = "gpbayestools_hic_tpu_torch/csrc/fused_mvn.cu"
 _REPLACES = "gpbayestools_hic_tpu/ops/pallas_mvn.py:61"  # _mvn_kernel
 register("fused_mvn_loglike", _SOURCE, _REPLACES)
+register("fused_mvn_loglike_cluster", _SOURCE, _REPLACES)
 register("fused_mvn_loglike_panel", _SOURCE, _REPLACES)
+
+
+# ------------------------------------------- routes and the cluster layout
+# Mirrors of the host functions of csrc/fused_mvn.cu (the CPU tests check
+# them; the on-card tests hold them against the built library, whose
+# numbers the wrapper dispatches by).
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+SMEM_PANEL = 16      # panel width of the shared-memory route
+CLUSTER_PANEL = 16   # panel width = row-block height of the cluster route
+CLUSTER_MAX = 8      # largest cluster the cluster route uses
+PANEL_PANEL = 32     # panel width of the panel route
+
+
+def _tri(i: int) -> int:
+    return i * (i + 1) // 2
+
+
+def _align4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def smem_bytes(n: int) -> int:
+    """Shared memory of the shared-memory route at n (``smem_bytes``)."""
+    p, ld = SMEM_PANEL, SMEM_PANEL + 4
+    return 4 * (_align4(_tri(n + 1)) + (n + 1 + p) * ld + p + 1)
+
+
+def cluster_rows(n: int, c: int, p: int = CLUSTER_PANEL) -> list[list[int]]:
+    """Rows 0 .. n of the augmented matrix each rank of a c-CTA cluster
+    holds: row block [kp, kp + p) belongs to rank k mod c."""
+    return [[i for i in range(n + 1) if (i // p) % c == r] for r in range(c)]
+
+
+def cluster_bytes(n: int, c: int, p: int = CLUSTER_PANEL) -> int:
+    """Dynamic shared memory per CTA (``cluster_bytes``): the part every
+    rank keeps at the same offsets (the panel copy of n + 1 rows of p + 4
+    floats, two buffers of the diagonal block and its 1 / sqrt(p),
+    reduction slots and two flags), then the largest rank's row table and
+    packed rows."""
+    n1 = n + 1
+    common = n1 * (p + 4) + 2 * (p * (p + 4) + p) + _align4(CLUSTER_MAX + 3)
+    worst = max(_align4(len(rows)) + _align4(sum(i + 1 for i in rows))
+                for rows in cluster_rows(n, c, p))
+    return 4 * (common + worst)
+
+
+class ClusterLayout(NamedTuple):
+    c: int         # CTAs per cluster
+    p: int         # panel width and row-block height
+    bytes: int     # dynamic shared memory per CTA
+
+
+def cluster_layout(n: int) -> ClusterLayout:
+    """The cluster route's layout at n: the smallest cluster (2 .. 8 CTAs)
+    whose shared memory holds the matrix.  Raises past the route's
+    largest n."""
+    for c in range(2, CLUSTER_MAX + 1):
+        nbytes = cluster_bytes(n, c)
+        if nbytes <= SMEM_LIMIT:
+            return ClusterLayout(c, CLUSTER_PANEL, nbytes)
+    raise ValueError(f"no cluster of at most {CLUSTER_MAX} CTAs holds n = {n}")
+
+
+def route_limits() -> dict[str, tuple[int, int]]:
+    """The n range of each route, as the wrapper picks them: smallest and
+    largest n (``fused_mvn_*_max_n``)."""
+    smem = 1
+    while smem_bytes(smem + 1) <= SMEM_LIMIT:
+        smem += 1
+    hi = smem
+    while cluster_bytes(hi + 1, CLUSTER_MAX) <= SMEM_LIMIT:
+        hi += 1
+    panel = (SMEM_LIMIT // 4 - PANEL_PANEL) // (PANEL_PANEL + 1) - 1
+    return {"smem": (1, smem), "cluster": (smem + 1, hi), "panel": (hi + 1, panel)}
 
 
 # ------------------------------------------------------------- plain version
@@ -88,23 +173,38 @@ def _lib():
 
     lib = load("fused_mvn")
     if not getattr(lib, "_gpbt_typed", False):
-        for name in ("fused_mvn_smem_max_n", "fused_mvn_panel_max_n", "fused_mvn_smem_panel"):
+        for name in ("fused_mvn_smem_max_n", "fused_mvn_panel_max_n", "fused_mvn_smem_panel",
+                     "fused_mvn_cluster_max_n", "fused_mvn_cluster_panel"):
             getattr(lib, name).restype = _I
             getattr(lib, name).argtypes = []
-        lib.fused_mvn_smem_blocks_per_sm.restype = _I
-        lib.fused_mvn_smem_blocks_per_sm.argtypes = [_I]
-        lib.fused_mvn_loglike_smem.restype = _I
-        lib.fused_mvn_loglike_smem.argtypes = [_P] * 3 + [_I] * 2 + [_P]
+        for name in ("fused_mvn_smem_blocks_per_sm", "fused_mvn_cluster_size",
+                     "fused_mvn_cluster_bytes", "fused_mvn_cluster_active"):
+            getattr(lib, name).restype = _I
+            getattr(lib, name).argtypes = [_I]
+        for name in ("fused_mvn_loglike_smem", "fused_mvn_loglike_cluster"):
+            getattr(lib, name).restype = _I
+            getattr(lib, name).argtypes = [_P] * 3 + [_I] * 2 + [_P]
         lib.fused_mvn_loglike_panel.restype = _I
         lib.fused_mvn_loglike_panel.argtypes = [_P] * 4 + [_I] * 2 + [_P]
         lib._gpbt_typed = True
     return lib
 
 
+#: route -> (kernel name in the registry, its C entry, the C entry of its largest n)
+_ROUTES = {
+    "smem": ("fused_mvn_loglike", "fused_mvn_loglike_smem", "fused_mvn_smem_max_n"),
+    "cluster": ("fused_mvn_loglike_cluster", "fused_mvn_loglike_cluster",
+                "fused_mvn_cluster_max_n"),
+    "panel": ("fused_mvn_loglike_panel", "fused_mvn_loglike_panel", "fused_mvn_panel_max_n"),
+}
+
+
 def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> torch.Tensor:
-    """Launch the elimination kernel.  ``route`` (``"smem"`` / ``"panel"``)
-    overrides the choice by size, for holding the panel route against the
-    plain version at a small n."""
+    """Launch the elimination kernel.  The route follows n (smem up to its
+    largest n, then cluster, then panel); ``route`` (``"smem"`` /
+    ``"cluster"`` / ``"panel"``) forces one, for holding each against the
+    plain version at any n it takes.  A failed launch raises: no other
+    route is tried."""
     for t in (y, cov):
         if t.device != y.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
@@ -119,28 +219,41 @@ def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> t
     b, n = y.shape
     lib = _lib()
     if route is None:
-        route = "smem" if n <= lib.fused_mvn_smem_max_n() else "panel"
-    limit = lib.fused_mvn_smem_max_n() if route == "smem" else lib.fused_mvn_panel_max_n()
-    if route not in ("smem", "panel") or n > limit:
+        route = next((r for r in ("smem", "cluster") if n <= route_max_n(r)), "panel")
+    if route not in _ROUTES:
+        raise ValueError(f"unknown fused MVN route {route!r}")
+    name, entry, _ = _ROUTES[route]
+    limit = route_max_n(route)
+    if n > limit:
         raise ValueError(f"fused MVN route {route!r} takes n <= {limit}, got n = {n}")
     out = torch.empty((b,), dtype=torch.float32, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
+    ptrs = [y.data_ptr(), cov.data_ptr()]
+    if route == "panel":
+        # the matrix is eliminated in place in this copy; the kernel's first
+        # panel fills it from cov and y
+        ptrs.append(torch.empty((b, n + 1, n + 1), dtype=torch.float32,
+                                device=y.device).data_ptr())
     with torch.cuda.device(y.device):
-        if route == "smem":
-            name = "fused_mvn_loglike"
-            err = lib.fused_mvn_loglike_smem(y.data_ptr(), cov.data_ptr(), out.data_ptr(),
-                                             b, n, stream)
-        else:
-            name = "fused_mvn_loglike_panel"
-            # the matrix is eliminated in place in this copy; the kernel's
-            # first panel fills it from cov and y
-            scratch = torch.empty((b, n + 1, n + 1), dtype=torch.float32, device=y.device)
-            err = lib.fused_mvn_loglike_panel(y.data_ptr(), cov.data_ptr(),
-                                              scratch.data_ptr(), out.data_ptr(),
-                                              b, n, stream)
+        err = getattr(lib, entry)(*ptrs, out.data_ptr(), b, n, stream)
     raise_on(err, f"{name} launch")
     count_launch(name)
     return out
+
+
+def cluster_info(n: int) -> dict[str, int]:
+    """The built cluster route at this n: CTAs per cluster, panel width,
+    shared memory per CTA, and the clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); needs a CUDA machine."""
+    lib = _lib()
+    return {"c": lib.fused_mvn_cluster_size(int(n)), "p": lib.fused_mvn_cluster_panel(),
+            "bytes": lib.fused_mvn_cluster_bytes(int(n)),
+            "active_clusters": lib.fused_mvn_cluster_active(int(n))}
+
+
+def route_max_n(route: str) -> int:
+    """Largest n the built route takes (needs the built library)."""
+    return getattr(_lib(), _ROUTES[route][2])()
 
 
 def smem_blocks_per_sm(n: int) -> int:

@@ -211,11 +211,20 @@ def _mvn_problem(dev, b, n, seed=0, bad=None):
 def _mvn_size(n):
     """A size of the MVN cases: an int, or one named by the shared-memory
     route's panel width P ("P-1", "P", "P+1", "2P+1") or its largest n
-    ("max"), read from the built library."""
+    ("max"), by the cluster route's cluster size C and panel width at
+    n = 2P ("CP-1", "CP", "CP+1": a rank with one row block, or none) or
+    its largest n ("cmax"), or the panel route's new smallest n ("pmin"),
+    read from the built library."""
     if isinstance(n, int):
         return n
     if n == "max":
         return fm.smem_max_n()
+    if n in ("cmax", "pmin"):
+        return fm.route_max_n("cluster") + (n == "pmin")
+    if n.startswith("CP"):
+        info = fm.cluster_info(2 * fm.cluster_info(1)["p"])
+        cp = info["c"] * info["p"]
+        return {"CP-1": cp - 1, "CP": cp, "CP+1": cp + 1}[n]
     p = fm.smem_panel()
     return {"P-1": p - 1, "P": p, "P+1": p + 1, "2P+1": 2 * p + 1}[n]
 
@@ -226,7 +235,8 @@ def _mvn_size(n):
     ("smem", 8, 130), ("smem", 33, 170), ("smem", 5, 171), ("smem", 3, 240),
     ("smem", 3, "max"),
     ("panel", 4, 1), ("panel", 4, 7), ("panel", 5, 31), ("panel", 5, 32), ("panel", 5, 33),
-    ("panel", 8, 130), ("panel", 6, 340), ("panel", 3, 544),
+    ("panel", 8, 130), ("panel", 6, 340), ("panel", 3, 544), ("panel", 3, "pmin"),
+    ("panel", 2, 1000),
 ])
 def test_cuda_mvn_matches_plain(cuda_device, route, b, n):
     """Kernel 4, both routes, vs the plain elimination and the library
@@ -259,9 +269,98 @@ def test_cuda_mvn_matches_plain(cuda_device, route, b, n):
     torch.testing.assert_close(got[keep], lib[keep], rtol=2e-4, atol=0)
 
 
+@pytest.mark.parametrize("b", [1, 3, 130])
+@pytest.mark.parametrize("n", [319, "CP-1", "CP", "CP+1", 440, 441, 544, "cmax"])
+def test_cuda_mvn_cluster_matches_plain(cuda_device, b, n):
+    """The cluster route (forced at n below its range too) against the
+    plain elimination and the library factorization, rtol 2e-4: n at the
+    edges of the rank blocks and of the cluster sizes, the stitched 544 and
+    the route's largest n; b = 130 is more than one round of clusters.
+    With three or more matrices, one non-PD matrix and one whose bad pivot
+    falls in the middle of the second panel give -inf there."""
+    n = _mvn_size(n)
+    y, cov = _mvn_problem(cuda_device, b, n, seed=n + b)
+    bads = []
+    if b >= 3:
+        bads = [b // 2, b // 2 + 1]
+        cov[bads[0]] = -torch.eye(n, device=cuda_device)
+        k = min(n - 1, fm.cluster_info(n)["p"] * 3 // 2)
+        cov[bads[1], k, k] = -1.0
+    before = LAUNCH_COUNTS["fused_mvn_loglike_cluster"]
+    got = fm._mvn_cuda(y, cov, route="cluster")
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["fused_mvn_loglike_cluster"] == before + 1
+    want = fm.fused_mvn_loglike_plain(y, cov)
+    lib = mvn_loglike_batch(y, cov)
+    for i in bads:
+        assert got[i] == -torch.inf and want[i] == -torch.inf
+    keep = torch.ones(b, dtype=torch.bool, device=cuda_device)
+    keep[bads] = False
+    assert torch.isfinite(got[keep]).all()
+    torch.testing.assert_close(got[keep], want[keep], rtol=2e-4, atol=0)
+    torch.testing.assert_close(got[keep], lib[keep], rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("n", [441, 544])
+def test_cuda_mvn_cluster_bad_pivots_in_every_rank(cuda_device, n):
+    """A bad pivot planted in the first panel, in a row block owned by each
+    rank of the cluster, and at the last pivot (one matrix each; the
+    pivots before it stay good): -inf there, and every other matrix keeps
+    exactly the value it has in a batch without bad pivots."""
+    info = fm.cluster_info(n)
+    c, p = info["c"], info["p"]
+    ks = [1] + [r * p + p // 2 for r in range(c)] + [n - 1]
+    b = len(ks) + 2
+    y, cov = _mvn_problem(cuda_device, b, n, seed=9)
+    clean = fm._mvn_cuda(y, cov, route="cluster")
+    for m, k in enumerate(ks):
+        cov[m, k, k] = -1.0
+    got = fm._mvn_cuda(y, cov, route="cluster")
+    want = fm.fused_mvn_loglike_plain(y, cov)
+    torch.cuda.synchronize()
+    for m in range(len(ks)):
+        assert got[m] == -torch.inf and want[m] == -torch.inf, ks[m]
+    assert torch.equal(got[len(ks):], clean[len(ks):])
+    assert torch.isfinite(clean).all()
+
+
+def test_cuda_mvn_cluster_layout_is_the_libraries(cuda_device):
+    """The built library's cluster sizes, panel width and shared memory per
+    CTA are cluster_layout's, and its route limits route_limits'; the card
+    places at least one cluster at every n the route takes."""
+    limits = fm.route_limits()
+    for route, (_, hi) in limits.items():
+        assert fm.route_max_n(route) == hi, route
+    lo, hi = limits["cluster"]
+    for n in sorted({1, 31, 32, 33, lo, 400, 439, 440, 441, 522, 523, 544, 600, hi}):
+        info, want = fm.cluster_info(n), fm.cluster_layout(n)
+        assert (info["c"], info["p"], info["bytes"]) == tuple(want), n
+        assert info["active_clusters"] >= 1, n
+    assert fm.cluster_info(hi + 1)["c"] == -1
+
+
+def test_cuda_mvn_cluster_allocates_only_its_output(cuda_device):
+    """The cluster route at the stitched half-ensemble (512, 544) allocates
+    its output and no scratch (the panel route allocated 608 MB)."""
+    y, cov = _mvn_problem(cuda_device, 512, 544, seed=1)
+    fm._mvn_cuda(y, cov)  # the library is built and loaded
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = LAUNCH_COUNTS["fused_mvn_loglike_cluster"]
+    out = fm._mvn_cuda(y, cov)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["fused_mvn_loglike_cluster"] == before + 1
+    assert torch.cuda.max_memory_allocated() - base <= 4096, (
+        torch.cuda.max_memory_allocated() - base)
+    assert out.shape == (512,)
+
+
 def test_cuda_mvn_dispatch_and_gradient(cuda_device):
     """mvn_loglike_best on a float32 CUDA batch launches the kernel (the
-    route follows n), float64 takes the library path; the closed-form
+    route follows n: the shared-memory route at 20, the cluster route at
+    350, the panel route past the cluster route's largest n), float64
+    takes the library path; the closed-form
     gradient matches autograd through the library path (rtol 1e-3, the JAX
     package's tolerance for its kernel's VJP) and is zero for the non-PD
     element."""
@@ -272,7 +371,10 @@ def test_cuda_mvn_dispatch_and_gradient(cuda_device):
     fm.mvn_loglike_best(y.double(), cov.double())
     y2, cov2 = _mvn_problem(cuda_device, 2, 350, seed=4)
     fm.mvn_loglike_best(y2, cov2)
+    y3, cov3 = _mvn_problem(cuda_device, 2, _mvn_size("pmin"), seed=5)
+    fm.mvn_loglike_best(y3, cov3)
     assert LAUNCH_COUNTS["fused_mvn_loglike"] == before["fused_mvn_loglike"] + 1
+    assert LAUNCH_COUNTS["fused_mvn_loglike_cluster"] == before["fused_mvn_loglike_cluster"] + 1
     assert LAUNCH_COUNTS["fused_mvn_loglike_panel"] == before["fused_mvn_loglike_panel"] + 1
     gy, gc = torch.autograd.grad(torch.where(torch.isfinite(lp), lp, 0.0).sum(), (ya, ca))
     yb, cb = y.clone().requires_grad_(True), cov.clone().requires_grad_(True)
@@ -291,3 +393,5 @@ def test_cuda_mvn_rejects_wrong_inputs(cuda_device):
         fm._mvn_cuda(y, cov[:, :4, :4].contiguous())
     with pytest.raises(ValueError, match="n <="):
         fm._mvn_cuda(*_mvn_problem(cuda_device, 1, fm.smem_max_n() + 1), route="smem")
+    with pytest.raises(ValueError, match="n <="):
+        fm._mvn_cuda(*_mvn_problem(cuda_device, 1, _mvn_size("pmin")), route="cluster")

@@ -138,6 +138,82 @@ def test_blocked_order_bad_pivot_inside_a_panel(where):
     np.testing.assert_array_equal(got.numpy()[keep], clean.numpy()[keep])
 
 
+def test_blocked_order_at_the_cluster_route_start_matches_jax_pallas_and_f64():
+    """n = 319, where the stitched-size routes begin: the blocked order at
+    the cluster route's panel width (the cluster route's arithmetic order
+    is the shared-memory route's) against the JAX Pallas kernel (interpret
+    mode) at rtol 2e-4 and the float64 plain elimination at rtol 2e-4."""
+    n = 319
+    y, cov = _problem(2, n, seed=319)
+    j_pallas = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    yt, ct = torch.tensor(y), torch.tensor(cov)
+    want64 = fm.fused_mvn_loglike_plain(yt.double(), ct.double()).numpy()
+    got = _blocked_elimination(yt, ct, fm.CLUSTER_PANEL)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), j_pallas, rtol=2e-4)
+    np.testing.assert_allclose(got.numpy(), want64, rtol=2e-4)
+
+
+def _cluster_n(n):
+    """An n of the cluster cases: an int, or "max", the route's largest."""
+    return fm.route_limits()["cluster"][1] if n == "max" else n
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 31, 32, 33, 320, 439, 440, 523, 544, 600, "max"])
+def test_cluster_layout_places_every_row_once_and_fits(n):
+    """The cluster route's layout: every row 0 .. n of the augmented matrix
+    in exactly one rank, row blocks of P dealt out cyclically, the bytes
+    per CTA within the 232,448 an H100 block may use, and no smaller
+    cluster that would fit."""
+    n = _cluster_n(n)
+    lay = fm.cluster_layout(n)
+    assert lay.p == fm.CLUSTER_PANEL and 2 <= lay.c <= fm.CLUSTER_MAX
+    rows = fm.cluster_rows(n, lay.c, lay.p)
+    flat = sorted(i for r in rows for i in r)
+    assert flat == list(range(n + 1))
+    for r, mine in enumerate(rows):
+        assert all((i // lay.p) % lay.c == r for i in mine)
+    assert lay.bytes == fm.cluster_bytes(n, lay.c) <= 232448
+    for c in range(2, lay.c):
+        assert fm.cluster_bytes(n, c) > 232448, c
+
+
+def test_cluster_layout_picks_the_smallest_cluster():
+    """n = 544 (the stitched matrix) takes four CTAs; the size grows with n
+    one step at a time up to eight, and past the route's largest n no
+    cluster holds the matrix."""
+    assert fm.cluster_layout(544).c == 4
+    hi = fm.route_limits()["cluster"][1]
+    sizes = [fm.cluster_layout(n).c for n in range(fm.route_limits()["cluster"][0], hi + 1)]
+    assert sizes == sorted(sizes) and sizes[0] == 2 and sizes[-1] == fm.CLUSTER_MAX
+    assert set(sizes) == set(range(2, fm.CLUSTER_MAX + 1))
+    with pytest.raises(ValueError):
+        fm.cluster_layout(hi + 1)
+
+
+@pytest.mark.parametrize("n", [320, 441, 544, "max"])
+def test_cluster_storage_is_balanced_within_one_row_block(n):
+    """Block-cyclic rows: the ranks' packed floats differ by no more than
+    one P-row block at the matrix's foot (P (n + 1) floats), so no rank
+    runs out of work long before the others."""
+    n = _cluster_n(n)
+    lay = fm.cluster_layout(n)
+    floats = [sum(i + 1 for i in r) for r in fm.cluster_rows(n, lay.c, lay.p)]
+    assert max(floats) - min(floats) <= lay.p * (n + 1)
+
+
+def test_routes_tile_every_n_once():
+    """The three routes' n ranges tile 1 .. 1759 with no gap and no
+    overlap: shared memory, then cluster, then panel."""
+    limits = fm.route_limits()
+    assert list(limits) == ["smem", "cluster", "panel"]
+    ranges = list(limits.values())
+    assert ranges[0][0] == 1 and ranges[-1][1] == 1759
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:]):
+        assert lo <= hi and nxt == hi + 1
+    assert limits["cluster"][0] <= 544 <= limits["cluster"][1]
+
+
 def test_plain_f64_matches_jax_xla_f64():
     """In float64 the elimination and the Cholesky agree to 1e-11 (the two
     are the same factorization in a different order)."""
@@ -234,14 +310,14 @@ def test_nonpd_gradient_is_zero_not_nan(entry):
 
 
 def test_cpu_path_counts_no_launches_and_kernels_are_registered():
-    """CPU tensors take the plain version, so no launch is counted; both
-    routes of the kernel stand in the registry with their source."""
+    """CPU tensors take the plain version, so no launch is counted; the
+    three routes of the kernel stand in the registry with their source."""
     registry.reset_launch_counts()
     y, cov = _problem(3, 6, seed=6)
     fm.mvn_loglike_best(torch.tensor(y), torch.tensor(cov))
     fm.fused_mvn_loglike(torch.tensor(y), torch.tensor(cov))
     assert all(v == 0 for v in registry.LAUNCH_COUNTS.values())
-    for name in ("fused_mvn_loglike", "fused_mvn_loglike_panel"):
+    for name in ("fused_mvn_loglike", "fused_mvn_loglike_cluster", "fused_mvn_loglike_panel"):
         source, replaces = registry.KERNELS[name]
         assert source.endswith("csrc/fused_mvn.cu") and replaces.endswith("pallas_mvn.py:61")
     assert set(registry.KERNELS) == set(registry.LAUNCH_COUNTS)
@@ -257,15 +333,24 @@ def test_kernel_source_calls_no_library_factorization():
         assert word not in code, word
     assert "__global__" in code and "kernel<<<" in code and "mvn_panel_kernel<<<" in code
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in code
-    # the panel width the blocked-order tests emulate is the kernel's
+    # the cluster route: launched as clusters, DSMEM through map_shared_rank
+    assert "cudaLaunchKernelEx" in code and "cudaLaunchAttributeClusterDimension" in code
+    assert "map_shared_rank" in code and "mvn_cluster_kernel" in code
+    # the panel widths the blocked-order tests and the layout mirror use are the kernel's
     assert f"constexpr int SMEM_PANEL = {PANEL};" in code
+    assert f"constexpr int SMEM_PANEL = {fm.SMEM_PANEL};" in code
+    assert f"constexpr int CLUSTER_PANEL = {fm.CLUSTER_PANEL};" in code
+    assert f"constexpr int CLUSTER_MAX = {fm.CLUSTER_MAX};" in code
+    assert f"constexpr int PANEL = {fm.PANEL_PANEL};" in code
+    assert f"constexpr int SMEM_LIMIT = {fm.SMEM_LIMIT};" in code
 
 
 def test_mvn_variant_tool_edits_apply_to_the_source():
     """tools/torch_mvn_variants.py times the shared-memory route at other
-    panel widths by editing SMEM_PANEL in csrc/fused_mvn.cu: the edit must
-    still apply, give every measured width once, and keep the rest of the
-    source as it is."""
+    panel widths by editing SMEM_PANEL in csrc/fused_mvn.cu, and the
+    cluster route's variants by edits of its own: every edit must still
+    apply (once), give every measured width once, change the source, and
+    the diagnostics must be among the edits."""
     import importlib.util
 
     from gpbayestools_hic_tpu_torch.ops import _build
@@ -285,3 +370,10 @@ def test_mvn_variant_tool_edits_apply_to_the_source():
         elif name != "kept":
             assert tool.WIDTH_LINE.sub("", text) == tool.WIDTH_LINE.sub("", src), name
     assert set(tool.DIAGNOSTIC) <= set(tool.EDITS)
+    cluster = tool.variant_sources(src, route="cluster")
+    assert cluster["kept"] == src
+    assert set(cluster) == {"kept", *tool.CLUSTER_EDITS}
+    for name in tool.CLUSTER_EDITS:
+        assert cluster[name] != src, name
+    assert set(tool.CLUSTER_DIAGNOSTIC) <= set(tool.CLUSTER_EDITS)
+    assert "cpanel_32" in cluster and "phase_clock" in cluster and "no_lookahead" in cluster

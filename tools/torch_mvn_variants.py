@@ -1,39 +1,65 @@
-"""Panel widths of the MVN kernel's shared-memory route on one GPU: variants
-of ``gpbayestools_hic_tpu_torch/csrc/fused_mvn.cu`` built side by side and
-timed on the flagship's own block covariances.
+"""Design variants of the MVN kernel on one GPU: edits of
+``gpbayestools_hic_tpu_torch/csrc/fused_mvn.cu`` built side by side and
+timed on the flagship's own covariances.
 
 Run from the repository root on a CUDA machine:
 
-    python3 tools/torch_mvn_variants.py [--parent DIR ...]
+    python3 tools/torch_mvn_variants.py [--route cluster|smem] [--parent DIR ...]
 
-Variants of the committed source (the script fails if an edit no longer
-applies):
+``--route cluster`` (the default) times the cluster route
+(``fused_mvn_loglike_cluster``) on the stitched 544 x 544 matrices of a
+half-ensemble (512 walkers); ``--route smem`` the shared-memory route on the
+flagship's blocks (n = 170, 73, 28, 12; 1024 walkers).  Variants of the
+committed source (the script fails if an edit no longer applies):
 
 - ``kept``: the source as committed;
-- ``panel_8`` / ``panel_16`` / ``panel_32``: ``SMEM_PANEL`` set to that
-  width (the one equal to the committed width is left out);
-- ``row_load``: the triangle loaded a row per warp at a time, one global
-  load in flight per thread (the rank-1 kernel's load);
-- ``four_blocks``: the launch bound asks for four blocks per SM (at most
-  64 registers), not three;
-- ``load_only``, ``no_block_factor``, ``no_trailing_update``: diagnostics
-  with wrong results, not checked: no panel at all (what is left is the
-  load), no factoring of the panels' diagonal blocks, no trailing update.
+- cluster route: ``cpanel_32`` (``CLUSTER_PANEL`` = 32: half the panels and
+  barriers, a larger cluster), ``threads_256`` and ``threads_384`` (threads
+  per CTA, not 512), ``loads_16`` / ``loads_32`` (global loads in flight
+  per thread in the load, not 8), ``broadcast_in_rank_order`` (each
+  substitution row written to ranks 0 .. C - 1 in that order, its own copy
+  through the cluster window too), ``ahead_half_trailing`` (the next block's
+  owner gives only half its warps trailing tiles while warp 0 factors, so
+  that the factoring warp's shuffles queue behind fewer shared-memory
+  loads), ``ahead_quiet_subpartition`` (there, the warps that share warp
+  0's scheduler, 4, 8 and 12, take no trailing tiles), ``ahead_factor_first``
+  (there, the trailing update waits until warp 0 has factored the next
+  block, and warp 0 takes tiles too), ``pivot_column_in_smem`` (the
+  factoring warp takes each column of the diagonal block through shared
+  memory, not by shuffles), ``broadcast_in_loop`` (the factored block
+  sent to the other ranks entry by entry in the pivot loop, not copied
+  after it), ``no_lookahead`` (the owner factors each diagonal block after
+  the whole trailing update, not during it), and the diagnostics ``cluster_load_only`` (no panel at all: the
+  load and the row table), ``cluster_barriers_only`` (the panel loop with
+  its two cluster barriers per panel and nothing else), ``cluster_no_block_factor``,
+  ``cluster_no_substitution`` (no rows below the diagonal block, so no
+  DSMEM broadcast of them), ``cluster_no_trailing_update``, and
+  ``phase_clock`` (kPhaseClock set: thread 0 of each CTA counts the SM
+  cycles it spends in each phase; the script prints the split of one
+  call);
+- shared-memory route: ``panel_8`` / ``panel_16`` / ``panel_32``
+  (``SMEM_PANEL`` set to that width, the committed one left out),
+  ``row_load`` (the triangle loaded a row per warp, one load in flight per
+  thread), ``four_blocks`` (a launch bound of four blocks per SM), and the
+  diagnostics ``load_only``, ``no_block_factor``, ``no_trailing_update``.
+
+Diagnostics give wrong results by design and are not checked.
 
 ``--parent DIR`` adds the ``fused_mvn.cu`` of another checkout (e.g. the
 parent commit unpacked with ``git archive``) as the variant ``parent``
-(given again: ``parent2``, ...); it must have the same C entry
-``fused_mvn_loglike_smem``.
+(given again: ``parent2``, ...).  On the cluster route's cases a source
+without ``fused_mvn_loglike_cluster`` is timed through its
+``fused_mvn_loglike_panel`` (the route n = 544 took before the cluster
+route), with the scratch that route needs allocated outside the timing.
 
-For each block size of the flagship (n = 170, 73, 28, 12; 1024 walkers,
-the residuals and covariances the generic path builds, one non-PD matrix
-planted) every variant is checked against the plain elimination
-(chip_smoke.py's TOL_MVN) and timed by CUDA-graph replay
+Every variant is checked against the plain elimination (chip_smoke.py's
+TOL_MVN, one non-PD matrix planted) and timed by CUDA-graph replay
 (``chip_smoke.graph_ms``) twice, in the order variants, then variants
 reversed, so that drift shows as a difference between the two passes.  It
-prints the ptxas report of each variant's ``mvn_smem_kernel``, its blocks
-per SM at n = 170, the card's name and power limit, and one JSON line.
-Imports nothing of JAX.
+prints each variant's ptxas report for the route's kernel, its occupancy
+(blocks per SM at n = 170, or the cluster size and clusters placed at
+n = 544), the card's name and power limit, and one JSON line.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +78,61 @@ sys.path.insert(0, ROOT)
 
 WIDTH_LINE = re.compile(r"constexpr int SMEM_PANEL = (\d+);")
 SIZES = (170, 73, 28, 12)
+STITCHED = 544
+
+_NO_FACTOR = ("  const int c0 = k * P, pw = min(P, n - c0), rows = min(P, n + 1 - c0);\n",
+              "  if (k >= 0) return;\n"
+              "  const int c0 = k * P, pw = min(P, n - c0), rows = min(P, n + 1 - c0);\n")
+_NO_SUBSTITUTION = ("    for (int lr = t0 * P + tid; lr < nrows; lr += nthreads) {",
+                    "    for (int lr = nrows; lr < nrows; lr += nthreads) {")
+_NO_TRAILING = ("    for (; tile >= 0; tile += step) {",
+                "    for (tile = -1; tile >= 0; tile += step) {")
+CLUSTER_EDITS = {
+    "cpanel_32": [("constexpr int CLUSTER_PANEL = 16;", "constexpr int CLUSTER_PANEL = 32;")],
+    "threads_256": [("constexpr int CLUSTER_THREADS = 512;",
+                     "constexpr int CLUSTER_THREADS = 256;")],
+    "threads_384": [("constexpr int CLUSTER_THREADS = 512;",
+                     "constexpr int CLUSTER_THREADS = 384;")],
+    "loads_16": [("constexpr int CLUSTER_LOADS = 8;", "constexpr int CLUSTER_LOADS = 16;")],
+    "loads_32": [("constexpr int CLUSTER_LOADS = 8;", "constexpr int CLUSTER_LOADS = 32;")],
+    "broadcast_in_rank_order": [
+        ("        const int dst = (r + d) % C;\n        float* ld = (d == 0) ? l : cluster.map_shared_rank(l, dst);",
+         "        float* ld = cluster.map_shared_rank(l, d);")],
+    "ahead_half_trailing": [
+        ("    int tile = ahead ? warp - 1 : warp;\n    const int step = ahead ? nwarps - 1 : nwarps;",
+         "    int tile = ahead ? warp - nwarps / 2 : warp;\n"
+         "    const int step = ahead ? nwarps - nwarps / 2 : nwarps;")],
+    "ahead_quiet_subpartition": [
+        ("    int tile = ahead ? warp - 1 : warp;\n    const int step = ahead ? nwarps - 1 : nwarps;",
+         "    int tile = ahead ? (warp % 4 ? warp - warp / 4 - 1 : -1) : warp;\n"
+         "    const int step = ahead ? nwarps - nwarps / 4 : nwarps;")],
+    "ahead_factor_first": [
+        ("    cluster_wait();\n    phase(4);", "    cluster_wait();\n    if (ahead) __syncthreads();\n    phase(4);"),
+        ("    int tile = ahead ? warp - 1 : warp;\n    const int step = ahead ? nwarps - 1 : nwarps;",
+         "    int tile = warp;\n    const int step = nwarps;")],
+    "pivot_column_in_smem": [("constexpr bool kPivotColumnInSmem = false;",
+                              "constexpr bool kPivotColumnInSmem = true;")],
+    "broadcast_in_loop": [("constexpr bool kBroadcastInLoop = false;",
+                           "constexpr bool kBroadcastInLoop = true;")],
+    "no_lookahead": [
+        ("    const bool ahead = k + 1 < npan && r == (k + 1) % C;",
+         "    const bool ahead = false;"),
+        ("    cluster_arrive();  // A\n",
+         "    if (k > 0 && r == k % C && warp == 0)\n"
+         "      factor_diagonal_block(cluster, a, rowstart, nullptr, dgs + (k & 1) * DGB,\n"
+         "                            bad + (k & 1), k, n, C, r, logdet_half);\n"
+         "    cluster_arrive();  // A\n"),
+    ],
+    "phase_clock": [("constexpr bool kPhaseClock = false;", "constexpr bool kPhaseClock = true;")],
+    "cluster_load_only": [("  for (int k = 0; k < npan; ++k) {",
+                           "  for (int k = npan; k < npan; ++k) {"), _NO_FACTOR],
+    "cluster_barriers_only": [_NO_FACTOR, _NO_SUBSTITUTION, _NO_TRAILING],
+    "cluster_no_block_factor": [_NO_FACTOR],
+    "cluster_no_substitution": [_NO_SUBSTITUTION],
+    "cluster_no_trailing_update": [_NO_TRAILING],
+}
+#: cluster-route variants whose results are wrong by design
+CLUSTER_DIAGNOSTIC = tuple(k for k in CLUSTER_EDITS if k.startswith("cluster_"))
 
 EDITS = {
     "row_load": [
@@ -85,35 +166,40 @@ def apply_edits(text: str, edits) -> str:
     return text
 
 
-def variant_sources(src: str, parents=()) -> dict[str, str]:
-    """name -> source text of every variant."""
-    found = WIDTH_LINE.findall(src)
-    if len(found) != 1:
-        raise SystemExit("SMEM_PANEL is no longer one constexpr line of fused_mvn.cu")
+def variant_sources(src: str, parents=(), route: str = "smem") -> dict[str, str]:
+    """name -> source text of every variant of the route."""
     out = {"kept": src}
-    for width in (8, 16, 32):
-        if width != int(found[0]):
-            out[f"panel_{width}"] = WIDTH_LINE.sub(f"constexpr int SMEM_PANEL = {width};", src)
-    for name, edits in EDITS.items():
-        out[name] = apply_edits(src, edits)
+    if route == "cluster":
+        for name, edits in CLUSTER_EDITS.items():
+            out[name] = apply_edits(src, edits)
+    else:
+        found = WIDTH_LINE.findall(src)
+        if len(found) != 1:
+            raise SystemExit("SMEM_PANEL is no longer one constexpr line of fused_mvn.cu")
+        for width in (8, 16, 32):
+            if width != int(found[0]):
+                out[f"panel_{width}"] = WIDTH_LINE.sub(f"constexpr int SMEM_PANEL = {width};",
+                                                       src)
+        for name, edits in EDITS.items():
+            out[name] = apply_edits(src, edits)
     for i, path in enumerate(parents):
         with open(path) as f:
             out["parent" + (str(i + 1) if i else "")] = f.read()
     return out
 
 
-def ptxas_report(log: str) -> str:
-    """"R registers, S bytes spilled" of the shared-memory route's kernel."""
+def ptxas_report(log: str, kernel: str = "mvn_smem_kernel") -> str:
+    """"R registers, S bytes spilled" of the route's kernel."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and "mvn_smem_kernel" in line:
+        if "Compiling entry" in line and kernel in line:
             spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
             regs = re.search(r"Used (\d+) registers", lines[i + 3])
             return f"{regs.group(1)} registers, {spill.group(1)} bytes spilled"
     return "not found"
 
 
-def build(tmp: str, sources: dict[str, str]):
+def build(tmp: str, sources: dict[str, str], kernel: str = "mvn_smem_kernel"):
     """Compile every variant at once (one nvcc each): name -> (CDLL, ptxas)."""
     from gpbayestools_hic_tpu_torch.ops import _build
 
@@ -131,13 +217,91 @@ def build(tmp: str, sources: dict[str, str]):
         if proc.returncode != 0:
             raise SystemExit(f"variant {name} does not build:\n{log}")
         lib = ctypes.CDLL(so)
-        lib.fused_mvn_loglike_smem.restype = ctypes.c_int
-        lib.fused_mvn_loglike_smem.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
-        lib.fused_mvn_smem_blocks_per_sm.restype = ctypes.c_int
-        lib.fused_mvn_smem_blocks_per_sm.argtypes = [ctypes.c_int]
-        out[name] = (lib, ptxas_report(log))
+        _P, _I = ctypes.c_void_p, ctypes.c_int
+        for entry, argtypes in (
+            ("fused_mvn_loglike_smem", [_P] * 3 + [_I] * 2 + [_P]),
+            ("fused_mvn_loglike_cluster", [_P] * 3 + [_I] * 2 + [_P]),
+            ("fused_mvn_loglike_panel", [_P] * 4 + [_I] * 2 + [_P]),
+            ("fused_mvn_smem_blocks_per_sm", [_I]),
+            ("fused_mvn_cluster_size", [_I]),
+            ("fused_mvn_cluster_active", [_I]),
+            ("fused_mvn_cluster_phase_cycles", [_P]),
+        ):
+            if hasattr(lib, entry):
+                getattr(lib, entry).restype = _I
+                getattr(lib, entry).argtypes = argtypes
+        # a source without the cluster route is timed through its panel route
+        if kernel == "mvn_cluster_kernel" and not hasattr(lib, "fused_mvn_loglike_cluster"):
+            out[name] = (lib, ptxas_report(log, "mvn_panel_kernel"))
+        else:
+            out[name] = (lib, ptxas_report(log, kernel))
     return out
+
+
+def occupancy(lib, route: str) -> str:
+    if route == "smem":
+        return f"{lib.fused_mvn_smem_blocks_per_sm(170)} blocks per SM at n = 170"
+    if not hasattr(lib, "fused_mvn_loglike_cluster"):
+        return "panel route (no cluster route in this source)"
+    return (f"clusters of {lib.fused_mvn_cluster_size(STITCHED)} CTAs, "
+            f"{lib.fused_mvn_cluster_active(STITCHED)} placed at once at n = {STITCHED}")
+
+
+PHASES = ("load", "barrier A", "substitution", "its broadcast", "barrier B", "trailing update",
+          "CTA barrier", "look-ahead factoring", "exit")
+
+
+FACTOR_PARTS = ("rows and update", "pivots", "logarithms", "broadcast")
+
+
+def phase_split(lib, run) -> str:
+    """The phase_clock variant's split of one call: thread 0's SM cycles
+    per phase, summed over the CTAs, as shares of their sum."""
+    import torch
+
+    buf = (ctypes.c_ulonglong * (len(PHASES) + 1 + len(FACTOR_PARTS)))()
+    lib.fused_mvn_cluster_phase_cycles(buf)  # clear
+    run()
+    torch.cuda.synchronize()
+    if lib.fused_mvn_cluster_phase_cycles(buf):
+        raise SystemExit("phase clock readout failed")
+    total = sum(buf[:len(PHASES)]) or 1
+    ctas = max(buf[len(PHASES)], 1)
+    return (f"phase split (thread 0 of each of {ctas} CTAs, SM cycles): "
+            + ", ".join(f"{name} {buf[i] / total:.3f}" for i, name in enumerate(PHASES))
+            + f"; {total / ctas:.0f} cycles per CTA; factoring parts, cycles per CTA: "
+            + ", ".join(f"{name} {buf[len(PHASES) + 1 + i] / ctas:.0f}"
+                        for i, name in enumerate(FACTOR_PARTS)))
+
+
+def launcher(lib, route: str, y, cov):
+    """A function that launches the variant's route on (y, cov) into a new
+    output (a source without the cluster route: its panel route, with a
+    scratch allocated once, here)."""
+    import torch
+
+    b, n = y.shape
+    dev = y.device
+    if route == "cluster" and not hasattr(lib, "fused_mvn_loglike_cluster"):
+        scratch = torch.empty((b, n + 1, n + 1), dtype=torch.float32, device=dev)
+
+        def call(out, stream):
+            return lib.fused_mvn_loglike_panel(y.data_ptr(), cov.data_ptr(), scratch.data_ptr(),
+                                               out.data_ptr(), b, n, stream)
+    else:
+        entry = getattr(lib, "fused_mvn_loglike_" + route)
+
+        def call(out, stream):
+            return entry(y.data_ptr(), cov.data_ptr(), out.data_ptr(), b, n, stream)
+
+    def run():
+        out = torch.empty((b,), dtype=torch.float32, device=dev)
+        err = call(out, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"CUDA error {err}")
+        return out
+
+    return run
 
 
 def main() -> int:
@@ -147,9 +311,11 @@ def main() -> int:
         print("torch_mvn_variants: no CUDA device available", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--route", choices=("cluster", "smem"), default="cluster")
     parser.add_argument("--parent", action="append", default=[],
                         help="root of another checkout to time beside this one")
     args = parser.parse_args()
+    route = args.route
     import chip_smoke as cs
     from gpbayestools_hic_tpu_torch.ops import _build
     from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
@@ -162,54 +328,54 @@ def main() -> int:
     with open(os.path.join(ROOT, rel)) as f:
         src = f.read()
     parents = [os.path.join(path, rel) for path in args.parent]
+    kernel = "mvn_cluster_kernel" if route == "cluster" else "mvn_smem_kernel"
+    diagnostic = CLUSTER_DIAGNOSTIC if route == "cluster" else DIAGNOSTIC
     with tempfile.TemporaryDirectory(prefix="mvn_variants_") as tmp:
-        libs = build(tmp, variant_sources(src, parents))
-        for name, (lib, ptxas) in libs.items():
-            print(f"{name:9s} ptxas mvn_smem_kernel: {ptxas}; "
-                  f"{lib.fused_mvn_smem_blocks_per_sm(170)} blocks per SM at n = 170", flush=True)
+        libs = build(tmp, variant_sources(src, parents, route), kernel)
+        order = list(libs)
+        results = {name: {"ptxas": libs[name][1], "occupancy": occupancy(libs[name][0], route)}
+                   for name in order}
+        for name in order:
+            print(f"{name:26s} ptxas: {results[name]['ptxas']}; {results[name]['occupancy']}",
+                  flush=True)
         chain, _ = build_synthetic_chain(nev=cs.NEV, ndim=cs.NDIM, nobs_blocks=cs.BLOCKS,
                                          npc=cs.NPC, gp_maxiter=0, seed=0, tmpdir=tmp, device=dev)
         block_inputs = cs.mvn_inputs(chain, dev)
-        order = list(libs)
-        results = {name: {"ptxas": libs[name][1],
-                          "blocks_per_sm_170": libs[name][0].fused_mvn_smem_blocks_per_sm(170)}
-                   for name in order}
-        for n in SIZES:
-            y, cov = block_inputs(cs.BLOCKS.index(n), cs.NWALKERS)
-            b = y.shape[0]
+        if route == "cluster":
+            stitched = cs.stitched_inputs(chain, dev, block_inputs)
+            cases = [stitched(cs.NWALKERS // 2)]
+        else:
+            cases = [block_inputs(cs.BLOCKS.index(n), cs.NWALKERS) for n in SIZES]
+        for y, cov in cases:
+            b, n = y.shape
             cov[b // 2] = -torch.eye(n, device=dev)
             plain = fm.fused_mvn_loglike_plain(y, cov)
             keep = torch.arange(b, device=dev) != b // 2
-
-            def run(lib):
-                out = torch.empty((b,), dtype=torch.float32, device=dev)
-                err = lib.fused_mvn_loglike_smem(y.data_ptr(), cov.data_ptr(), out.data_ptr(),
-                                                 b, n, torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise SystemExit(f"CUDA error {err}")
-                return out
-
+            runs = {name: launcher(libs[name][0], route, y, cov) for name in order}
             for name in order:
-                got = run(libs[name][0])
+                got = runs[name]()
                 torch.cuda.synchronize()
                 _, rel_err = cs.normwise(got[keep], plain[keep])
-                if name not in DIAGNOSTIC and not (got[b // 2] == -torch.inf
+                if name not in diagnostic and not (got[b // 2] == -torch.inf
                                                    and rel_err <= cs.TOL_MVN):
                     raise SystemExit(f"variant {name} at n = {n} disagrees with the plain "
                                      f"elimination ({rel_err:.3e})")
                 results[name][f"err_{n}"] = rel_err
+            reps = 4 if route == "cluster" else 20
             for names in (order, order[::-1]):
                 for name in names:
-                    ms = cs.graph_ms(lambda lib=libs[name][0]: run(lib), reps=20)
+                    ms = cs.graph_ms(runs[name], reps=reps)
                     results[name].setdefault(f"ms_{n}", []).append(ms)
+            if "phase_clock" in libs:
+                print(phase_split(libs["phase_clock"][0], runs["phase_clock"]), flush=True)
             for name in order:
                 t = results[name][f"ms_{n}"]
-                print(f"n = {n:3d} (b = {b}) {name:9s} {t[0]:.4f} / {t[1]:.4f} ms "
+                print(f"n = {n:3d} (b = {b}) {name:26s} {t[0]:.4f} / {t[1]:.4f} ms "
                       f"(two passes, CUDA-graph replay), normwise vs plain "
                       f"{results[name][f'err_{n}']:.2e}", flush=True)
     print(smi)
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                      "walkers": cs.NWALKERS, "variants": results}))
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "route": route,
+                      "variants": results}))
     return 0
 
 
