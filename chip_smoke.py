@@ -21,10 +21,10 @@ It imports nothing of JAX or the JAX package.  In order it
    covariances at (b, n) = (1024, 170), (1024, 73), (1024, 12) (the
    shared-memory route), stitched (512, 544) (the cluster route, with its
    cluster size, panel width and the clusters the card places) and, for
-   the panel route, 16 stitched matrices grown to the cluster route's
-   largest n + 1, one non-PD matrix planted in each batch (the MVN kernel
-   timed by replaying a CUDA graph of its launches, so that the host's
-   enqueue stays out of the measured time);
+   the wide route ("panel"), 16 stitched matrices grown to the cluster
+   route's largest n + 1, one non-PD matrix planted in each batch (the MVN
+   kernel timed by replaying a CUDA graph of its launches, so that the
+   host's enqueue stays out of the measured time);
 4. drives four paths, each with every launch count set to 0 just before
    it and read just after it (a path that never launched one of its
    kernels fails the run):
@@ -41,7 +41,20 @@ It imports nothing of JAX or the JAX package.  In order it
    d. HMC with ``grad_precision="high"`` (256 walkers, the seed and steps
       of the 256-walker run of a); the default's mean acceptance may not
       fall more than 0.10 below it;
-5. prints the kernel table as one JSON line, the card's name and power
+5. frees the flagship chain and builds a second, synthetic one of twice its
+   observables: the flagship's blocks twice (1088 observables, 18
+   emulators x 4 PCs = 72 RBF GPs on 1000 design points, d = 17), standing
+   in for two collision systems calibrated at once; holds the wide MVN
+   route against its plain version on this chain's own stitched
+   covariances at (512, 1088) (the plain float32 column loop on the first
+   16 matrices, the float64 one on all 512) and at (2, 2048) (grown past
+   the old cap), then drives a fifth path between a reset and a reading
+   of the counts:
+   e. ``"stitched-wide+ensemble"``: the stitched log-posterior on 1024
+      walkers against the gate, then ``run_mcmc`` (1024 walkers, 4 + 4
+      steps); it must launch the wide route at (512, 1088) and never the
+      cluster route;
+6. prints the kernel table as one JSON line, the card's name and power
    limit, and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -50,6 +63,7 @@ line.  Without CUDA, or outside the repository, it exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -71,6 +85,9 @@ HMC_STEPS = 32
 ENS_BURN = 32          # generic-mode ensemble run
 ENS_STEPS = 64
 STITCHED_STEPS = 8     # stitched-mode ensemble run: 8 burn-in + 8 steps
+WIDE_BLOCKS = BLOCKS + BLOCKS  # two collision systems of the flagship's size: 1088 observables
+WIDE_STEPS = 4         # stitched-wide ensemble run: 4 burn-in + 4 steps
+WIDE_PLAIN = 16        # matrices of the (512, 1088) batch held against the float32 plain loop
 HIGH_WALKERS = 256     # HMC with grad_precision="high"
 HIGH_BURN = 8
 HIGH_STEPS = 16
@@ -223,6 +240,23 @@ def mvn_work(b, n, n_bad=0):
     return (b - n_bad) * per, 4 * (b * (n * (n + 1) // 2 + n) + b)
 
 
+def wide_work(b, n, p, n_bad=0):
+    """(FP32 flops, TF32 tensor-core flops, bytes) of the same work as
+    :func:`mvn_work` as the wide route does it: each p-column panel's
+    trailing update (the trailing lower triangle with the y row, m (m + 1)
+    entries' worth of flops per pivot of the panel, m = n + 1 - c1) in
+    three TF32 passes, the rest (the panels' own columns, the logarithms)
+    in FP32."""
+    flops, nbytes = mvn_work(b, n, n_bad)
+    trailing = 0
+    for c0 in range(0, n, p):
+        c1 = min(c0 + p, n)
+        m = n + 1 - c1
+        trailing += (c1 - c0) * m * (m + 1)
+    trailing *= b - n_bad
+    return flops - trailing, 3 * trailing, nbytes
+
+
 def bound_ms(flops, nbytes, tc_flops=0):
     """The least time for the work: FP32 flops at the FP32 peak plus TF32
     tensor-core flops at the TF32 peak, or the bytes at the memory rate,
@@ -357,7 +391,7 @@ def kernel_phase(chain, device):
     return stats
 
 
-def mvn_inputs(chain, device):
+def mvn_inputs(chain, device, blocks=BLOCKS):
     """``block_inputs(idx, m)``: the residual y (m, n) and covariance
     (m, n, n) that the generic path hands the MVN kernel for emulator block
     ``idx`` (its emulator's predictive covariance plus the experimental
@@ -368,7 +402,7 @@ def mvn_inputs(chain, device):
     exp = torch.tensor(np.asarray(chain.expdata).flatten(), dtype=torch.float32, device=device)
     exp_var = torch.tensor(np.diagonal(chain.expdata_cov).copy(), dtype=torch.float32,
                            device=device)
-    offsets = np.cumsum([0] + list(BLOCKS))
+    offsets = np.cumsum([0] + list(blocks))
 
     def block_inputs(idx, m):
         i0, i1 = offsets[idx], offsets[idx + 1]
@@ -379,18 +413,18 @@ def mvn_inputs(chain, device):
     return block_inputs
 
 
-def stitched_inputs(chain, device, block_inputs):
-    """``stitched(m)``: the residual (m, 544) and the block-diagonal
-    stitched covariance (m, 544, 544) the stitched path hands the MVN
+def stitched_inputs(chain, device, block_inputs, blocks=BLOCKS):
+    """``stitched(m)``: the residual (m, nobs) and the block-diagonal
+    stitched covariance (m, nobs, nobs) the stitched path hands the MVN
     kernel, from the same walkers as ``block_inputs``."""
     import torch
 
-    offsets = np.cumsum([0] + list(BLOCKS))
+    offsets = np.cumsum([0] + list(blocks))
 
     def stitched(m):
         ys, cov = [], torch.zeros((m, chain.nobs, chain.nobs), dtype=torch.float32,
                                   device=device)
-        for idx in range(len(BLOCKS)):
+        for idx in range(len(blocks)):
             i0, i1 = offsets[idx], offsets[idx + 1]
             y_i, c_i = block_inputs(idx, m)
             ys.append(y_i)
@@ -398,6 +432,19 @@ def stitched_inputs(chain, device, block_inputs):
         return torch.cat(ys, dim=1).contiguous(), cov
 
     return stitched
+
+
+def grown_inputs(stitched, m, n):
+    """m stitched matrices grown to n > nobs, each block-diagonal with a
+    leading block of itself (and y extended the same way)."""
+    import torch
+
+    y, cov = stitched(m)
+    k, extra = y.shape[1], n - y.shape[1]
+    big = torch.zeros((m, n, n), dtype=torch.float32, device=cov.device)
+    big[:, :k, :k] = cov
+    big[:, k:, k:] = cov[:, :extra, :extra]
+    return torch.cat([y, y[:, :extra]], dim=1).contiguous(), big
 
 
 def mvn_phase(chain, device):
@@ -413,60 +460,95 @@ def mvn_phase(chain, device):
     library yardstick, the port's ``mvn_loglike_batch`` (``cholesky_ex`` +
     ``solve_triangular`` + reductions), with CUDA events around their eager
     calls."""
-    import torch
     from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
-    from gpbayestools_hic_tpu_torch.ops import registry
-    from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
 
     block_inputs = mvn_inputs(chain, device)
     stitched = stitched_inputs(chain, device, block_inputs)
-
-    def grown(m, n):
-        y, cov = stitched(m)
-        extra = n - y.shape[1]
-        big = torch.zeros((m, n, n), dtype=torch.float32, device=device)
-        big[:, :y.shape[1], :y.shape[1]] = cov
-        big[:, y.shape[1]:, y.shape[1]:] = cov[:, :extra, :extra]
-        return torch.cat([y, y[:, :extra]], dim=1).contiguous(), big
-
     cases = (
         ("fused_mvn_loglike", block_inputs(BLOCKS.index(170), NWALKERS), 9),
         ("fused_mvn_loglike", block_inputs(BLOCKS.index(73), NWALKERS), 9),
         ("fused_mvn_loglike", block_inputs(BLOCKS.index(12), NWALKERS), 9),
         ("fused_mvn_loglike_cluster", stitched(NWALKERS // 2), 4),
-        ("fused_mvn_loglike_panel", grown(16, fm.route_max_n("cluster") + 1), 4),
+        ("fused_mvn_loglike_panel",
+         grown_inputs(stitched, 16, fm.route_max_n("cluster") + 1), 4),
     )
+    return mvn_cases(cases, device)
+
+
+def wide_mvn_phase(chain, device):
+    """The wide route on the stitched-wide chain's own covariances: the
+    half-ensemble (512, 1088) the path hands it (the float32 plain column
+    loop on the first 16 matrices, the float64 one on all 512), and two
+    of them grown to n = 2048, past the route's old cap; one non-PD matrix
+    planted in each batch.  Returns the (512, 1088) case's numbers, the
+    other's under "also"."""
+    import torch
+
+    block_inputs = mvn_inputs(chain, device, WIDE_BLOCKS)
+    stitched = stitched_inputs(chain, device, block_inputs, WIDE_BLOCKS)
+    name = "fused_mvn_loglike_panel"
+    t0 = time.perf_counter()
+    stats = mvn_cases(((name, stitched(NWALKERS // 2), 2),), device, n_plain=WIDE_PLAIN)
+    torch.cuda.empty_cache()
+    also = mvn_cases(((name, grown_inputs(stitched, 2, 2048), 2),), device)[name]
+    stats[name]["also"] = [also]
+    log(f"wide MVN checks: {time.perf_counter() - t0:.1f} s")
+    return stats
+
+
+def mvn_cases(cases, device, n_plain=None):
+    """Each case (route, (y, cov), reps) through the wrapper's own choice of
+    route, which must be the one named, against its plain version (on the
+    first ``n_plain`` matrices where given: the plain column loop is slow),
+    the float64 elimination (on all) and the library yardstick, one matrix
+    replaced by a non-PD one; timed as :func:`mvn_phase` says.  Returns
+    each route's first case's numbers."""
+    import torch
+    from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
+    from gpbayestools_hic_tpu_torch.ops import registry
+    from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
+
     stats, failed = {}, []
     for name, (y, cov), reps in cases:
         b, n = y.shape
-        bad = b // 2
+        bp = b if n_plain is None else min(b, n_plain)
+        bad = bp // 2
         cov[bad] = -torch.eye(n, device=device)
         before = registry.LAUNCH_COUNTS[name]
         got = fm.fused_mvn_loglike(y, cov)
         torch.cuda.synchronize()
         if registry.LAUNCH_COUNTS[name] != before + 1:
             raise SystemExit(f"n = {n} did not take the route {name}")
-        plain = fm.fused_mvn_loglike_plain(y, cov)
+        plain = fm.fused_mvn_loglike_plain(y[:bp], cov[:bp])
         lib = mvn_loglike_batch(y, cov)
         plain64 = fm.fused_mvn_loglike_plain(y.double(), cov.double())
         keep = torch.arange(b, device=device) != bad
         if not (got[bad] == -torch.inf and plain[bad] == -torch.inf
-                and torch.isfinite(got[keep]).all()):
+                and plain64[bad] == -torch.inf and torch.isfinite(got[keep]).all()):
             raise SystemExit(f"{name} (b={b}, n={n}): the planted non-PD matrix must "
                              "give -inf and every other matrix a finite value")
-        e_p, r_p = normwise(got[keep], plain[keep])
-        e_64, _ = normwise(got[keep], plain64[keep])
+        e_p, r_p = normwise(got[:bp][keep[:bp]], plain[keep[:bp]])
+        e_64, r_64 = normwise(got[keep], plain64[keep])
         e_l64, _ = normwise(lib[keep], plain64[keep])
+        del plain64
         t_k = graph_ms(lambda: fm.fused_mvn_loglike(y, cov), reps=2 * reps)
-        t_p = cuda_ms(lambda: fm.fused_mvn_loglike_plain(y, cov), reps=min(reps, 3))
+        # the plain column loop on a whole large batch takes seconds: one rep
+        t_p = cuda_ms(lambda: fm.fused_mvn_loglike_plain(y, cov),
+                      reps=min(reps, 3) if n_plain is None else 1)
         t_l = cuda_ms(lambda: mvn_loglike_batch(y, cov), reps=reps)
         flops, nbytes = mvn_work(b, n, n_bad=1)
-        bd, why = bound_ms(flops, nbytes)
+        bd32, why32 = bound_ms(flops, nbytes)
+        bd, why = bd32, why32
+        if name == "fused_mvn_loglike_panel":
+            # the bound of the work as the wide route does it: its trailing
+            # updates in three TF32 passes, the rest in FP32
+            fl32, tc, _ = wide_work(b, n, fm.wide_info(b, n)["p"], n_bad=1)
+            bd, why = bound_ms(fl32, nbytes, tc)
         log(f"kernel {name} vs plain (b={b}, n={n}, non-PD planted at {bad}): max abs "
-            f"{e_p:.3e} (normwise {r_p:.3e}; tolerance {TOL_MVN:g} normwise -- float32 "
-            f"both sides, other operation order); vs the float64 elimination max abs "
-            f"{e_64:.3e} (library call: {e_l64:.3e}); max |lp| "
-            f"{float(plain[keep].abs().max()):.1f}")
+            f"{e_p:.3e} (normwise {r_p:.3e}, on the first {bp} matrices; tolerance "
+            f"{TOL_MVN:g} normwise -- float32 both sides, other operation order); vs the "
+            f"float64 elimination on all {b}: max abs {e_64:.3e} (normwise {r_64:.3e}; "
+            f"library call: {e_l64:.3e}); max |lp| {float(plain[keep[:bp]].abs().max()):.1f}")
         if name == "fused_mvn_loglike":
             log(f"occupancy {name} (n={n}): {fm.smem_blocks_per_sm(n)} blocks per SM, "
                 f"panel width {fm.smem_panel()}")
@@ -480,18 +562,30 @@ def mvn_phase(chain, device):
             blocked = (f"blocked, {info['p']}-column panels, the matrix in the shared "
                        f"memory of a {info['c']}-CTA cluster")
         else:
-            blocked = "blocked, 32-column panels, trailing update in device memory"
+            info = fm.wide_info(b, n)
+            log(f"occupancy {name} (b={b}, n={n}, {info['sms']} SMs): clusters of C = "
+                f"{info['c']} CTAs, built for {info['ctas_per_sm']} CTAs per SM, panel width "
+                f"P = {info['p']}, {info['bytes']} B of shared memory per CTA, "
+                f"{info['scratch']} floats of scratch per matrix, {info['active_clusters']} clusters "
+                f"placed at once (cudaOccupancyMaxActiveClusters)")
+            blocked = (f"blocked, {info['p']}-column panels in {info['c']}-CTA clusters, "
+                       f"trailing update in device memory on the tensor cores")
         log(f"timing {name} (b={b}, n={n}): kernel {t_k:.4f} ms by CUDA-graph replay "
             f"({flops / t_k / 1e9:.2f} TFLOP/s, {nbytes / t_k / 1e6:.1f} GB/s), plain "
             f"{t_p:.4f} ms, library yardstick (mvn_loglike_batch: cholesky_ex + "
-            f"solve_triangular) {t_l:.4f} ms (both CUDA events), bound {bd:.4f} ms ({why})")
-        if not r_p <= TOL_MVN:
+            f"solve_triangular) {t_l:.4f} ms (both CUDA events), bound {bd:.4f} ms ({why}; "
+            f"all in FP32: {bd32:.4f} ms, {why32})")
+        if not (r_p <= TOL_MVN and r_64 <= TOL_MVN):
             failed.append(f"{name} (b={b}, n={n})")
-        # the kernels line reports each route at its largest flagship shape
+        # the kernels line reports each route at its first case
         if name not in stats:
+            precision = ("3xTF32 tensor cores for the trailing updates (FP32 promotion per "
+                         "step), FP32 FMA for the rest" if name == "fused_mvn_loglike_panel"
+                         else "FP32 FMA")
             stats[name] = dict(max_abs_err=e_p, ms=t_k, plain_ms=t_p, bound_ms=bd,
-                               bound_by=why, library_ms=t_l, library_tf32_ms=None,
-                               precision=f"FP32 FMA ({blocked})", shape=[b, n],
+                               bound_by=why, fp32_bound_ms=bd32, library_ms=t_l,
+                               library_tf32_ms=None, precision=f"{precision} ({blocked})",
+                               shape=[b, n], max_abs_err_f64=e_64,
                                timing="CUDA-graph replay (kernel), CUDA events (plain, library)")
     if failed:
         raise SystemExit(f"MVN kernel disagrees with its plain version: {failed}")
@@ -638,6 +732,48 @@ def drive_paths(chain, tmp, on_paths):
     return counts
 
 
+def drive_wide_path(chain, tmp):
+    """The fifth path, "stitched-wide+ensemble", between a reset and a
+    reading of the launch counts: the stitched f32 log-posterior of the
+    1088-observable chain on 1024 walkers within the gate of the float64
+    oracle, then run_mcmc (1024 walkers, 4 + 4 steps).  It must launch the
+    wide route at (512, 1088) (the batch shapes the kernel wrapper saw are
+    recorded) and never the cluster route."""
+    from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
+    from gpbayestools_hic_tpu_torch.ops import registry
+    from gpbayestools_hic_tpu_torch.utils.validation import f64_log_posterior
+
+    name = "stitched-wide+ensemble"
+    chain.likelihood_mode = "stitched"
+    chain.mcmc_path = Path(tmp) / "stitched_wide" / "chain.pkl"
+    chain.mcmc_path.parent.mkdir(parents=True, exist_ok=True)
+    x = chain.random_pos(NWALKERS, seed=2)
+    lp64 = f64_log_posterior(chain, x[:N_ORACLE])
+    shapes, launch = set(), fm._mvn_cuda
+
+    def recorded(y, cov, route=None):
+        shapes.add(tuple(y.shape))
+        return launch(y, cov, route)
+
+    fm._mvn_cuda = recorded
+    try:
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        check_posterior(chain, x, lp64, name)
+        ensemble_run(chain, name, WIDE_STEPS, WIDE_STEPS)
+        counts = dict(registry.LAUNCH_COUNTS)
+    finally:
+        fm._mvn_cuda = launch
+    log(f"path {name}: {time.perf_counter() - t0:.1f} s, kernel launches {counts}, "
+        f"MVN batch shapes {sorted(shapes)}")
+    if counts["fused_mvn_loglike_panel"] == 0 or (NWALKERS // 2, chain.nobs) not in shapes:
+        raise SystemExit(f"path {name} never launched the wide route at "
+                         f"({NWALKERS // 2}, {chain.nobs})")
+    if counts["fused_mvn_loglike_cluster"] != 0:
+        raise SystemExit(f"path {name} launched the cluster route")
+    return {name: counts}
+
+
 def main() -> int:
     import torch
 
@@ -676,11 +812,29 @@ def main() -> int:
 
         stats = kernel_phase(chain, device)
         stats.update(mvn_phase(chain, device))
-        on_paths = set()
+        on_paths = {"fused_mvn_loglike_panel"}
         counts = drive_paths(chain, tmp, on_paths)
+        # the flagship chain's device memory goes before the wide chain comes
+        del chain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(tmp, "wide"))
+        wide, train_s = build_synthetic_chain(
+            nev=NEV, ndim=NDIM, nobs_blocks=WIDE_BLOCKS, npc=NPC, gp_maxiter=0,
+            seed=1, tmpdir=os.path.join(tmp, "wide"), device=device,
+        )
+        log(f"stitched-wide chain (synthetic, the flagship's blocks twice): "
+            f"{len(wide.emuList)} emulators x {NPC} GPs, nev {NEV}, {wide.nobs} "
+            f"observables; emulator set-up {train_s:.2f} s (total "
+            f"{time.perf_counter() - t0:.2f} s)")
+        flagship_wide = stats.pop("fused_mvn_loglike_panel")
+        stats.update(wide_mvn_phase(wide, device))
+        stats["fused_mvn_loglike_panel"]["also"].insert(0, flagship_wide)
+        counts.update(drive_wide_path(wide, tmp))
     launches = {k: sum(c[k] for c in counts.values()) for k in registry.KERNELS}
-    log(f"kernel launches over the four paths: {launches} (the MVN panel route, for "
-        f"n past the cluster route's, is on none of the flagship's paths)")
+    log(f"kernel launches over the five paths: {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     missing = [k for k in on_paths if launches[k] == 0]
     if missing:

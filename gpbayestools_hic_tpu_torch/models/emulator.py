@@ -223,7 +223,7 @@ class Emulator:
         gs = self.gp_state
         self._fused = (
             build_fused_state(gs.params, gs.x, gs.linv, gs.alpha_vec)
-            if fused_eligible(self.gp_config.kernel.kind, self._dtype) else None
+            if fused_eligible(self.gp_config.kernel.kind, gs.x.shape[1], self._dtype) else None
         )
 
     def _predict_full(self, x: torch.Tensor, extra_std: torch.Tensor):

@@ -13,8 +13,8 @@ only: the pivots give the log-determinant and the last entry ends as
 positive and finite, or a non-finite result, gives ``-inf``.  One thread
 block (or one cluster) owns one matrix.  All routes run the reference's
 blocked right-looking order (factor a panel of columns, then apply its
-trailing update as one product), FP32 FMA throughout, and are chosen from
-``n`` alone:
+trailing update as one product), FP32-class arithmetic throughout, and are
+chosen from ``n`` alone:
 
 - ``fused_mvn_loglike`` (n <= 319): the lower triangle packed in the
   block's shared memory beside a copy of the current 16-column panel; the
@@ -30,10 +30,21 @@ trailing update as one product), FP32 FMA throughout, and are chosen from
   the other CTAs through distributed shared memory, two cluster barriers
   per panel.  cov is read once and nothing but the output is allocated.
   :func:`cluster_layout` mirrors the kernel's layout.
-- ``fused_mvn_loglike_panel`` (larger n, up to 1759): 32-column panels
-  factored in shared memory, the trailing update applied in register
-  tiles to a scratch copy in device memory that the wrapper allocates.
-  Bound by FP32 operations.
+- ``fused_mvn_loglike_panel`` (the wide route, every n past the cluster
+  route's largest): the trailing matrix in a scratch copy in device
+  memory that the wrapper allocates, one thread-block cluster of
+  C = 1 .. 8 CTAs per matrix (more at small b, to fill the card),
+  64-column panels: every CTA factors the panel's 64 x 64 diagonal block
+  in the cluster route's 16-column steps, the rows below stream through
+  shared memory in chunks dealt out over the cluster, then one trailing
+  update per panel in 64 x 64 tiles over the cluster, the product in
+  3xTF32 on the tensor cores (FP32 promotion per 8-wide step).  Its
+  shared memory does not grow with n.  :func:`wide_layout` mirrors the
+  kernel's layout.
+
+As in the JAX ``mvn_loglike_best``, which sends every float32 call on the
+TPU to its kernel, :func:`mvn_loglike_best` sends every float32 CUDA batch
+to the kernel: a kernel that fails to build or launch raises.
 
 None of the TPU layout is kept (lane padding to 128, identity block,
 ``(b, 128)`` output, VMEM-sized batch chunks).
@@ -48,6 +59,7 @@ matrix that is not positive definite and for a non-finite cotangent.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -71,7 +83,14 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 SMEM_PANEL = 16      # panel width of the shared-memory route
 CLUSTER_PANEL = 16   # panel width = row-block height of the cluster route
 CLUSTER_MAX = 8      # largest cluster the cluster route uses
-PANEL_PANEL = 32     # panel width of the panel route
+WIDE_PANEL = 64      # panel width of the wide route ("panel")
+WIDE_STEP = 16       # factoring step = row-block height of the wide route
+WIDE_TILE = 64       # trailing-update tile of the wide route
+WIDE_CHUNK = 256     # rows below the panel per chunk in shared memory
+WIDE_MAX_CLUSTER = 8  # largest cluster the wide route uses
+WIDE_THREADS = 256
+WIDE_STAGES = 2      # depth of the wide route's trailing-update ring
+SM_SMEM = 233472     # bytes of shared memory per SM (H100), 1 KB per CTA reserved
 
 
 def _tri(i: int) -> int:
@@ -124,17 +143,61 @@ def cluster_layout(n: int) -> ClusterLayout:
     raise ValueError(f"no cluster of at most {CLUSTER_MAX} CTAs holds n = {n}")
 
 
-def route_limits() -> dict[str, tuple[int, int]]:
+def wide_rows(n: int, c: int, c0: int = 0, p: int = WIDE_PANEL) -> list[list[int]]:
+    """Rows below the wide route's panel starting at column c0 (rows
+    c1 .. n, c1 = min(c0 + p, n)) each rank of a c-CTA cluster takes through
+    shared memory: chunk k of WIDE_CHUNK rows belongs to rank k mod c.  The
+    panel's top rows c0 .. c1 - 1 are in every rank."""
+    c1 = min(c0 + p, n)
+    return [[i for i in range(c1, n + 1) if ((i - c1) // WIDE_CHUNK) % c == r]
+            for r in range(c)]
+
+
+def wide_bytes(p: int = WIDE_PANEL) -> int:
+    """Dynamic shared memory per CTA of the wide route (``wide_bytes``), the
+    same at every n: every step's factored 16 x 16 block and its
+    1 / sqrt(p), the flag, then the panel's top rows and a chunk of the rows
+    below (stride p + 4), or the trailing update's ring stages (two 64-row
+    L tiles and a 64 x 68 scratch tile each), whichever is larger: they
+    share memory."""
+    s, t, ld = WIDE_STEP, WIDE_TILE, p + 4
+    fixed = (p // s) * (s * (s + 4) + s) + 4
+    stage = 2 * t * ld + t * (t + 4)
+    return 4 * (fixed + max((p + WIDE_CHUNK) * ld, WIDE_STAGES * stage))
+
+
+class WideLayout(NamedTuple):
+    c: int            # CTAs per cluster
+    ctas_per_sm: int  # CTAs per SM the kernel is built for
+    p: int            # panel width
+    bytes: int        # dynamic shared memory per CTA
+    scratch: int      # floats of one matrix's scratch: n + 1 rows of whole float4s
+
+
+def wide_layout(b: int, n: int, sms: int) -> WideLayout:
+    """The wide route's layout at (b, n) on a card of ``sms`` SMs: the
+    smallest cluster (1 .. 8 CTAs) that makes b C cover the SMs, and the
+    kernel built for two CTAs per SM where b C exceeds the SMs and two
+    CTAs' shared memory fit one, else for one.  Every n >= 1."""
+    if b < 1 or n < 1 or sms < 1:
+        raise ValueError(f"the wide route needs b, n and sms >= 1, got {b}, {n}, {sms}")
+    c = max(1, min(-(-sms // b), WIDE_MAX_CLUSTER))
+    nbytes = wide_bytes()
+    k = 2 if b * c > sms and 2 * (nbytes + 1024) <= SM_SMEM else 1
+    return WideLayout(c, k, WIDE_PANEL, nbytes, (n + 1) * _align4(n + 1))
+
+
+def route_limits() -> dict[str, tuple[int, int | None]]:
     """The n range of each route, as the wrapper picks them: smallest and
-    largest n (``fused_mvn_*_max_n``)."""
+    largest n (``fused_mvn_*_max_n``; None: the wide route takes every n
+    past the cluster route)."""
     smem = 1
     while smem_bytes(smem + 1) <= SMEM_LIMIT:
         smem += 1
     hi = smem
     while cluster_bytes(hi + 1, CLUSTER_MAX) <= SMEM_LIMIT:
         hi += 1
-    panel = (SMEM_LIMIT // 4 - PANEL_PANEL) // (PANEL_PANEL + 1) - 1
-    return {"smem": (1, smem), "cluster": (smem + 1, hi), "panel": (hi + 1, panel)}
+    return {"smem": (1, smem), "cluster": (smem + 1, hi), "panel": (hi + 1, None)}
 
 
 # ------------------------------------------------------------- plain version
@@ -173,14 +236,19 @@ def _lib():
 
     lib = load("fused_mvn")
     if not getattr(lib, "_gpbt_typed", False):
-        for name in ("fused_mvn_smem_max_n", "fused_mvn_panel_max_n", "fused_mvn_smem_panel",
-                     "fused_mvn_cluster_max_n", "fused_mvn_cluster_panel"):
+        for name in ("fused_mvn_smem_max_n", "fused_mvn_smem_panel",
+                     "fused_mvn_cluster_max_n", "fused_mvn_cluster_panel",
+                     "fused_mvn_panel_width", "fused_mvn_panel_sms", "fused_mvn_panel_bytes"):
             getattr(lib, name).restype = _I
             getattr(lib, name).argtypes = []
         for name in ("fused_mvn_smem_blocks_per_sm", "fused_mvn_cluster_size",
-                     "fused_mvn_cluster_bytes", "fused_mvn_cluster_active"):
+                     "fused_mvn_cluster_bytes", "fused_mvn_cluster_active",
+                     "fused_mvn_panel_cluster", "fused_mvn_panel_ctas_per_sm",
+                     "fused_mvn_panel_active"):
             getattr(lib, name).restype = _I
             getattr(lib, name).argtypes = [_I]
+        lib.fused_mvn_panel_scratch.restype = ctypes.c_longlong
+        lib.fused_mvn_panel_scratch.argtypes = [_I]
         for name in ("fused_mvn_loglike_smem", "fused_mvn_loglike_cluster"):
             getattr(lib, name).restype = _I
             getattr(lib, name).argtypes = [_P] * 3 + [_I] * 2 + [_P]
@@ -190,20 +258,22 @@ def _lib():
     return lib
 
 
-#: route -> (kernel name in the registry, its C entry, the C entry of its largest n)
+#: route -> (kernel name in the registry, its C entry, the C entry of its
+#: largest n, None where the route takes every n)
 _ROUTES = {
     "smem": ("fused_mvn_loglike", "fused_mvn_loglike_smem", "fused_mvn_smem_max_n"),
     "cluster": ("fused_mvn_loglike_cluster", "fused_mvn_loglike_cluster",
                 "fused_mvn_cluster_max_n"),
-    "panel": ("fused_mvn_loglike_panel", "fused_mvn_loglike_panel", "fused_mvn_panel_max_n"),
+    "panel": ("fused_mvn_loglike_panel", "fused_mvn_loglike_panel", None),
 }
 
 
 def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> torch.Tensor:
     """Launch the elimination kernel.  The route follows n (smem up to its
-    largest n, then cluster, then panel); ``route`` (``"smem"`` /
-    ``"cluster"`` / ``"panel"``) forces one, for holding each against the
-    plain version at any n it takes.  A failed launch raises: no other
+    largest n, then cluster, then the wide route ``"panel"``); ``route``
+    (``"smem"`` / ``"cluster"`` / ``"panel"``) forces one, for holding each
+    against the plain version at any n it takes (the wide route: every
+    n).  A failed launch, or n past the route's largest, raises: no other
     route is tried."""
     for t in (y, cov):
         if t.device != y.device or t.dtype != torch.float32 or not t.is_contiguous():
@@ -224,7 +294,7 @@ def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> t
         raise ValueError(f"unknown fused MVN route {route!r}")
     name, entry, _ = _ROUTES[route]
     limit = route_max_n(route)
-    if n > limit:
+    if limit is not None and n > limit:
         raise ValueError(f"fused MVN route {route!r} takes n <= {limit}, got n = {n}")
     out = torch.empty((b,), dtype=torch.float32, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
@@ -232,8 +302,9 @@ def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> t
     if route == "panel":
         # the matrix is eliminated in place in this copy; the kernel's first
         # panel fills it from cov and y
-        ptrs.append(torch.empty((b, n + 1, n + 1), dtype=torch.float32,
-                                device=y.device).data_ptr())
+        scratch = torch.empty((b, lib.fused_mvn_panel_scratch(n)), dtype=torch.float32,
+                              device=y.device)
+        ptrs.append(scratch.data_ptr())
     with torch.cuda.device(y.device):
         err = getattr(lib, entry)(*ptrs, out.data_ptr(), b, n, stream)
     raise_on(err, f"{name} launch")
@@ -251,9 +322,27 @@ def cluster_info(n: int) -> dict[str, int]:
             "active_clusters": lib.fused_mvn_cluster_active(int(n))}
 
 
-def route_max_n(route: str) -> int:
-    """Largest n the built route takes (needs the built library)."""
-    return getattr(_lib(), _ROUTES[route][2])()
+def wide_info(b: int, n: int) -> dict[str, int]:
+    """The built wide route at (b, n) on the current device: its SM count,
+    CTAs per cluster, the CTAs per SM the launched kernel is built for,
+    panel width, shared memory per CTA, floats of one matrix's scratch, and
+    the clusters the card holds at once (``cudaOccupancyMaxActiveClusters``);
+    needs a CUDA machine."""
+    lib = _lib()
+    b, n = int(b), int(n)
+    return {"sms": lib.fused_mvn_panel_sms(), "c": lib.fused_mvn_panel_cluster(b),
+            "ctas_per_sm": lib.fused_mvn_panel_ctas_per_sm(b), "p": lib.fused_mvn_panel_width(),
+            "bytes": lib.fused_mvn_panel_bytes(), "scratch": lib.fused_mvn_panel_scratch(n),
+            "active_clusters": lib.fused_mvn_panel_active(b)}
+
+
+@functools.cache
+def route_max_n(route: str) -> int | None:
+    """Largest n the built route takes, None for the wide route, which
+    takes every n (needs the built library; asked once per process: the
+    dispatch reads it on every call)."""
+    entry = _ROUTES[route][2]
+    return None if entry is None else getattr(_lib(), entry)()
 
 
 def smem_blocks_per_sm(n: int) -> int:
@@ -315,8 +404,11 @@ def mvn_loglike_fused(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
 
 
 def mvn_loglike_best(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
-    """The fused kernel for float32 on CUDA, the batched library
-    factorization elsewhere (CPU, float64)."""
+    """The fused kernel for float32 on CUDA, at every n (as the JAX
+    ``mvn_loglike_best`` sends every float32 call on the TPU to its
+    kernel); the batched library factorization elsewhere (CPU, float64).
+    The choice is by dtype and device only: a kernel that fails to build or
+    launch raises."""
     if cov.is_cuda and cov.dtype == torch.float32:
         return mvn_loglike_fused(y, cov)
     return mvn_loglike_batch(y, cov)

@@ -90,9 +90,15 @@ class FusedState(NamedTuple):
     kdiag: torch.Tensor   # (b,) predictive prior variance amp + noise
 
 
-def fused_eligible(kind: str, dtype: torch.dtype) -> bool:
-    """The kernels compute the RBF family in float32."""
-    return kind == "RBF" and dtype == torch.float32
+#: largest input dimension the kernels take (``DMAX`` of csrc/fused_predict.cu)
+FUSED_MAX_DIM = 32
+
+
+def fused_eligible(kind: str, d: int, dtype: torch.dtype) -> bool:
+    """The kernels compute the RBF family in float32 for d <= FUSED_MAX_DIM;
+    a wider GP takes the plain ``gp_predict`` (as the JAX package's
+    ``fused_eligible(kind, d, dtype)`` sends it off its kernel)."""
+    return kind == "RBF" and d <= FUSED_MAX_DIM and dtype == torch.float32
 
 
 def build_fused_state(params: dict, x: torch.Tensor, linv: torch.Tensor,

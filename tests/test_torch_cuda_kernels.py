@@ -213,12 +213,20 @@ def _mvn_size(n):
     route's panel width P ("P-1", "P", "P+1", "2P+1") or its largest n
     ("max"), by the cluster route's cluster size C and panel width at
     n = 2P ("CP-1", "CP", "CP+1": a rank with one row block, or none) or
-    its largest n ("cmax"), or the panel route's new smallest n ("pmin"),
-    read from the built library."""
+    its largest n ("cmax"), or the wide route's ("panel") smallest n
+    ("pmin"), its panel width W ("W-1", "W", "W+1", "2W+1"), or where the
+    rows below its first panel fill one chunk of WIDE_CHUNK rows exactly
+    ("WK") or spill one row into a second ("WK+1"), read from the built
+    library."""
     if isinstance(n, int):
         return n
     if n == "max":
         return fm.smem_max_n()
+    if n.startswith("W") or n.startswith("2W"):
+        w = fm.wide_info(1, 1)["p"]
+        k = w + fm.WIDE_CHUNK - 1  # rows w .. k: one chunk
+        return {"W-1": w - 1, "W": w, "W+1": w + 1, "2W+1": 2 * w + 1, "WK": k,
+                "WK+1": k + 1}[n]
     if n in ("cmax", "pmin"):
         return fm.route_max_n("cluster") + (n == "pmin")
     if n.startswith("CP"):
@@ -237,6 +245,9 @@ def _mvn_size(n):
     ("panel", 4, 1), ("panel", 4, 7), ("panel", 5, 31), ("panel", 5, 32), ("panel", 5, 33),
     ("panel", 8, 130), ("panel", 6, 340), ("panel", 3, 544), ("panel", 3, "pmin"),
     ("panel", 2, 1000),
+    ("panel", 5, 15), ("panel", 5, 16), ("panel", 5, 17), ("panel", 5, "W-1"),
+    ("panel", 5, "W"), ("panel", 5, "W+1"), ("panel", 4, "2W+1"), ("panel", 140, 200),
+    ("panel", 3, "WK"), ("panel", 3, "WK+1"),
 ])
 def test_cuda_mvn_matches_plain(cuda_device, route, b, n):
     """Kernel 4, both routes, vs the plain elimination and the library
@@ -395,3 +406,177 @@ def test_cuda_mvn_rejects_wrong_inputs(cuda_device):
         fm._mvn_cuda(*_mvn_problem(cuda_device, 1, fm.smem_max_n() + 1), route="smem")
     with pytest.raises(ValueError, match="n <="):
         fm._mvn_cuda(*_mvn_problem(cuda_device, 1, _mvn_size("pmin")), route="cluster")
+
+
+def _mvn_problem_dev(dev, b, n, seed=0):
+    """A well-conditioned float32 batch built on the card (the host would
+    take minutes for b n^3 at n in the thousands): C = A A^T + n I with A
+    (n, n) normal, y normal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((b, n, n), generator=gen, device=dev, dtype=torch.float32)
+    cov = torch.bmm(a, a.transpose(1, 2))
+    cov.diagonal(dim1=1, dim2=2).add_(float(n))
+    y = torch.randn((b, n), generator=gen, device=dev, dtype=torch.float32)
+    del a
+    return y, cov
+
+
+@pytest.mark.parametrize("b", [1, 16, 130])
+@pytest.mark.parametrize("n", [767, 1000, 1088, 1759, 1760, 2048])
+def test_cuda_mvn_wide_matches_plain_and_library(cuda_device, b, n):
+    """The wide route (route "panel") at the n it takes by default, on both
+    sides of the old route's cap (1759), against the plain elimination and
+    the library factorization, rtol 2e-4; with three or more matrices, one
+    non-PD matrix and one whose bad pivot falls inside the second panel
+    give -inf there, and every other matrix is finite."""
+    y, cov = _mvn_problem_dev(cuda_device, b, n, seed=n + b)
+    bads = []
+    if b >= 3:
+        bads = [b // 2, b // 2 + 1]
+        cov[bads[0]] = -torch.eye(n, device=cuda_device)
+        k = fm.wide_info(b, n)["p"] + 24
+        cov[bads[1], k, k] = -1.0
+    before = LAUNCH_COUNTS["fused_mvn_loglike_panel"]
+    got = fm.fused_mvn_loglike(y, cov)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["fused_mvn_loglike_panel"] == before + 1
+    want = fm.fused_mvn_loglike_plain(y, cov)
+    lib = mvn_loglike_batch(y, cov)
+    for i in bads:
+        assert got[i] == -torch.inf and want[i] == -torch.inf
+    keep = torch.ones(b, dtype=torch.bool, device=cuda_device)
+    keep[bads] = False
+    assert torch.isfinite(got[keep]).all()
+    torch.testing.assert_close(got[keep], want[keep], rtol=2e-4, atol=0)
+    torch.testing.assert_close(got[keep], lib[keep], rtol=2e-4, atol=0)
+
+
+def test_cuda_mvn_wide_at_4096(cuda_device):
+    """n = 4096 (beyond the old cap by a factor 2.3) through the default
+    route against the library factorization and the float64 elimination,
+    rtol 2e-4."""
+    y, cov = _mvn_problem_dev(cuda_device, 2, 4096, seed=4096)
+    got = fm.fused_mvn_loglike(y, cov)
+    lib = mvn_loglike_batch(y, cov)
+    want64 = mvn_loglike_batch(y.double(), cov.double())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, lib, rtol=2e-4, atol=0)
+    torch.testing.assert_close(got.double(), want64, rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("b,n", [(16, 1088), (130, 1088), (512, 1088), (16, 2048)])
+def test_cuda_mvn_wide_bad_pivots_in_every_rank(cuda_device, b, n):
+    """A bad pivot in a row of each rank's first chunk below the first
+    panel (chunk k of WIDE_CHUNK rows belongs to rank k mod C), inside a
+    16-column step, at both sides of the first panel boundary and at the
+    last pivot (one matrix each; the pivots before it stay good): -inf
+    there, and every other matrix keeps exactly the value it has in a batch
+    without bad pivots."""
+    info = fm.wide_info(b, n)
+    c, w = info["c"], info["p"]
+    chunks = {w + fm.WIDE_CHUNK * r + 8 for r in range(c)} - {n}
+    ks = sorted({k for k in chunks if k < n} | {8, w - 1, w, n - 1})
+    assert b >= len(ks) + 2
+    y, cov = _mvn_problem_dev(cuda_device, b, n, seed=9)
+    clean = fm._mvn_cuda(y, cov, route="panel")
+    for i, k in enumerate(ks):
+        cov[i, k, k] = -1.0
+    got = fm._mvn_cuda(y, cov, route="panel")
+    want = fm.fused_mvn_loglike_plain(y[:len(ks)], cov[:len(ks)])
+    torch.cuda.synchronize()
+    for i, k in enumerate(ks):
+        assert got[i] == -torch.inf and want[i] == -torch.inf, k
+    assert torch.equal(got[len(ks):], clean[len(ks):])
+    assert torch.isfinite(clean).all()
+
+
+def test_cuda_mvn_wide_layout_is_the_libraries(cuda_device):
+    """The built library's wide route on this card: the SM count it reads is
+    the card's, and its cluster size, CTAs per SM, panel width, shared memory
+    per CTA and scratch size are wide_layout's for that count at every
+    (b, n); it has no largest n; the card places at least one cluster
+    (placements printed)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert fm.route_max_n("panel") is None and fm.route_limits()["panel"][1] is None
+    for b in (1, 2, 16, 17, 66, 130, 512, 1024):
+        for n in (1, 15, 63, 64, 65, 767, 1000, 1088, 1759, 1760, 2048, 4096, 6656, 20000):
+            info, want = fm.wide_info(b, n), fm.wide_layout(b, n, sms)
+            assert info["sms"] == sms
+            assert (info["c"], info["ctas_per_sm"], info["p"], info["bytes"],
+                    info["scratch"]) == tuple(want), (b, n)
+            assert info["active_clusters"] >= 1, (b, n)
+    for b, n in ((16, 767), (512, 1088), (2, 2048), (1, 4096)):
+        info = fm.wide_info(b, n)
+        print(f"wide route (b={b}, n={n}) on {sms} SMs: C = {info['c']}, "
+              f"{info['ctas_per_sm']} CTAs per SM, {info['bytes']} B per CTA, "
+              f"{info['active_clusters']} clusters placed at once")
+
+
+def test_cuda_mvn_wide_allocates_output_and_scratch_only(cuda_device):
+    """The wide route allocates its output and its scratch (b matrices of
+    n + 1 rows of whole float4s), nothing else (the allocator's rounding
+    aside)."""
+    b, n = 16, 1088
+    y, cov = _mvn_problem_dev(cuda_device, b, n, seed=1)
+    fm._mvn_cuda(y, cov)  # the library is built and loaded
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = LAUNCH_COUNTS["fused_mvn_loglike_panel"]
+    out = fm._mvn_cuda(y, cov)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["fused_mvn_loglike_panel"] == before + 1
+    scratch = 4 * b * fm.wide_info(b, n)["scratch"]
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= scratch + 2 * 1024 * 1024, (extra, scratch)
+    assert out.shape == (b,)
+
+
+def test_cuda_mvn_best_takes_the_wide_route_at_large_n(cuda_device):
+    """n = 6656 and 8191 (past 6655, where an earlier wide route's shared
+    memory ran out): mvn_loglike_best launches the wide route once, and
+    agrees with the library factorization and the float64 elimination,
+    rtol 2e-4."""
+    for n in (6656, 8191):
+        y, cov = _mvn_problem_dev(cuda_device, 1, n, seed=n)
+        before = LAUNCH_COUNTS["fused_mvn_loglike_panel"]
+        got = fm.mvn_loglike_best(y, cov)
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS["fused_mvn_loglike_panel"] == before + 1
+        torch.testing.assert_close(got, mvn_loglike_batch(y, cov), rtol=2e-4, atol=0)
+        want64 = mvn_loglike_batch(y.double(), cov.double())
+        torch.testing.assert_close(got.double(), want64, rtol=2e-4, atol=0)
+        del y, cov
+
+
+def test_cuda_emulator_past_the_kernels_dim_takes_the_plain_path(cuda_device, tmp_path):
+    """A float32 RBF emulator with d = 40 > DMAX gets no fused state; its
+    fast-gradient predict and gradient on the card run the plain gp_predict
+    and match the float64 plain path (1e-4 relative), with no predict
+    kernel launched."""
+    from gpbayestools_hic_tpu_torch.models.emulator import Emulator
+    from gpbayestools_hic_tpu_torch.utils.synthetic import (
+        write_parameter_file, write_training_pickle)
+
+    rng = np.random.default_rng(11)
+    d, nev, nobs = 40, 120, 6
+    design = rng.uniform(0, 1, size=(nev, d))
+    base = 2.0 + np.sin(design @ rng.uniform(0.2, 0.6, size=(d, nobs)))
+    pkl = write_training_pickle(str(tmp_path / "train.pkl"), design, base, 0.01 * np.abs(base))
+    par = write_parameter_file(str(tmp_path / "pars.txt"), d)
+    e32 = Emulator(pkl, par, npc=3, gp_maxiter=0, device=cuda_device, dtype=torch.float32)
+    e32.trainEmulator(np.ones(nev, dtype=bool))
+    e64 = Emulator(pkl, par, npc=3, gp_maxiter=0, device=cuda_device, dtype=torch.float64)
+    e64.trainEmulator(np.ones(nev, dtype=bool))
+    assert e32._fused is None and not fp.fused_eligible("RBF", d, torch.float32)
+    x = torch.tensor(rng.uniform(0.05, 0.95, size=(9, d)), dtype=torch.float32,
+                     device=cuda_device, requires_grad=True)
+    before = dict(LAUNCH_COUNTS)
+    gm, gv = e32.predict_pc_raw_fastgrad(x)
+    (g32,) = torch.autograd.grad((gm.sum() + gv.sum()), x)
+    assert dict(LAUNCH_COUNTS) == before
+    x64 = x.detach().double().requires_grad_(True)
+    gm64, gv64 = e64.predict_pc_raw(x64)
+    (g64,) = torch.autograd.grad((gm64.sum() + gv64.sum()), x64)
+    assert _rel(gm, gm64) < 1e-4 and _rel(gv, gv64) < 1e-4
+    assert _rel(g32, g64) < 1e-3

@@ -273,3 +273,40 @@ def test_grad_precision_wiring_and_save_round_trip(toy_files):
     mean, var = loaded.predict_pc_raw_fastgrad(x)
     (g,) = torch.autograd.grad(mean.sum() + var.sum(), x)
     assert torch.isfinite(g).all()
+
+
+def test_emulator_past_the_kernels_dim_takes_the_plain_path(tmp_path):
+    """A float32 RBF emulator with d = 33 (one past the fused kernels'
+    DMAX) gets no fused state, as the JAX package's fused_eligible(kind,
+    d, dtype) keeps it off its kernel; its fast-gradient raw predict and
+    its predict match the JAX Emulator trained on the same file (float32
+    on the port's side: 1e-4)."""
+    from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
+
+    rng = np.random.default_rng(33)
+    ndim, nev, nobs = 33, 60, 5
+    design = rng.uniform(0, 1, size=(nev, ndim))
+    base = 2.0 + np.sin(design @ rng.uniform(0.2, 0.5, size=(ndim, nobs)))
+    pkl = tmp_path / "train.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({str(i): {"parameter": design[i],
+                              "obs": np.stack([base[i], 0.01 * np.abs(base[i])])}
+                     for i in range(nev)}, f)
+    par = tmp_path / "pars.txt"
+    par.write_text("".join(f"p{i}: $p_{i}$, 0.0, 1.0\n" for i in range(ndim)))
+    je = JEmulator(str(pkl), str(par), npc=3, gp_maxiter=0)
+    je.trainEmulator(np.ones(nev, dtype=bool))
+    path = tmp_path / "emu.pkl"
+    je.save(str(path))
+    assert not fp.fused_eligible("RBF", ndim, torch.float32)
+    e32 = Emulator.load(str(path), device="cpu")
+    assert e32._dtype == torch.float32 and e32._fused is None
+    X = rng.uniform(0.05, 0.95, size=(7, ndim))
+    gm, gv = e32.predict_pc_raw_fastgrad(torch.tensor(X, dtype=torch.float32))
+    jgm, jgv = je.predict_pc_raw_pure_fastgrad(je.predict_state, X)
+    np.testing.assert_allclose(gm.numpy(), np.asarray(jgm), atol=1e-4)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(jgv), atol=1e-4)
+    mean, cov = e32.predict(X)
+    jmean, jcov = je.predict(X)
+    np.testing.assert_allclose(mean, jmean, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(cov, jcov, rtol=1e-3, atol=1e-6)

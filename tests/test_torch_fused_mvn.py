@@ -203,12 +203,13 @@ def test_cluster_storage_is_balanced_within_one_row_block(n):
 
 
 def test_routes_tile_every_n_once():
-    """The three routes' n ranges tile 1 .. 1759 with no gap and no
-    overlap: shared memory, then cluster, then panel."""
+    """The three routes' n ranges tile every n >= 1 with no gap and no
+    overlap: shared memory, then cluster, then the wide route ("panel"),
+    which has no largest n."""
     limits = fm.route_limits()
     assert list(limits) == ["smem", "cluster", "panel"]
     ranges = list(limits.values())
-    assert ranges[0][0] == 1 and ranges[-1][1] == 1759
+    assert ranges[0][0] == 1 and ranges[-1][1] is None
     for (lo, hi), (nxt, _) in zip(ranges, ranges[1:]):
         assert lo <= hi and nxt == hi + 1
     assert limits["cluster"][0] <= 544 <= limits["cluster"][1]
@@ -331,7 +332,7 @@ def test_kernel_source_calls_no_library_factorization():
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
     for word in ("cusolver", "cublas", "torch", "ATen", "potrf"):
         assert word not in code, word
-    assert "__global__" in code and "kernel<<<" in code and "mvn_panel_kernel<<<" in code
+    assert "__global__" in code and "mvn_smem_kernel<<<" in code
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in code
     # the cluster route: launched as clusters, DSMEM through map_shared_rank
     assert "cudaLaunchKernelEx" in code and "cudaLaunchAttributeClusterDimension" in code
@@ -341,8 +342,21 @@ def test_kernel_source_calls_no_library_factorization():
     assert f"constexpr int SMEM_PANEL = {fm.SMEM_PANEL};" in code
     assert f"constexpr int CLUSTER_PANEL = {fm.CLUSTER_PANEL};" in code
     assert f"constexpr int CLUSTER_MAX = {fm.CLUSTER_MAX};" in code
-    assert f"constexpr int PANEL = {fm.PANEL_PANEL};" in code
     assert f"constexpr int SMEM_LIMIT = {fm.SMEM_LIMIT};" in code
+    # the wide route: launched as clusters, its layout constants mirrored,
+    # the trailing update on the tensor cores through a cp.async ring
+    assert "cudaLaunchKernelEx(&w.launch.cfg, w.kernel" in code
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in code
+    assert "cp.async.cg.shared.global" in code
+    assert "constexpr bool kWideTensorCores = true;" in code
+    for name in ("WIDE_PANEL", "WIDE_STEP", "WIDE_TILE", "WIDE_CHUNK", "WIDE_MAX_CLUSTER",
+                 "WIDE_THREADS", "WIDE_STAGES", "SM_SMEM"):
+        assert f"constexpr int {name} = {getattr(fm, name)};" in code, name
+    # built for one and for two CTAs per SM, the card's SM count read from
+    # the device, no cluster past the portable size
+    assert "mvn_wide_kernel<2>" in code and "mvn_wide_kernel<1>" in code
+    assert "cudaDevAttrMultiProcessorCount" in code
+    assert "NonPortableClusterSizeAllowed" not in code
 
 
 def test_mvn_variant_tool_edits_apply_to_the_source():
@@ -377,3 +391,206 @@ def test_mvn_variant_tool_edits_apply_to_the_source():
         assert cluster[name] != src, name
     assert set(tool.CLUSTER_DIAGNOSTIC) <= set(tool.CLUSTER_EDITS)
     assert "cpanel_32" in cluster and "phase_clock" in cluster and "no_lookahead" in cluster
+    wide = tool.variant_sources(src, route="panel")
+    assert wide["kept"] == src
+    assert set(wide) == {"kept", *tool.PANEL_EDITS}
+    for name in tool.PANEL_EDITS:
+        assert wide[name] != src, name
+    assert set(tool.PANEL_DIAGNOSTIC) == {"wide_no_top_steps", "wide_no_row_steps",
+                                          "wide_no_trailing", "wide_loads_only",
+                                          "wide_no_products"}
+    assert "constexpr int WIDE_STAGES = 3;" in wide["stages_3"]
+    assert "  return 1;" in wide["one_cta_per_sm"]
+    assert f"constexpr int WIDE_STAGES = {fm.WIDE_STAGES};" in src
+    for width in (32, 128):
+        assert f"constexpr int WIDE_PANEL = {width};" in wide[f"wpanel_{width}"]
+    assert "constexpr bool kWideTensorCores = false;" in wide["fma_trailing"]
+    assert "NonPortableClusterSizeAllowed" in wide["cluster_16"]
+    assert tool.PANEL_CASES == ((16, 767), (512, 1088))
+
+
+# ------------------------------------------------------------- the wide route
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to the nearest TF32 value, ties away from zero (the
+    kernel's tf32_rna: add half a TF32 unit to the bits, cut 13 bits)."""
+    v = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    v = (v + 0x1000) & 0xFFFFE000
+    v = torch.where(v >= 2**31, v - 2**32, v)
+    return v.to(torch.int32).view(torch.float32)
+
+
+def _product_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a b^T (a (B, m, k), b (B, l, k), float32) as the kernel's 3xTF32
+    mma.sync computes it: per 8-wide k-step, each operand split into TF32
+    hi + lo, lo hi + hi lo + hi hi (the products exact, FP32 sums) into a
+    fresh fragment, then added to the FP32 accumulator."""
+    acc = torch.zeros((a.shape[0], a.shape[1], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ah = _tf32(a[..., k0:k0 + 8])
+        al = _tf32(a[..., k0:k0 + 8] - ah)
+        bh = _tf32(b[..., k0:k0 + 8])
+        bl = _tf32(b[..., k0:k0 + 8] - bh)
+        part = torch.bmm(al, bh.transpose(1, 2))
+        part = part + torch.bmm(ah, bl.transpose(1, 2))
+        part = part + torch.bmm(ah, bh.transpose(1, 2))
+        acc = acc + part
+    return acc
+
+
+def _wide_elimination(y: torch.Tensor, cov: torch.Tensor, panel: int = fm.WIDE_PANEL,
+                      tensor_cores: bool = True) -> torch.Tensor:
+    """The wide route's arithmetic order in plain torch (on no path): per
+    panel of ``panel`` columns (rows c0 .. n), 16-column steps as in the
+    shared-memory and cluster routes (the step's diagonal block eliminated
+    pivot by pivot, the rows below finished by substitution and scaled to
+    Cholesky entries, the step's update applied to the panel's later
+    columns only), then one trailing update A -= L L^T of the rows and
+    columns past the panel, in 3xTF32 (``tensor_cores``) or FP32."""
+    b, n = y.shape
+    s = fm.WIDE_STEP
+    a = torch.zeros((b, n + 1, n + 1), dtype=cov.dtype)
+    a[:, :n, :n] = cov
+    a[:, n, :n] = y
+    a = torch.tril(a)
+    logdet_half = torch.zeros((b,), dtype=cov.dtype)
+    ok = torch.ones((b,), dtype=torch.bool)
+    for c0 in range(0, n, panel):
+        pw = min(panel, n - c0)
+        pan = a[:, c0:, c0:c0 + pw].clone()  # the panel's rows c0 .. n
+        for s0 in range(0, pw, s):
+            s1 = min(s0 + s, pw)
+            sw = s1 - s0
+            x = pan[:, s0:s1, s0:s1].clone()
+            dg = torch.zeros((b, sw, sw), dtype=cov.dtype)
+            for j in range(sw):
+                p = x[:, j, j]
+                ok &= (p > 0) & ~torch.isinf(p)
+                m = x[:, :, j] / p[:, None]
+                dg[:, :, j] = m
+                x[:, j + 1:, j + 1:] -= torch.tril(m[:, j + 1:, None] * x[:, None, j + 1:, j])
+            piv = torch.diagonal(x, dim1=1, dim2=2)
+            logdet_half = logdet_half + 0.5 * torch.log(piv).sum(-1)
+            rows = pan[:, s1:, s0:s1].clone()
+            for j in range(1, sw):
+                rows[:, :, j] -= (rows[:, :, :j] * dg[:, j, None, :j]).sum(-1)
+            chol = rows / torch.sqrt(piv)[:, None, :]
+            pan[:, s1:, s0:s1] = chol
+            if s1 < pw:  # the step's update, the panel's later columns only
+                pan[:, s1:, s1:pw] -= torch.bmm(chol, chol[:, :pw - s1].transpose(1, 2))
+        lp_rows = pan[:, pw:, :]  # Cholesky rows c1 .. n
+        prod = (_product_3xtf32(lp_rows, lp_rows) if tensor_cores
+                else torch.bmm(lp_rows, lp_rows.transpose(1, 2)))
+        a[:, c0 + pw:, c0 + pw:] -= torch.tril(prod)
+    lp = 0.5 * a[:, n, n] - logdet_half
+    return torch.where(ok & torch.isfinite(lp), lp, torch.full_like(lp, -torch.inf))
+
+
+def test_tf32_rounding_is_the_kernels():
+    """_tf32 keeps 10 mantissa bits, rounds half away from zero, and hi + lo
+    carries a float32 to about 2^-22."""
+    x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 2**-12, -(1.0 + 2**-11), 3.14159265, -2.5e-7])
+    t = _tf32(x)
+    assert t[0] == 1.0 and t[1] == 1.0 + 2**-10 and t[2] == 1.0 and t[3] == -(1.0 + 2**-10)
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert torch.all((hi + lo - x).abs() <= 2**-21 * x.abs())
+    assert torch.all((t.view(torch.int32) & 0x1FFF) == 0)
+
+
+WIDE = fm.WIDE_PANEL
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, WIDE - 1, WIDE, WIDE + 1, 2 * WIDE + 1])
+def test_wide_order_matches_jax_pallas_and_f64(n):
+    """The wide route's order emulated in float32 (wide panels of 16-column
+    steps, the trailing update in 3xTF32 and in FP32) against the JAX
+    Pallas kernel (interpret mode) and the float64 plain elimination, rtol
+    2e-4: n on both sides of the 16-column and the panel boundaries, and
+    one n past two panels."""
+    y, cov = _problem(3, n, seed=500 + n)
+    j_pallas = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    yt, ct = torch.tensor(y), torch.tensor(cov)
+    want64 = fm.fused_mvn_loglike_plain(yt.double(), ct.double()).numpy()
+    for tensor_cores in (True, False):
+        got = _wide_elimination(yt, ct, tensor_cores=tensor_cores)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), j_pallas, rtol=2e-4)
+        np.testing.assert_allclose(got.numpy(), want64, rtol=2e-4)
+
+
+@pytest.mark.parametrize("k", [WIDE + 8, WIDE - 1, WIDE])
+def test_wide_order_bad_pivot(k):
+    """A pivot that goes bad inside a 16-column step of the second panel,
+    at the first panel's last column, or at the second panel's first: -inf
+    there, as in the JAX Pallas kernel; the other matrices keep exactly the
+    values they have without it."""
+    n, bad = 2 * WIDE + 5, 1
+    y, cov = _problem(3, n, seed=77)
+    clean = _wide_elimination(torch.tensor(y), torch.tensor(cov))
+    cov[bad, k, k] = -1.0
+    j = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    assert j[bad] == -np.inf
+    got = _wide_elimination(torch.tensor(y), torch.tensor(cov))
+    keep = np.arange(3) != bad
+    assert got[bad] == -torch.inf and torch.isfinite(got[keep]).all()
+    np.testing.assert_array_equal(got.numpy()[keep], clean.numpy()[keep])
+    np.testing.assert_allclose(got.numpy()[keep], j[keep], rtol=2e-4)
+
+
+def test_wide_layout_picks_the_cluster_from_b_and_n():
+    """C is the smallest that makes b C cover the card's SMs, up to 8 (8 at
+    (16, 767) on 132 SMs: b C = 128; 1 at (512, 1088)), whatever n; the
+    kernel is built for two CTAs per SM where b C exceeds the SMs, else
+    one.  The SM count is the card's: 114 SMs (an H100 PCIe) give other
+    clusters than 132."""
+    assert fm.wide_layout(16, 767, 132)[:2] == (8, 1)
+    assert fm.wide_layout(512, 1088, 132)[:2] == (1, 2)
+    assert fm.wide_layout(2, 2048, 132)[:2] == fm.wide_layout(1, 4096, 132)[:2] == (8, 1)
+    assert fm.wide_layout(130, 1000, 132)[:2] == (2, 2)
+    assert fm.wide_layout(20, 767, 132).c == 7 and fm.wide_layout(20, 767, 114).c == 6
+    for sms in (114, 132):
+        for b in (1, 16, 66, 130, 512):
+            sizes = {fm.wide_layout(b, n, sms).c for n in (1, 767, 1088, 4096, 10000)}
+            assert len(sizes) == 1
+            c = sizes.pop()
+            assert 1 <= c <= fm.WIDE_MAX_CLUSTER
+            assert b * c >= sms or c == fm.WIDE_MAX_CLUSTER
+            assert c == 1 or b * (c - 1) < sms
+    with pytest.raises(ValueError):
+        fm.wide_layout(0, 767, 132)
+
+
+def test_wide_layout_fits_every_n():
+    """The shared memory per CTA is the same at every n, within the
+    232,448 bytes an H100 block may use, and two CTAs' (1 KB each
+    reserved) within an SM's 233,472 where the kernel is built for two;
+    the scratch is n + 1 rows of whole float4s, for every n up to 8192."""
+    assert fm.route_limits()["panel"][1] is None
+    nbytes = fm.wide_bytes()
+    assert nbytes <= fm.SMEM_LIMIT and 2 * (nbytes + 1024) <= fm.SM_SMEM
+    for n in range(1, 8193):
+        for b in (1, 16, 512):
+            lay = fm.wide_layout(b, n, 132)
+            assert lay.bytes == nbytes and lay.p == fm.WIDE_PANEL, (b, n)
+        ld = lay.scratch // (n + 1)
+        assert lay.scratch == (n + 1) * ld and ld % 4 == 0 and n + 1 <= ld < n + 5
+    # a panel of 128 columns fits one CTA but not two, so it is built for one
+    assert fm.wide_bytes(128) <= fm.SMEM_LIMIT < 2 * (fm.wide_bytes(128) + 1024)
+
+
+@pytest.mark.parametrize("n,c0", [(767, 0), (767, 64), (1088, 0), (1088, 1024), (2048, 128),
+                                  (4096, 0), (17, 0)])
+def test_wide_rows_each_owned_once(n, c0):
+    """The panel starting at column c0: every row below it (c1 .. n) in
+    exactly one rank, in chunks of WIDE_CHUNK rows dealt out round-robin,
+    so no rank holds more than one chunk more than another."""
+    lay = fm.wide_layout(16, n, 132)
+    c1 = min(c0 + fm.WIDE_PANEL, n)
+    rows = fm.wide_rows(n, lay.c, c0)
+    assert sorted(i for r in rows for i in r) == list(range(c1, n + 1))
+    for r, mine in enumerate(rows):
+        assert all(((i - c1) // fm.WIDE_CHUNK) % lay.c == r for i in mine)
+    sizes = [len(r) for r in rows]
+    assert max(sizes) - min(sizes) <= fm.WIDE_CHUNK

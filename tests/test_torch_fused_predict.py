@@ -357,9 +357,18 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_fused_eligibility():
-    assert fp.fused_eligible("RBF", torch.float32)
-    assert not fp.fused_eligible("RBF", torch.float64)
-    assert not fp.fused_eligible("Matern", torch.float32)
+    """The JAX signature (kind, d, dtype): RBF, float32 and d up to the
+    kernels' DMAX (read from the source) only."""
+    from gpbayestools_hic_tpu_torch.ops import _build
+
+    src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
+    assert f"constexpr int DMAX = {fp.FUSED_MAX_DIM};" in src
+    assert fp.FUSED_MAX_DIM == 32
+    assert fp.fused_eligible("RBF", 17, torch.float32)
+    assert fp.fused_eligible("RBF", 32, torch.float32)
+    assert not fp.fused_eligible("RBF", 33, torch.float32)
+    assert not fp.fused_eligible("RBF", 17, torch.float64)
+    assert not fp.fused_eligible("Matern", 17, torch.float32)
 
 
 def test_grad_precision_selects_the_backward_kernel():

@@ -2,7 +2,7 @@
 
 Run from the repository root on a CUDA machine:
 
-    python3 tools/torch_profile_posterior.py [--mode auto|generic|stitched]
+    python3 tools/torch_profile_posterior.py [--mode auto|generic|stitched|stitched-wide]
 
 Builds the flagship chain with the port (17 parameters, 9 emulators x 4
 PCs on 1000 design points, 544 observables, ``gp_maxiter=0``).  With
@@ -22,7 +22,10 @@ With ``--mode generic`` (dense per-block likelihood) or ``--mode stitched``
 calls, it measures the value only, on a half-ensemble of 512 walkers (what
 each of a step's two calls sees): kernel launches and wall time per call,
 the same ``torch.profiler`` breakdown, and the wall time of one
-stretch-move step of ``run_ensemble`` at 1024 walkers.
+stretch-move step of ``run_ensemble`` at 1024 walkers.  ``--mode
+stitched-wide`` does the same on the synthetic chain of ``chip_smoke.py``'s
+fifth path: the flagship's blocks twice (18 emulators, 1088 observables,
+seed 1), one 1088 x 1088 matrix per walker (the MVN kernel's wide route).
 
 Prints one JSON object as its last line (with the card's name and power
 limit).  Imports nothing of JAX.
@@ -50,7 +53,8 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--mode", choices=("auto", "generic", "stitched"), default="auto")
+    parser.add_argument("--mode", choices=("auto", "generic", "stitched", "stitched-wide"),
+                        default="auto")
     mode = parser.parse_args().mode
     if not torch.cuda.is_available():
         print("torch_profile_posterior: no CUDA device", file=sys.stderr)
@@ -69,10 +73,11 @@ def main() -> int:
            "nwalkers": NWALKERS, "mode": mode}
     with tempfile.TemporaryDirectory() as tmp:
         chain, _ = build_synthetic_chain(
-            nev=1000, ndim=17, nobs_blocks=BLOCKS, npc=4, gp_maxiter=0,
-            seed=0, tmpdir=tmp, device=dev,
+            nev=1000, ndim=17, nobs_blocks=BLOCKS * (2 if mode == "stitched-wide" else 1),
+            npc=4, gp_maxiter=0, seed=1 if mode == "stitched-wide" else 0, tmpdir=tmp,
+            device=dev,
         )
-        chain.likelihood_mode = mode
+        chain.likelihood_mode = "stitched" if mode == "stitched-wide" else mode
         dense = mode != "auto"
         fn, state = chain.posterior_with_state()
         x_all = torch.tensor(chain.random_pos(NWALKERS, seed=1), dtype=torch.float32, device=dev)
