@@ -8,10 +8,21 @@ arguments):
 It imports nothing of JAX or the JAX package.  In order it
 
 1. builds every CUDA kernel of the port from ``gpbayestools_hic_tpu_torch/csrc``;
-2. builds the flagship calibration problem with the port itself (17
-   parameters, 9 emulators x 4 PCs = 36 RBF GPs on 1000 design points,
-   544 observables; ``gp_maxiter=0`` hyperparameters, factors on the card);
-3. checks each kernel against its plain PyTorch version at the shapes its
+2. phase "training": builds the flagship calibration problem with the port
+   itself, as the JAX package's bench fits it (17 parameters, 9 emulators x
+   4 PCs = 36 RBF GPs on 1000 design points, 544 observables; one joint
+   fit of the 36 GPs on the card in float32, ``gp_maxiter=30``, seed 0),
+   logs the fit's wall time, L-BFGS iterations, line-search trials,
+   converged lanes, host synchronisations and peak device memory, and
+   fails unless every GP's fitted LML is finite and no lower than at the
+   initialization, float32 ``gp_nll`` and its gradient at the fitted point
+   match float64 (``TOL_NLL32``), and, for GP 0 of emulators 0, 3 and 8,
+   the port's float64 fit at ``maxiter=200`` reaches scipy's float64
+   L-BFGS-B optimum within 0.2 and its float32 fit lands where the JAX
+   package's float32 fit does (``JAX_F32_LML``; the float32 fits' distance
+   to scipy's optimum is printed);
+3. checks each kernel against its plain PyTorch version (on the fitted
+   chain, as everything up to 5) at the shapes its
    path gives it and times kernel, plain version, library yardsticks and
    the bound: the fused predict forward and both backwards at one
    emulator's shape (b = 4, n = 1000, d = 17, m = 1024; the forward
@@ -41,6 +52,11 @@ It imports nothing of JAX or the JAX package.  In order it
    d. HMC with ``grad_precision="high"`` (256 walkers, the seed and steps
       of the 256-walker run of a); the default's mean acceptance may not
       fall more than 0.10 below it;
+   then trains an emulator with ``parameterTrafoPCA=True`` on the card (a
+   synthetic 20-parameter design in the flagship's layout, 500 events),
+   holds its predict, predict_pc_raw and predict_pc_raw_fastgrad on 64
+   points against its save loaded on the CPU in float64, and draws
+   ``sample_y`` on the card;
 5. frees the flagship chain and builds a second, synthetic one of twice its
    observables: the flagship's blocks twice (1088 observables, 18
    emulators x 4 PCs = 72 RBF GPs on 1000 design points, d = 17), standing
@@ -49,7 +65,8 @@ It imports nothing of JAX or the JAX package.  In order it
    covariances at (512, 1088) (the plain float32 column loop on the first
    16 matrices, the float64 one on all 512) and at (2, 2048) (grown past
    the old cap), then drives a fifth path between a reset and a reading
-   of the counts:
+   of the counts (this chain stays at the ``gp_maxiter=0`` initialization,
+   to keep the run's time):
    e. ``"stitched-wide+ensemble"``: the stitched log-posterior on 1024
       walkers against the gate, then ``run_mcmc`` (1024 walkers, 4 + 4
       steps); it must launch the wide route at (512, 1088) and never the
@@ -92,6 +109,38 @@ HIGH_WALKERS = 256     # HMC with grad_precision="high"
 HIGH_BURN = 8
 HIGH_STEPS = 16
 N_ORACLE = 64
+FIT_MAXITER = 30       # the JAX bench's joint fit (bench.py:247)
+ALPHA = 0.1            # GPConfig.alpha, the sklearn head's
+SCIPY_EMULATORS = (0, 3, 8)
+# the JAX package's margin for its fit against sklearn's (tests/test_gp.py:94)
+SCIPY_MARGIN = 0.2
+PCA_NEV = 500          # the parameter-PCA emulator's training events
+# float32 gp_nll against float64 at the fitted hyperparameters, per GP: the
+# value's error over max(|nll|, n) and the gradient's largest error over n
+# (the nll and each gradient component are sums of n terms).  Measured on
+# the flagship fit (H100): 1.7e-7 and 1.9e-7, about 3 float32 epsilons
+# (6e-8), as the rounding of a well-conditioned float32 Cholesky leaves
+# them (K carries at least alpha + noise = 0.11 on its diagonal); 2e-6 is
+# ten times that, while a product that dropped to TF32 (2^-11 per operand)
+# or a factor of the wrong lane shows up as 1e-4 or worse.
+TOL_NLL32 = 2e-6
+TOL_NLL32_GRAD = 2e-6
+# The JAX package's float32 fit of the SCIPY_EMULATORS' GP 0 (float64 LML at
+# its fitted hyperparameters; tools/fit_float32_gap.py, CPU): the port's
+# float32 fit on the card must land there.  The two run different rounding
+# (cuSOLVER here, XLA there), so a lane may stop an iteration or two apart;
+# near its stop an iteration gains about the ftol threshold, 2.4e-6 |f| =
+# 2.6e-3, so 0.05 is some twenty such iterations.  Measured: 2e-4 apart.
+JAX_F32_LML = (-971.9086, -1080.7135, -1032.5174)
+TOL_F32_REF = 0.05
+# the parameter-PCA emulator on the card (float32) against its float64 load
+# on the CPU, normwise, at most this many times the error of its float32
+# load on the CPU (the same factors through the plain float32 path): a
+# smooth emulator's K is ill-conditioned enough that float32 itself sits
+# near 1e-3 of float64 there, so the yardstick is float32 on the same
+# data, as for the kernels (TOL_VALUES); a fault in the transform or in a
+# kernel shows up as O(1).
+PCA_VS_CPU32 = 10.0
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, TF32
 # on the tensor cores (dense), HBM3
@@ -346,7 +395,14 @@ def kernel_phase(chain, device):
     if not r_h <= TOL_GRAD_HIGH:
         raise SystemExit("fused_predict_bwd_high disagrees with the float64 plain backward")
 
-    # timings, rotating over the emulators' states
+    # timings, rotating over the emulators' states, after half a second of
+    # the forward (the card idles through the CPU-bound checks before this
+    # phase, and its clocks must be up before the first timed call)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.5:
+        for s in states:
+            fp.fused_fwd(s, xq, save_v=True)
+        torch.cuda.synchronize()
     vs = [fp.fused_fwd(s, xq, save_v=True)[2] for s in states]
     kst = [fp._kstar_plain(s, xq)[2] for s in states]
     cts = [2.0 * v * ct_qf[:, None, :] for v in vs]
@@ -774,6 +830,236 @@ def drive_wide_path(chain, tmp):
     return {name: counts}
 
 
+def _lanes(chain):
+    """The chain's GPs as one batch: (x (n, d), y (36, n), fitted params,
+    config) on the card."""
+    import torch
+
+    states = [e.gp_state for e in chain.emuList]
+    params = {k: torch.cat([s.params[k] for s in states]) for k in states[0].params}
+    y = torch.cat([s.y for s in states])
+    return states[0].x, y, params, chain.emuList[0].gp_config
+
+
+def _scipy_fit(x, y, theta0, lower, upper, ls_only_dims):
+    """scipy L-BFGS-B on one RBF GP's negative log marginal likelihood in
+    float64 numpy (analytic gradient), from ``theta0`` = [log_amp, log_ls
+    (d), log_noise] within the bounds, run to its own convergence.  Returns
+    (theta, nll, result)."""
+    from scipy.linalg import cho_factor, cho_solve
+    from scipy.optimize import minimize
+
+    n, d = x.shape
+    sq = [(x[:, j, None] - x[None, :, j]) ** 2 for j in range(ls_only_dims)]
+    eye = np.eye(n)
+
+    def nll_and_grad(theta):
+        amp, ls, noise = np.exp(theta[0]), np.exp(theta[1:1 + d]), np.exp(theta[1 + d])
+        d2 = sum(s / l**2 for s, l in zip(sq, ls))
+        kr = amp * np.exp(-0.5 * d2)
+        k = kr + (noise + ALPHA) * eye
+        try:
+            cf = cho_factor(k, lower=True)
+        except np.linalg.LinAlgError:
+            return 1e30, np.zeros_like(theta)
+        a = cho_solve(cf, y)
+        nll = 0.5 * y @ a + np.log(np.diag(cf[0])).sum() + 0.5 * n * np.log(2 * np.pi)
+        w = cho_solve(cf, eye) - np.outer(a, a)     # K^-1 - a a^T
+        wk = w * kr
+        g = np.empty_like(theta)
+        g[0] = 0.5 * wk.sum()
+        for j in range(d):
+            g[1 + j] = 0.5 * (wk * sq[j]).sum() / ls[j] ** 2
+        g[1 + d] = 0.5 * noise * np.trace(w)
+        return nll, g
+
+    res = minimize(nll_and_grad, theta0, jac=True, method="L-BFGS-B",
+                   bounds=list(zip(lower, upper)), options={"maxiter": 15000})
+    return res.x, float(res.fun), res, nll_and_grad
+
+
+def training_phase(tmp, device):
+    """Phase "training": the flagship chain built by joint training on the
+    card (36 RBF GPs, n = 1000, float32, gp_maxiter=30, seed 0, as the JAX
+    package's bench fits it), then its checks.  Returns the chain."""
+    import torch
+    from gpbayestools_hic_tpu_torch.models import gp as gpm
+    from gpbayestools_hic_tpu_torch.utils.synthetic import build_synthetic_chain
+
+    log(f"training: TF32 matmuls allowed: {torch.backends.cuda.matmul.allow_tf32}")
+    torch.cuda.synchronize(device)      # the context exists before its counters reset
+    torch.cuda.reset_peak_memory_stats(device)
+    fit = {}
+    t0 = time.perf_counter()
+    chain, train_s = build_synthetic_chain(
+        nev=NEV, ndim=NDIM, nobs_blocks=BLOCKS, npc=NPC, gp_maxiter=FIT_MAXITER,
+        seed=0, tmpdir=tmp, device=device, fit_stats=fit,
+    )
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    iters = fit["iterations"]
+    log(f"training: flagship chain, {len(chain.emuList)} emulators x {NPC} GPs = "
+        f"{len(chain.emuList) * NPC} RBF GPs on {NEV} points (d = {NDIM}), "
+        f"{chain.nobs} observables, float32, gp_maxiter={FIT_MAXITER}, seed 0")
+    log(f"training: joint fit wall {train_s:.2f} s (synchronized; chain build "
+        f"{time.perf_counter() - t0:.2f} s), L-BFGS iterations {iters}, line-search "
+        f"trials {fit['trials']} (batched objective evaluations), converged lanes "
+        f"{fit['converged']}/{len(chain.emuList) * NPC}, host synchronisations "
+        f"{fit['host_syncs']} ({fit['host_syncs'] / max(iters, 1):.2f} per iteration), "
+        f"peak device memory {peak:.2f} GiB")
+
+    # each GP's LML at the initialization and at the fit, by one function
+    # (gp_nll on the 36-lane batch, as the optimizer evaluated it)
+    x, y, params, cfg = _lanes(chain)
+    b, d = y.shape[0], x.shape[1]
+    theta0, lower, upper = gpm._start_and_bounds(np.ones(d), cfg, x.dtype, device)
+    theta_fit = gpm._pack(params)
+    init = gpm._unpack(torch.clamp(theta0, lower, upper).expand(b, -1), d)
+    zeros = torch.zeros_like(y)
+    with torch.no_grad():
+        lml0 = -gpm.gp_nll(init, x, y, cfg, zeros).cpu().numpy()
+        lml1 = -gpm.gp_nll(gpm._unpack(theta_fit, d), x, y, cfg, zeros).cpu().numpy()
+    state_lml = torch.cat([e.gp_state.lml for e in chain.emuList]).cpu().numpy()
+    np.set_printoptions(precision=2, suppress=True, linewidth=160)
+    log(f"training: LML at the initialization, per GP:\n{lml0}")
+    log(f"training: LML at the fit, per GP:\n{lml1}")
+    log(f"training: LML gain min {float((lml1 - lml0).min()):.3f}, median "
+        f"{float(np.median(lml1 - lml0)):.3f}; fitted state's LML (jitter-rescued "
+        f"factor) against gp_nll's: max |diff| {float(np.abs(state_lml - lml1).max()):.4f}")
+    if not (np.isfinite(lml1).all() and (lml1 >= lml0).all()):
+        raise SystemExit("training: a fitted LML is non-finite or below its initialization's")
+
+    # float32 against float64 gp_nll and gradient at the fitted point
+    def nll_grad(dtype):
+        th = theta_fit.detach().to(dtype).requires_grad_(True)
+        f = gpm.gp_nll(gpm._unpack(th, d), x.to(dtype), y.to(dtype), cfg)
+        (g,) = torch.autograd.grad(f.sum(), th)
+        return f.detach().double(), g.double()
+
+    f32, g32 = nll_grad(torch.float32)
+    f64, g64 = nll_grad(torch.float64)
+    val_err = (f32 - f64).abs() / f64.abs().clamp(min=NEV)
+    grad_err = (g32 - g64).abs().amax(-1) / NEV
+    log(f"training: float32 gp_nll against float64 at the fit: max |diff| / max(|nll|, n) "
+        f"= {float(val_err.max()):.2e} (tolerance {TOL_NLL32}); gradient max |diff| / n "
+        f"= {float(grad_err.max()):.2e} (tolerance {TOL_NLL32_GRAD}); |nll64| "
+        f"{float(f64.abs().min()):.1f} to {float(f64.abs().max()):.1f}, max |grad64| "
+        f"{float(g64.abs().max()):.3f}")
+    if not (float(val_err.max()) <= TOL_NLL32 and float(grad_err.max()) <= TOL_NLL32_GRAD):
+        raise SystemExit("training: float32 gp_nll or its gradient off float64 at the fit")
+
+    # scipy L-BFGS-B in float64 against the port's fits at maxiter=200: the
+    # float64 fit within the JAX test's margin, the float32 fit where the
+    # JAX package's float32 fit stops
+    picks = [NPC * i for i in SCIPY_EMULATORS]        # GP 0 of emulators 0, 3, 8
+    ys = y[picks]
+    fits = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        t0 = time.perf_counter()
+        st = {}
+        fits[name] = gpm.gp_fit(x.to(dtype), ys.to(dtype), np.ones(d), config=cfg,
+                                maxiter=200, stats=st)
+        torch.cuda.synchronize()
+        log(f"training: port {name} fit of GP 0 of emulators {SCIPY_EMULATORS} at "
+            f"maxiter=200: {time.perf_counter() - t0:.2f} s, {st['iterations']} iterations, "
+            f"{st['trials']} trials")
+    xn = x.double().cpu().numpy()
+    th0 = theta0.double().cpu().numpy()
+    lo, hi = lower.double().cpu().numpy(), upper.double().cpu().numpy()
+    bad = []
+    for k, emu in enumerate(SCIPY_EMULATORS):
+        yk = ys[k].double().cpu().numpy()
+        t0 = time.perf_counter()
+        _, nll_sp, res, f = _scipy_fit(xn, yk, th0, lo, hi, d)
+        lml = {name: -f(gpm._pack({n: v[k] for n, v in st.params.items()})
+                        .double().cpu().numpy())[0] for name, st in fits.items()}
+        gap64, gap32 = -nll_sp - lml["float64"], -nll_sp - lml["float32"]
+        ref_gap = abs(lml["float32"] - JAX_F32_LML[k])
+        log(f"training: emulator {emu} GP 0: scipy L-BFGS-B (float64) LML {-nll_sp:.4f} "
+            f"({res.nit} iterations, {res.nfev} evaluations, {time.perf_counter() - t0:.1f} s); "
+            f"port float64 fit {lml['float64']:.4f} (scipy - port {gap64:.4f}, at most "
+            f"{SCIPY_MARGIN}); port float32 fit {lml['float32']:.4f} (scipy - port "
+            f"{gap32:.4f}; the JAX package's float32 fit {JAX_F32_LML[k]:.4f}, "
+            f"|port - JAX| {ref_gap:.4f}, at most {TOL_F32_REF})")
+        if not (gap64 <= SCIPY_MARGIN and ref_gap <= TOL_F32_REF):
+            bad.append(emu)
+    if bad:
+        raise SystemExit(f"training: the fit of GP 0 of emulators {bad} is off scipy's "
+                         "(float64) or off the JAX package's float32 fit")
+    return chain, {"fit_s": train_s, **fit, "peak_gib": peak}
+
+
+def param_pca_check(tmp, device):
+    """An emulator with parameterTrafoPCA=True trained on the card (float32):
+    predict, predict_pc_raw and predict_pc_raw_fastgrad (the transform
+    before the fused op) on 64 points against the same emulator loaded on
+    the CPU in float64; then sample_y on the card."""
+    import pickle
+
+    import torch
+    from gpbayestools_hic_tpu_torch.models import Emulator
+
+    rng = np.random.default_rng(5)
+    nev, ndim, nobs = PCA_NEV, 20, 28
+    lo, hi = np.zeros(ndim), np.ones(ndim)
+    lo[15:19], hi[15:19] = 0.01, 0.3        # zeta/s(T)
+    lo[12:15], hi[12:15] = 0.01, 0.4        # eta/s(mu_B)
+    lo[2:5], hi[2:5] = 0.5, 3.0             # y_loss(y_init)
+    design = lo + (hi - lo) * rng.uniform(size=(nev, ndim))
+    base = 2.0 + np.sin(design @ rng.uniform(0.2, 0.8, size=(ndim, nobs)))
+    pkl, par = os.path.join(tmp, "pca_train.pkl"), os.path.join(tmp, "pca_pars.txt")
+    with open(pkl, "wb") as f:
+        pickle.dump({str(i): {"parameter": design[i],
+                              "obs": np.stack([base[i], 0.01 * np.abs(base[i])])}
+                     for i in range(nev)}, f)
+    with open(par, "w") as f:
+        f.write("".join(f"p{i}: $p_{i}$, {lo[i]}, {hi[i]}\n" for i in range(ndim)))
+    t0 = time.perf_counter()
+    e = Emulator(pkl, par, npc=NPC, gp_maxiter=FIT_MAXITER, parameterTrafoPCA=True,
+                 device=device)
+    e.trainEmulatorAutoMask()
+    torch.cuda.synchronize()
+    log(f"parameter PCA: {nev} events, 20 parameters -> {e.gp_state.x.shape[1]} after the "
+        f"transform (PCs per group {e.param_pca_state.npcs}), {NPC} GPs trained on the card "
+        f"in {time.perf_counter() - t0:.2f} s; fused state: {e._fused is not None}")
+    p = e.gp_state.params
+    log("parameter PCA: fitted amp " + str(np.exp(p["log_amp"].cpu().numpy()).round(3))
+        + ", noise " + str(np.exp(p["log_noise"].cpu().numpy()).round(4))
+        + f", length scales {float(p['log_ls'].exp().min()):.3f} to "
+        f"{float(p['log_ls'].exp().max()):.3f}")
+    path = os.path.join(tmp, "pca_emu.pkl")
+    e.save(path)
+    ref = Emulator.load(path, device="cpu", dtype=torch.float64)
+    cpu32 = Emulator.load(path, device="cpu", dtype=torch.float32)
+    X = lo + (hi - lo) * rng.uniform(size=(64, ndim))
+
+    def outputs(emu, dtype, dev):
+        xt = torch.tensor(X, dtype=dtype, device=dev)
+        mean, cov = emu.predict(X)
+        out = {"predict mean": mean, "predict cov": cov}
+        with torch.no_grad():
+            for name in ("predict_pc_raw", "predict_pc_raw_fastgrad"):
+                gm, gv = getattr(emu, name)(xt)
+                out[f"{name} mean"], out[f"{name} var"] = gm.cpu(), gv.cpu()
+        return {k: torch.as_tensor(v) for k, v in out.items()}
+
+    card, want = outputs(e, torch.float32, device), outputs(ref, torch.float64, "cpu")
+    host32 = outputs(cpu32, torch.float32, "cpu")
+    bad = {}
+    for k in want:
+        err, err32 = normwise(card[k], want[k])[1], normwise(host32[k], want[k])[1]
+        log(f"parameter PCA: {k}: card float32 against the CPU float64 load {err:.2e} "
+            f"normwise; the CPU float32 load {err32:.2e} (at most {PCA_VS_CPU32:g} times "
+            "that)")
+        if not err <= PCA_VS_CPU32 * max(err32, 1e-7):
+            bad[k] = err
+    if bad:
+        raise SystemExit(f"parameter PCA emulator on the card disagrees with float64: {bad}")
+    draws = e.sample_y(X[:8], n_samples=16, random_state=0)
+    log(f"sample_y on the card: shape {draws.shape}, finite {np.isfinite(draws).all()}")
+    if draws.shape != (8, 16, nobs) or not np.isfinite(draws).all():
+        raise SystemExit("sample_y on the card returned malformed or non-finite draws")
+
+
 def main() -> int:
     import torch
 
@@ -782,6 +1068,9 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    # the package's per-emulator INFO lines would push this run's own lines
+    # out of a captured tail; LOGLEVEL=info brings them back
+    os.environ.setdefault("LOGLEVEL", "warning")
     from gpbayestools_hic_tpu_torch.ops import _build, registry
     from gpbayestools_hic_tpu_torch.utils.synthetic import build_synthetic_chain
 
@@ -802,18 +1091,16 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
-        chain, train_s = build_synthetic_chain(
-            nev=NEV, ndim=NDIM, nobs_blocks=BLOCKS, npc=NPC, gp_maxiter=0,
-            seed=0, tmpdir=tmp, device=device,
-        )
-        log(f"flagship chain: {len(chain.emuList)} emulators x {NPC} GPs, nev "
-            f"{NEV}, {chain.nobs} observables; emulator set-up {train_s:.2f} s "
-            f"(total {time.perf_counter() - t0:.2f} s)")
+        chain, fit = training_phase(tmp, device)
+        log(f"phase training: {time.perf_counter() - t0:.1f} s")
 
         stats = kernel_phase(chain, device)
         stats.update(mvn_phase(chain, device))
         on_paths = {"fused_mvn_loglike_panel"}
         counts = drive_paths(chain, tmp, on_paths)
+        t0 = time.perf_counter()
+        param_pca_check(tmp, device)
+        log(f"phase parameter PCA + sample_y: {time.perf_counter() - t0:.1f} s")
         # the flagship chain's device memory goes before the wide chain comes
         del chain
         gc.collect()

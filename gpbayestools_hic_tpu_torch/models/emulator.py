@@ -1,10 +1,11 @@
 """PCA-projected multi-output GP emulator (PyTorch port of ``models/emulator.py``).
 
 Training data are standardized, projected through whitened full-SVD PCA,
-and the first ``npc`` PCs are each emulated by an independent GP (one
-batched :class:`..models.gp.GPState`).  ``predict`` runs the batched GP
-posterior, the inverse PCA transform and the linear uncertainty
-propagation on the emulator's device.
+and the first ``npc`` PCs are each emulated by an independent GP, all
+fitted in one batched optimizer run (:func:`..models.gp.gp_fit`).
+``predict`` runs the parameter-PCA transform (``parameterTrafoPCA=True``),
+the batched GP posterior, the inverse PCA transform and the linear
+uncertainty propagation on the emulator's device.
 
 Reference quirks preserved as in the JAX package: truncation covariance
 for neglected PCs with the ``1e-4 * scaler.var_`` diagonal stabilizer; the
@@ -12,19 +13,21 @@ predictive covariance includes the white-noise level but not alpha;
 ``exp_and_cov_diagonal`` exponentiates the mean and rebuilds a diagonal
 covariance ``(fstd * mean)^2``.
 
-Not ported yet (they raise ``NotImplementedError``): parameter-space PCA
-(``parameterTrafoPCA=True``), BAND save files, ``sample_y``, and training
-with ``gp_maxiter > 0`` (see ROADMAP.md).
+``save`` writes the JAX package's format with plain tuples for the state
+tuples, so the JAX package's ``Emulator.load`` reads it without importing
+this package.  Not ported yet (they raise ``NotImplementedError``): BAND
+save files (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
+from typing import Sequence
 
 import numpy as np
 import torch
 
-from ..config import resolve_device, resolve_dtype
+from ..config import new_generator, resolve_device, resolve_dtype
 from ..ops.fused_predict import (
     backward_kernel, build_fused_state, fused_eligible, fused_pc_predict,
 )
@@ -38,8 +41,19 @@ from ..ops.scalers import (
     scaler_transform,
 )
 from ..runtime import parse_model_parameter_file
-from ..utils.io import load_pytree, load_training_pickle
-from .gp import GPConfig, GPState, gp_fit, gp_predict
+from ..utils.io import load_pytree, load_training_pickle, save_pytree
+from .gp import GPConfig, GPState, gp_fit, gp_predict, gp_sample
+from .param_pca import (
+    ParamPCAGroup,
+    ParamPCAState,
+    apply_param_pca_packed,
+    default_groups,
+    eta_over_s_vs_mu_B,
+    fit_param_pca,
+    pack_param_pca,
+    y_loss_vs_y_init,
+    zeta_over_s_vs_T,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -56,9 +70,11 @@ class Emulator:
 
     Constructor signature mirrors the JAX package plus ``device`` (default
     CUDA; pass ``"cpu"`` for the plain host path) and ``dtype`` (default
-    float32).  As there, set ``gp_grad_precision`` (``"default"``,
-    ``"high"`` or ``"highest"``) on the instance before training to choose
-    the fused predict's backward kernel; a loaded save file carries its own.
+    float32); training runs where the emulator lives.  As there, set
+    ``gp_grad_precision`` (``"default"``, ``"high"`` or ``"highest"``) on
+    the instance before training to choose the fused predict's backward
+    kernel, and ``gp_map_prior_strength`` for a MAP fit; a loaded save file
+    carries both.
     """
 
     def __init__(
@@ -72,18 +88,17 @@ class Emulator:
         max_rel_uncertainty_data: float = 0.1,
         exp_and_cov_diagonal: bool = False,
         perform_no_PCA: bool = False,
+        param_pca_groups: Sequence[ParamPCAGroup] | None = None,
         seed: int = 0,
         gp_maxiter: int = 200,
         device=None,
         dtype=None,
     ):
-        if parameterTrafoPCA:
-            raise _not_ported("parameterTrafoPCA=True (models/param_pca.py)")
         self.device = resolve_device(device)
         self._dtype = resolve_dtype(dtype)
         self.gp_maxiter = gp_maxiter
         self.logTrafo_ = logTrafo
-        self.parameterTrafoPCA_ = False
+        self.parameterTrafoPCA_ = parameterTrafoPCA
         self.max_rel_uncertainty_data_ = max_rel_uncertainty_data
         self.exp_and_cov_diagonal_ = exp_and_cov_diagonal
         if not self.logTrafo_ and self.exp_and_cov_diagonal_:
@@ -111,7 +126,48 @@ class Emulator:
         self.pardict = parse_model_parameter_file(parameter_file)
         self.design_min = np.array([v[1] for v in self.pardict.values()])
         self.design_max = np.array([v[2] for v in self.pardict.values()])
+
+        self.param_pca_groups = (
+            list(param_pca_groups) if param_pca_groups is not None else default_groups()
+        )
+        self.param_pca_state: ParamPCAState | None = None
+        if self.parameterTrafoPCA_:
+            self.targetVariance = 0.99
+            logger.info("Preparing parameter-space PCA ...")
+            (
+                self.param_pca_state,
+                self.PCA_new_design_points,
+                self.design_min,
+                self.design_max,
+            ) = fit_param_pca(
+                self.design_points,
+                self.design_min,
+                self.design_max,
+                self.param_pca_groups,
+                target_variance=self.targetVariance,
+            )
         self._trained = False
+
+    # ------------------------------------------------- parametrizations
+    # The viscosity curves as methods (the reference's API); they accept
+    # scalars or a grid and return a float or a float64 numpy array.
+
+    @staticmethod
+    def _curve(fn, params, grid):
+        out = fn(torch.tensor([params], dtype=torch.float64),
+                 torch.as_tensor(np.asarray(grid, dtype=np.float64)))
+        return float(out.reshape(-1)[0]) if np.ndim(grid) == 0 else out[0].numpy()
+
+    def parametrization_zeta_over_s_vs_T(self, zeta_max, T_zeta0, sigma_plus,
+                                         sigma_minus, T, mu_B):
+        return self._curve(lambda p, g: zeta_over_s_vs_T(p, g, mu_B),
+                           [zeta_max, T_zeta0, sigma_plus, sigma_minus], T)
+
+    def parametrization_eta_over_s_vs_mu_B(self, eta_0, eta_2, eta_4, mu_B):
+        return self._curve(eta_over_s_vs_mu_B, [eta_0, eta_2, eta_4], mu_B)
+
+    def parametrization_y_loss_vs_y_init(self, yloss_2, yloss_4, yloss_6, y_init):
+        return self._curve(y_loss_vs_y_init, [yloss_2, yloss_4, yloss_6], y_init)
 
     # ------------------------------------------------------------------ train
 
@@ -129,9 +185,10 @@ class Emulator:
         """Fit scaler/PCA on the host, build GP targets.
 
         Returns ``(design (nev, d) tensor, z_t (npc_used, nev) tensor, ptp
-        (d,) numpy)``; sets scaler/pca/_npc_used/gp_config.
+        (d,) numpy, noise_diag (npc_used, nev) tensor or None)``; sets
+        scaler/pca/_npc_used/gp_config.
         """
-        if kernel_type not in ("RBF", "Matern"):
+        if kernel_type not in ("RBF", "Matern", "MaternProd"):
             raise ValueError(f"Unknown kernel type: {kernel_type}")
         eventMask = np.asarray(eventMask, dtype=bool)
         data = np.asarray(self.model_data[eventMask, :], dtype=self._np_dtype)
@@ -146,14 +203,16 @@ class Emulator:
         else:
             logger.info("Standardizing data and performing PCA ...")
             self.pca = fit_pca(standardized, whiten=True)
-            npc_used = min(self.npc, self.pca.components.shape[0])
+            npc_used = self._select_npc(self.pca)
             z = pca_transform(self.pca, standardized, npc=npc_used)
             logger.info(
                 "%d PCs explain %.5f of variance", npc_used,
                 float(np.sum(self.pca.explained_variance_ratio[:npc_used])),
             )
         self._npc_used = npc_used
-        design = self._tensor(self.design_points[eventMask, :])
+        design = self._tensor((
+            self.PCA_new_design_points if self.parameterTrafoPCA_ else self.design_points
+        )[eventMask, :])
         ptp = np.asarray(self.design_max) - np.asarray(self.design_min)
         if np.any(ptp <= 0):
             names = list(self.pardict.keys())
@@ -165,21 +224,35 @@ class Emulator:
                 "zero-width"
             )
         self.gp_config = self._gp_config(
-            kernel_type, self.gp_alpha, self.gp_grad_precision)
-        return design, self._tensor(np.asarray(z).T), ptp.astype(self._np_dtype)
+            kernel_type, self.gp_alpha, self.gp_grad_precision,
+            getattr(self, "gp_map_prior_strength", 0.0))
+        noise_diag = self._pc_noise_diag(eventMask, npc_used)
+        return design, self._tensor(np.asarray(z).T), ptp.astype(self._np_dtype), noise_diag
 
     @staticmethod
-    def _gp_config(kernel_kind: str, alpha: float, grad_precision: str) -> GPConfig:
+    def _gp_config(kernel_kind: str, alpha: float, grad_precision: str,
+                   map_prior_strength: float = 0.0) -> GPConfig:
         backward_kernel(grad_precision)  # an unknown value raises
         return GPConfig(kernel=KernelConfig(kernel_kind), alpha=alpha,
-                        grad_precision=grad_precision)
+                        grad_precision=grad_precision,
+                        map_prior_strength=map_prior_strength)
+
+    def _select_npc(self, pca) -> int:
+        """Number of PCs to emulate (a subclass hook in the JAX package)."""
+        return min(self.npc, pca.components.shape[0])
+
+    def _pc_noise_diag(self, eventMask, npc_used):
+        """Per-(PC, event) known noise variances for the GP Gram diagonal;
+        None for this homoskedastic head (a subclass hook)."""
+        return None
 
     def trainEmulator(self, eventMask, kernel_type: str = "RBF"):
         """Train on the masked subset of events."""
-        design, z_t, ptp = self._prepare_training(eventMask, kernel_type)
+        design, z_t, ptp, noise_diag = self._prepare_training(eventMask, kernel_type)
         logger.info("Train GP emulators with %d training points ...", design.shape[0])
         gp_state = gp_fit(design, z_t, ptp, config=self.gp_config,
-                          nrestarts=self.nrestarts, maxiter=self.gp_maxiter)
+                          nrestarts=self.nrestarts, seed=self.seed,
+                          maxiter=self.gp_maxiter, noise_diag=noise_diag)
         logger.info("GP LMLs: %s", gp_state.lml.cpu().numpy())
         self._finalize_training(gp_state)
 
@@ -220,14 +293,26 @@ class Emulator:
             self._var_trans_t = t(self._var_trans)
             self._cov_trunc_t = t(self._cov_trunc)
             self._cov_trunc_diag_t = t(np.diagonal(self._cov_trunc).copy())
+        self._pp_packed = (
+            pack_param_pca(self.param_pca_state, dtype=self._dtype, device=self.device)
+            if self.parameterTrafoPCA_ else None
+        )
         gs = self.gp_state
         self._fused = (
             build_fused_state(gs.params, gs.x, gs.linv, gs.alpha_vec)
             if fused_eligible(self.gp_config.kernel.kind, gs.x.shape[1], self._dtype) else None
         )
 
+    def _transform_x(self, x: torch.Tensor) -> torch.Tensor:
+        """Query parameters as the GPs see them: through the parameter-PCA
+        transform when ``parameterTrafoPCA`` (before the fused op)."""
+        if self._pp_packed is None:
+            return x
+        return apply_param_pca_packed(self._pp_packed, self.param_pca_groups, x)
+
     def _predict_full(self, x: torch.Tensor, extra_std: torch.Tensor):
         """(m, d) -> mean (m, nobs), covariance (m, nobs, nobs)."""
+        x = self._transform_x(x)
         gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config)
         gp_mean = gp_mean.T
         gp_var = gp_var.T + extra_std[:, None] ** 2
@@ -247,6 +332,7 @@ class Emulator:
         return mean, cov
 
     def _pc_core(self, x: torch.Tensor, fast_grad: bool, raw: bool):
+        x = self._transform_x(x)
         if fast_grad and self._fused is not None:
             # fused kernel (float32 RBF): k* build, mean and the variance
             # quadratic form in one pass; same max(kdiag - q, 0) epilogue
@@ -305,7 +391,43 @@ class Emulator:
         return mean.cpu().numpy(), cov.cpu().numpy()
 
     def sample_y(self, X, n_samples: int = 1, random_state=None):
-        raise _not_ported("Emulator.sample_y")
+        """Sample model output at ``X``: (nsamples_X, n_samples, nobs).
+
+        Emulated PCs are drawn from their GP posteriors, neglected PCs are
+        standard normal.  ``random_state`` as in sklearn: an int seeds the
+        draws, None gives fresh draws per call (a seed from numpy's global
+        generator), a numpy ``Generator`` or ``RandomState`` supplies the
+        seed.  The normals come from a ``torch.Generator`` with that seed,
+        so the draws differ from the JAX package's for the same seed.
+        """
+        if self.perform_no_PCA_:
+            logger.warning("Sampling from raw data is not implemented.")
+            return None
+        if random_state is None:
+            seed = int(np.random.randint(2**31))
+        elif isinstance(random_state, (int, np.integer)):
+            seed = int(random_state)
+        elif isinstance(random_state, np.random.Generator):
+            seed = int(random_state.integers(2**31))
+        elif isinstance(random_state, np.random.RandomState):
+            seed = int(random_state.randint(2**31))
+        else:
+            raise TypeError(
+                f"random_state must be int, None, numpy Generator or "
+                f"RandomState, got {type(random_state).__name__}"
+            )
+        gen = new_generator(self.device, seed)
+        x = self._tensor(np.atleast_2d(np.asarray(X, dtype=np.float64)))
+        with torch.no_grad():
+            draws = gp_sample(self.gp_state, self._transform_x(x), n_samples,
+                              config=self.gp_config, generator=gen)
+            draws = draws.permute(1, 2, 0)               # (m, n_samples, npc)
+            n_total = self.pca.components.shape[0]
+            rest = torch.randn((x.shape[0], n_samples, n_total - self._npc_used),
+                               generator=gen, dtype=self._dtype, device=self.device)
+            z = torch.cat([draws, rest], dim=2)
+            y = z @ self._tensor(self._trans_matrix) + self._scaler_mean
+        return y.cpu().numpy()
 
     # ---------------------------------------------------- low-rank structure
 
@@ -321,10 +443,62 @@ class Emulator:
 
     # ---------------------------------------------------------- serialization
 
+    def save(self, path):
+        """Write the trained emulator in the JAX package's save format."""
+        if not self._trained:
+            raise RuntimeError("train before saving")
+        gs = self.gp_state
+        tree = {
+            "gp_params": gs.params,
+            "gp_x": gs.x,
+            "gp_y": gs.y,
+            "gp_chol": gs.chol,
+            "gp_alpha": gs.alpha_vec,
+            "gp_linv": gs.linv,
+            "gp_lml": gs.lml,
+            "scaler": self.scaler,
+            "pca": self.pca,
+            "trans_matrix": None if self.perform_no_PCA_ else self._trans_matrix,
+            "var_trans": None if self.perform_no_PCA_ else self._var_trans,
+            "cov_trunc": None if self.perform_no_PCA_ else self._cov_trunc,
+            "param_pca_state": self.param_pca_state,
+            "pca_new_design_points": (
+                self.PCA_new_design_points if self.parameterTrafoPCA_ else None
+            ),
+            "design_min": self.design_min,
+            "design_max": self.design_max,
+            "model_data": self.model_data,
+            "model_data_err": self.model_data_err,
+            "design_points": self.design_points,
+            "design_points_org": self.design_points_org_,
+            "impute_mask": None,
+            "impute_col_var": None,
+        }
+        meta = {
+            "npc": self.npc,
+            "npc_used": self._npc_used,
+            "nobs": self.nobs,
+            "nev": self.nev,
+            "logTrafo": self.logTrafo_,
+            "parameterTrafoPCA": self.parameterTrafoPCA_,
+            "exp_and_cov_diagonal": self.exp_and_cov_diagonal_,
+            "perform_no_PCA": self.perform_no_PCA_,
+            "kernel_kind": self.gp_config.kernel.kind,
+            "alpha": self.gp_config.alpha,
+            "param_pca_groups": [g._asdict() for g in self.param_pca_groups],
+            "pardict": self.pardict,
+            "gp_alpha": self.gp_alpha,
+            "method": None,
+            "pc_target_variance": None,
+            "map_prior_strength": self.gp_config.map_prior_strength,
+            "grad_precision": self.gp_config.grad_precision,
+        }
+        save_pytree(path, tree, meta)
+
     @classmethod
     def load(cls, path, *, device=None, dtype=None):
-        """Reconstruct a trained emulator from a JAX package ``Emulator.save``
-        file (read without importing JAX)."""
+        """Reconstruct a trained emulator from an ``Emulator.save`` file of
+        either package (read without importing JAX)."""
         tree, meta = load_pytree(path)
         return cls.from_jax_arrays(tree, meta, device=device, dtype=dtype)
 
@@ -335,15 +509,13 @@ class Emulator:
         factors."""
         if meta.get("method") is not None:
             raise _not_ported("EmulatorBAND (BAND save files)")
-        if meta["parameterTrafoPCA"]:
-            raise _not_ported("parameterTrafoPCA=True (models/param_pca.py)")
-        if meta["kernel_kind"] not in ("RBF", "Matern"):
-            raise _not_ported(f"kernel kind {meta['kernel_kind']!r}")
+        if meta["kernel_kind"] not in ("RBF", "Matern", "MaternProd"):
+            raise ValueError(f"Unknown kernel type: {meta['kernel_kind']}")
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self._dtype = resolve_dtype(dtype)
         self.logTrafo_ = meta["logTrafo"]
-        self.parameterTrafoPCA_ = False
+        self.parameterTrafoPCA_ = meta["parameterTrafoPCA"]
         self.exp_and_cov_diagonal_ = meta["exp_and_cov_diagonal"]
         self.perform_no_PCA_ = meta["perform_no_PCA"]
         self.npc = meta["npc"]
@@ -370,14 +542,18 @@ class Emulator:
             alpha_vec=t(tree["gp_alpha"]), linv=t(linv), lml=t(tree["gp_lml"]),
         )
         self.gp_grad_precision = meta.get("grad_precision", "default")
+        self.gp_map_prior_strength = meta.get("map_prior_strength", 0.0)
         self.gp_config = cls._gp_config(meta["kernel_kind"], meta["alpha"],
-                                        self.gp_grad_precision)
-        self.scaler = StandardScalerState(*(np.asarray(a) for a in tree["scaler"]))
-        pca = tree["pca"]
-        self.pca = None if pca is None else PCAState(
-            mean=np.asarray(pca[0]), components=np.asarray(pca[1]),
-            explained_variance=np.asarray(pca[2]),
-            explained_variance_ratio=np.asarray(pca[3]), whiten=bool(pca[4]),
+                                        self.gp_grad_precision,
+                                        self.gp_map_prior_strength)
+        self.scaler = _scaler_state(tree["scaler"])
+        self.pca = None if tree["pca"] is None else _pca_state(tree["pca"])
+        self.param_pca_groups = [ParamPCAGroup(**g) for g in meta["param_pca_groups"]]
+        pp = tree["param_pca_state"]
+        self.param_pca_state = None if pp is None else ParamPCAState(
+            scalers=tuple(_scaler_state(sc) for sc in pp[0]),
+            pcas=tuple(_pca_state(p) for p in pp[1]),
+            npcs=tuple(int(n) for n in pp[2]),
         )
         if not self.perform_no_PCA_:
             self._trans_matrix = np.asarray(tree["trans_matrix"], dtype=self._np_dtype)
@@ -389,6 +565,24 @@ class Emulator:
         self.model_data_err = np.asarray(tree["model_data_err"])
         self.design_points = np.asarray(tree["design_points"])
         self.design_points_org_ = np.asarray(tree["design_points_org"])
+        if self.parameterTrafoPCA_:
+            pnd = tree.get("pca_new_design_points")
+            # legacy save files: the masked training design (best effort)
+            self.PCA_new_design_points = np.asarray(
+                pnd if pnd is not None else tree["gp_x"])
         self._trained = True
         self._build_predict_state()
         return self
+
+
+def _scaler_state(t) -> StandardScalerState:
+    """A saved scaler (the class or a plain tuple) with numpy leaves."""
+    return StandardScalerState(*(np.asarray(a) for a in t))
+
+
+def _pca_state(t) -> PCAState:
+    return PCAState(
+        mean=np.asarray(t[0]), components=np.asarray(t[1]),
+        explained_variance=np.asarray(t[2]),
+        explained_variance_ratio=np.asarray(t[3]), whiten=bool(t[4]),
+    )

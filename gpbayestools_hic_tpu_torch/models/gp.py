@@ -5,14 +5,18 @@ Numerics match sklearn GPR with ``kernel = C * (RBF|Matern1.5) + White``,
 
 - log marginal likelihood ``-1/2 y^T K^-1 y - sum log L_ii - n/2 log 2pi``
   with ``K = kernel(X) + alpha I``;
+- hyperparameters optimized in log space under box bounds
+  (:mod:`..ops.lbfgsb`), restarts drawn uniformly in the log-space box
+  (sklearn's restart rule); every GP and every restart is one lane of one
+  batched optimizer run;
 - predictive mean ``k_*^T K^-1 y``; predictive variance ``k(x, x) - |G
   k_*|^2`` with ``G = L^-1`` -- includes the white-noise level but not
   alpha (sklearn convention), clipped at zero.
 
-Hyperparameter optimization (batched, bounded L-BFGS-B) is not ported yet:
-:func:`gp_fit` accepts ``maxiter=0`` only, which returns the reference
-initialization exactly as the JAX optimizer does with a zero iteration
-budget.
+The restart points come from a ``torch.Generator`` seeded with ``seed``,
+where the JAX package draws them with ``jax.random.uniform``: the streams
+differ, so fits with restarts are not bit-equal across packages (the
+optimizer from the same start points is; see :func:`_fit_from_starts`).
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ from typing import NamedTuple
 
 import torch
 
+from ..config import new_generator
 from ..ops.kernels import (
     KernelConfig, default_bounds, init_kernel_params, kernel_diag, kernel_fn,
 )
+from ..ops.lbfgsb import lbfgsb_minimize
 from ..ops.linalg import cholesky_jittered, solve_lower_triangular
 
 
@@ -46,6 +52,11 @@ class GPConfig(NamedTuple):
     kernel: KernelConfig = KernelConfig("RBF")
     alpha: float = 0.1
     grad_precision: str = "default"
+    #: > 0 switches hyperparameter fitting from MLE to MAP: an isotropic
+    #: Gaussian penalty of this precision in log-hyperparameter space,
+    #: centred on the reference initialization (length scales = ptp, amp 1,
+    #: noise 0.05)
+    map_prior_strength: float = 0.0
 
 
 class GPState(NamedTuple):
@@ -69,11 +80,64 @@ def _param_slice(params: dict, k: int) -> dict:
 
 
 def _build_k(params, x, config: GPConfig, noise_diag=None):
+    """K = kernel(x) + alpha I (+ diag(noise_diag)): (n, n) for one GP's
+    params, (b, n, n) for a batch."""
     k = kernel_fn(params, x, config=config.kernel, include_noise=True)
     k = k + config.alpha * torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
     if noise_diag is not None:
-        k = k + torch.diag(noise_diag)
+        # heteroskedastic known simulation noise (stochastic kriging)
+        k = k + torch.diag_embed(noise_diag)
     return k
+
+
+def gp_nll(params: dict, x: torch.Tensor, y: torch.Tensor, config: GPConfig,
+           noise_diag=None) -> torch.Tensor:
+    """Negative log marginal likelihood, differentiable: () for one GP
+    (``y`` (n,)), (b,) for a batch (``y`` (b, n)).
+
+    A matrix that is not positive definite gives 1e30 (the JAX package's
+    guard), so an L-BFGS trial there is a rejected step.  The plain
+    ``cholesky_ex`` never raises, and its failed factors are set to NaN as
+    ``jnp.linalg.cholesky`` leaves them, so such a lane's gradient is NaN
+    as in the JAX package and never reaches another lane.
+    """
+    n = x.shape[0]
+    k = _build_k(params, x, config, noise_diag)
+    chol, info = torch.linalg.cholesky_ex(k)
+    nan = torch.full((), float("nan"), dtype=k.dtype, device=k.device)
+    chol = chol + torch.where(info != 0, nan, 0.0)[..., None, None]
+    alpha_vec = solve_lower_triangular(chol, y)
+    quad = (alpha_vec * alpha_vec).sum(-1)
+    logdet_half = torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    nll = 0.5 * quad + logdet_half + 0.5 * n * math.log(2.0 * math.pi)
+    return torch.where(torch.isfinite(nll), nll, torch.full_like(nll, 1e30))
+
+
+def _pack(params: dict) -> torch.Tensor:
+    """(..., 1 + d + 1) vector [log_amp, log_ls, log_noise]."""
+    return torch.cat([params["log_amp"][..., None], params["log_ls"],
+                      params["log_noise"][..., None]], dim=-1)
+
+
+def _unpack(vec: torch.Tensor, d: int) -> dict:
+    return {"log_amp": vec[..., 0], "log_ls": vec[..., 1:1 + d],
+            "log_noise": vec[..., 1 + d]}
+
+
+def _start_and_bounds(ptp, config: GPConfig, dtype, device):
+    init = init_kernel_params(ptp, dtype=dtype, device=device)
+    lower, upper = default_bounds(ptp, kind=config.kernel.kind, dtype=dtype,
+                                  device=device)
+    return _pack(init), _pack(lower), _pack(upper)
+
+
+def _check_no_tf32(device: torch.device) -> None:
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "GP training needs full float32 products; "
+            "torch.backends.cuda.matmul.allow_tf32 is True (the package "
+            "switches it off on import: see config.disable_tf32)"
+        )
 
 
 def gp_fit(
@@ -83,33 +147,78 @@ def gp_fit(
     *,
     config: GPConfig = GPConfig(),
     nrestarts: int = 0,
+    seed: int = 0,
+    generator: torch.Generator | None = None,
     maxiter: int = 200,
     noise_diag: torch.Tensor | None = None,
+    ls_growth: float = 2.0,
+    stats: dict | None = None,
 ) -> GPState:
-    """Fit ``npc`` GPs on shared inputs ``x`` (n, d), targets (npc, n).
+    """Fit ``npc`` independent GPs on shared inputs in one batched run.
 
-    Only ``maxiter=0`` without restarts is supported so far: the state is
-    built at the reference initialization (amp 1, length scales = ``ptp``,
-    noise 0.05), clipped into the default bounds as the JAX optimizer
-    clips its start point.
+    ``x`` (n, d), ``y_batch`` (npc, n).  ``ptp`` (d,) sets the reference
+    initialization (length scales = parameter ranges) and the bounds.
+    With ``nrestarts > 0`` each GP also starts from ``nrestarts`` points
+    drawn uniformly in the log-bound box (from ``generator``, else a
+    generator seeded with ``seed`` on ``x``'s device) and its best optimum
+    wins (sklearn ``n_restarts_optimizer`` semantics).  ``noise_diag``
+    (npc, n) adds known per-point noise variances to each GP's Gram
+    diagonal.  ``ls_growth`` is the line search's warm-start growth (see
+    :func:`..ops.lbfgsb.lbfgsb_minimize`); every trial is a batched O(n^3)
+    Cholesky, so the trial count is the fit's time.  ``stats``, when given,
+    receives the optimizer's counts (:func:`lbfgsb_minimize`).
     """
-    if maxiter != 0 or nrestarts != 0:
-        raise NotImplementedError(
-            "gp_fit with maxiter > 0 or restarts needs the batched L-BFGS-B "
-            "optimizer, which is not ported yet (ROADMAP.md, item 6 "
-            "'Training'); use gp_maxiter=0 or load a JAX-trained save file"
-        )
-    dtype, device = x.dtype, x.device
+    theta0, lower, upper = _start_and_bounds(ptp, config, x.dtype, x.device)
+    if nrestarts > 0:
+        if generator is None:
+            generator = new_generator(x.device, seed)
+        u = torch.rand((nrestarts, theta0.shape[0]), generator=generator,
+                       dtype=x.dtype, device=x.device)
+        starts = torch.cat([theta0[None], lower + u * (upper - lower)], dim=0)
+    else:
+        starts = theta0[None]
+    return _fit_from_starts(x, y_batch, ptp, starts, config=config, maxiter=maxiter,
+                            noise_diag=noise_diag, ls_growth=ls_growth, stats=stats)
+
+
+def _fit_from_starts(
+    x: torch.Tensor,
+    y_batch: torch.Tensor,
+    ptp,
+    starts: torch.Tensor,
+    *,
+    config: GPConfig,
+    maxiter: int,
+    noise_diag: torch.Tensor | None = None,
+    ls_growth: float = 2.0,
+    stats: dict | None = None,
+) -> GPState:
+    """:func:`gp_fit` from given start points ``starts`` (nstarts, 2 + d),
+    the first being the reference initialization: every (GP, start) pair is
+    one lane of one optimizer run, and each GP keeps its best lane."""
+    _check_no_tf32(x.device)
+    d = x.shape[1]
     npc = y_batch.shape[0]
-    init = init_kernel_params(ptp, dtype=dtype, device=device)
-    lower, upper = default_bounds(ptp, kind=config.kernel.kind, dtype=dtype,
-                                  device=device)
-    params = {
-        name: torch.clamp(init[name], lower[name], upper[name])
-        .expand(npc, *init[name].shape).clone()
-        for name in ("log_amp", "log_ls", "log_noise")
-    }
-    return finalize_gp_state(params, x, y_batch, config, noise_diag)
+    nstarts = starts.shape[0]
+    theta0, lower, upper = _start_and_bounds(ptp, config, x.dtype, x.device)
+    # lane = gp * nstarts + start
+    y_lanes = y_batch.repeat_interleave(nstarts, dim=0)
+    nd_lanes = None if noise_diag is None else noise_diag.repeat_interleave(nstarts, dim=0)
+    x0 = starts.to(dtype=x.dtype, device=x.device).repeat(npc, 1)
+
+    def objective(theta):
+        nll = gp_nll(_unpack(theta, d), x, y_lanes, config, nd_lanes)
+        if config.map_prior_strength > 0.0:
+            # MAP objective (see GPConfig.map_prior_strength)
+            nll = nll + 0.5 * config.map_prior_strength * ((theta - theta0) ** 2).sum(-1)
+        return nll
+
+    res = lbfgsb_minimize(objective, x0, lower, upper, maxiter=maxiter,
+                          ls_growth=ls_growth, stats=stats)
+    thetas = res.x.reshape(npc, nstarts, -1)
+    best = torch.argmin(res.fun.reshape(npc, nstarts), dim=1)
+    theta_best = thetas[torch.arange(npc, device=x.device), best]
+    return finalize_gp_state(_unpack(theta_best, d), x, y_batch, config, noise_diag)
 
 
 def finalize_gp_state(
@@ -120,13 +229,10 @@ def finalize_gp_state(
     noise_diag: torch.Tensor | None = None,
 ) -> GPState:
     """Cholesky (with jitter rescue), K^-1 y, explicit L^-1 and LML for a
-    batch of GPs with known hyperparameters."""
+    batch of GPs with known hyperparameters (one batched Gram build)."""
     b, n = y_batch.shape
-    ks = torch.stack([
-        _build_k(_param_slice(params, k), x, config,
-                 None if noise_diag is None else noise_diag[k])
-        for k in range(b)
-    ])
+    params = {name: v.detach() for name, v in params.items()}
+    ks = _build_k(params, x, config, noise_diag)
     chols = cholesky_jittered(ks)
     whitened = solve_lower_triangular(chols, y_batch)          # (b, n)
     alpha_vecs = torch.linalg.solve_triangular(
@@ -208,3 +314,20 @@ def gp_predict(
         means.append(mean)
         out2.append(torch.clamp(kdiag - (v * v).sum(0), min=0.0))
     return torch.stack(means), torch.stack(out2)
+
+
+def gp_sample(
+    state: GPState,
+    xq: torch.Tensor,
+    n_samples: int,
+    *,
+    config: GPConfig = GPConfig(),
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Joint posterior draws at ``xq`` for each GP independently: (b, m,
+    n_samples) (sklearn ``sample_y``); normals from ``generator``."""
+    mean, cov = gp_predict(state, xq, config=config, full_cov=True)
+    chol = cholesky_jittered(cov)
+    z = torch.randn((*mean.shape, n_samples), generator=generator,
+                    dtype=mean.dtype, device=mean.device)
+    return mean[..., None] + chol @ z

@@ -1,11 +1,15 @@
 """GP covariance kernels over a log-space hyperparameter dict.
 
-Port of the JAX package's ``ops/kernels.py`` for the two families the
-sklearn head uses: ``1.0 * RBF(ls) + WhiteKernel`` and ``1.0 * Matern(nu=1.5)
-+ WhiteKernel``.  Hyperparameters are ``{"log_amp", "log_ls", "log_noise"}``.
+Port of the JAX package's ``ops/kernels.py``: the two families the sklearn
+head uses, ``1.0 * RBF(ls) + WhiteKernel`` and ``1.0 * Matern(nu=1.5) +
+WhiteKernel``, and the separable product-Matern of surmise's PCGP.
+Hyperparameters are ``{"log_amp", "log_ls", "log_noise"}``, either of one
+GP (``log_ls`` (d,)) or of a batch of GPs (``log_amp`` (b,), ``log_ls``
+(b, d), ``log_noise`` (b,)); a batch gives a (b, n, m) Gram stack.
 
 - RBF:        k = amp * exp(-0.5 * sum((x-y)^2 / l^2))
 - Matern 1.5: k = amp * (1 + sqrt(3) d) exp(-sqrt(3) d),  d = sqrt(sum((x-y)^2/l^2))
+- MaternProd: k = amp * prod_j (1 + d_j) exp(-d_j),  d_j = |x_j - y_j| / l_j
 - white noise adds to the *self* Gram diagonal only.
 
 Squared distances come from direct differences, one input dimension at a
@@ -26,7 +30,7 @@ import torch
 class KernelConfig(NamedTuple):
     """Static kernel configuration."""
 
-    kind: str = "RBF"  # "RBF" | "Matern" (nu = 1.5)
+    kind: str = "RBF"  # "RBF" | "Matern" (nu = 1.5) | "MaternProd"
 
 
 def scaled_sqdist(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
@@ -46,28 +50,38 @@ def kernel_fn(
     config: KernelConfig = KernelConfig(),
     include_noise: bool = True,
 ) -> torch.Tensor:
-    """Gram matrix k(x, y) with hyperparameters ``params`` of ONE GP.
+    """Gram matrix k(x, y): (n, m) for one GP's ``params``, (b, n, m) for
+    a batch of GPs' (leading axes of ``params`` lead the result).
 
     ``x`` (n, d), ``y`` (m, d) or None for the symmetric self-Gram.  White
     noise is added only on the self-Gram diagonal and only when
     ``include_noise`` is True.
     """
-    amp = torch.exp(params["log_amp"])
-    ls = torch.exp(params["log_ls"])
+    amp = torch.exp(params["log_amp"])[..., None, None]
+    ls = torch.exp(params["log_ls"])[..., None, :]
     xs = x / ls
     symmetric = y is None
     ys = xs if symmetric else y / ls
-    d2 = scaled_sqdist(xs, ys)
-    if config.kind == "RBF":
-        k = amp * torch.exp(-0.5 * d2)
-    elif config.kind == "Matern":
-        d = torch.sqrt(d2 + 1e-32)
-        sq3d = math.sqrt(3.0) * d
-        k = amp * (1.0 + sq3d) * torch.exp(-sq3d)
+    if config.kind == "MaternProd":
+        # log k = sum_j [log(1 + d_j) - d_j], one dimension at a time
+        logk = None
+        for j in range(xs.shape[-1]):
+            dj = torch.abs(xs[..., :, j, None] - ys[..., None, :, j])
+            term = torch.log1p(dj) - dj
+            logk = term if logk is None else logk + term
+        k = amp * torch.exp(logk)
     else:
-        raise ValueError(f"Unknown kernel kind: {config.kind}")
+        d2 = scaled_sqdist(xs, ys)
+        if config.kind == "RBF":
+            k = amp * torch.exp(-0.5 * d2)
+        elif config.kind == "Matern":
+            d = torch.sqrt(d2 + 1e-32)
+            sq3d = math.sqrt(3.0) * d
+            k = amp * (1.0 + sq3d) * torch.exp(-sq3d)
+        else:
+            raise ValueError(f"Unknown kernel kind: {config.kind}")
     if symmetric and include_noise:
-        noise = torch.exp(params["log_noise"])
+        noise = torch.exp(params["log_noise"])[..., None, None]
         k = k + noise * torch.eye(x.shape[0], dtype=k.dtype, device=k.device)
     return k
 
@@ -79,11 +93,12 @@ def kernel_diag(
     config: KernelConfig = KernelConfig(),
     include_noise: bool = True,
 ) -> torch.Tensor:
-    """Diagonal of the self-Gram k(x, x) without forming the matrix."""
-    amp = torch.exp(params["log_amp"])
-    diag = amp.expand(x.shape[0]).clone()
+    """Diagonal of the self-Gram k(x, x) without forming the matrix: (n,)
+    for one GP, (b, n) for a batch."""
+    amp = torch.exp(params["log_amp"])[..., None]
+    diag = amp.expand(*amp.shape[:-1], x.shape[0]).clone()
     if include_noise:
-        diag = diag + torch.exp(params["log_noise"])
+        diag = diag + torch.exp(params["log_noise"])[..., None]
     return diag
 
 
@@ -108,7 +123,8 @@ def init_kernel_params(
 def default_bounds(ptp, *, kind: str = "RBF", dtype=torch.float64, device=None):
     """Log-space hyperparameter bounds matching the reference kernels:
     length scales ``ptp * (1e-1, 1e2)`` (RBF) or ``ptp * (1e-3, 1e5)``
-    (Matern), amplitude (1e-5, 1e5), white noise (1e-2, 1e2)."""
+    (Matern and MaternProd), amplitude (1e-5, 1e5), white noise (1e-2,
+    1e2)."""
     ptp = torch.as_tensor(np.asarray(ptp), dtype=dtype, device=device)
     ls_lo, ls_hi = (1e-1, 1e2) if kind == "RBF" else (1e-3, 1e5)
 

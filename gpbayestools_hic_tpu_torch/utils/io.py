@@ -5,9 +5,10 @@
 2. Chain pickle: ``{"chain": (nwalkers, nsteps, ndim)}``.
 3. Serialized emulator: a pickled ``{"tree": ..., "meta": ...}`` payload
    of numpy arrays, the format the JAX package's ``Emulator.save`` writes.
-   Its state tuples are pickled by class from the JAX package's
-   ``ops.scalers`` module; :func:`load_pytree` maps those classes onto the
-   port's own copies, so reading a save file never imports JAX.
+   The JAX package pickles its state tuples by class (``ops.scalers``,
+   ``models.param_pca``); :func:`load_pytree` maps those classes onto the
+   port's own copies, so reading a save file never imports JAX.  The
+   port's :func:`save_pytree` writes plain tuples instead.
 """
 
 from __future__ import annotations
@@ -121,15 +122,19 @@ def load_exp_data_pickle(path) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _to_numpy_tree(tree):
-    """Tensors -> numpy arrays through dicts, lists, tuples and NamedTuples."""
+    """Tensors -> numpy arrays through dicts, lists and tuples.
+
+    NamedTuples are written as plain tuples, so that a save file holds no
+    class of this package and the JAX package's loader (which rebuilds its
+    state tuples by position) reads it without importing the port."""
     if hasattr(tree, "detach") and hasattr(tree, "cpu"):
         return tree.detach().cpu().numpy()
     if isinstance(tree, dict):
         return {k: _to_numpy_tree(v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_to_numpy_tree(v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_numpy_tree(v) for v in tree)
+    if isinstance(tree, tuple):
+        return tuple(_to_numpy_tree(v) for v in tree)
+    if isinstance(tree, list):
+        return [_to_numpy_tree(v) for v in tree]
     if isinstance(tree, (bool, type(None))):
         return tree
     return np.asarray(tree)

@@ -61,16 +61,22 @@ def build_synthetic_chain(
     tmpdir: str | None = None,
     device=None,
     dtype=None,
+    fit_stats: dict | None = None,
 ):
     """Train one Emulator per observable block on smooth synthetic physics
     (``obs = 2 + sin(design @ freqs)``) and load them into a Chain whose
     experimental data comes from a random truth point.
 
-    Each emulator trains on its own (the JAX package trains the same GPs as
-    one batch; the GPs are independent, so the results are identical).
-    Returns ``(chain, gp_train_seconds)``.
+    All blocks share the design, so the whole ensemble trains as ONE
+    batched GP fit (:func:`..models.joint.train_emulators_jointly`), as
+    the JAX package's ``build_synthetic_chain`` does.  ``fit_stats``, when
+    given, receives the optimizer's counts.  Returns ``(chain,
+    gp_train_seconds)``.
     """
+    import torch
+
     from ..models.emulator import Emulator
+    from ..models.joint import train_emulators_jointly
     from ..samplers.chain import Chain
 
     tmpdir = tmpdir or tempfile.mkdtemp(prefix="synthetic_chain_")
@@ -92,11 +98,8 @@ def build_synthetic_chain(
         exp_blocks.append(2.0 + np.sin(truth @ freqs))
 
     t0 = time.perf_counter()
-    for e in emus:
-        e.trainEmulatorAutoMask()
+    train_emulators_jointly(emus, stats=fit_stats)
     if emus and emus[0].device.type == "cuda":
-        import torch
-
         torch.cuda.synchronize(emus[0].device)
     gp_train_s = time.perf_counter() - t0
 

@@ -3,7 +3,8 @@
 The port's own copy of the oracle in the JAX package's
 ``tools/tpu_validation.py``.  From the identical trained GP state (kernel
 hyperparameters, alpha_vec, explicit L^-1) it recomputes, in float64
-numpy, what the device path evaluates: per-emulator RBF cross-kernels, PC
+numpy, what the device path evaluates: the parameter-PCA transform where an
+emulator has one, per-emulator RBF cross-kernels, PC
 means and variances, the low-rank physical covariance ``A^T diag(v) A +
 cov_trunc + exp_var``, and a full float64 Cholesky log-likelihood per
 walker.  The float32 posterior on the device must stay within 0.5
@@ -13,6 +14,8 @@ log-units of it (:data:`PRECISION_GATE`).
 from __future__ import annotations
 
 import numpy as np
+
+from ..models.param_pca import apply_param_pca
 
 #: max |lp_f32 - lp_f64| allowed on the device (log-units)
 PRECISION_GATE = 0.5
@@ -34,6 +37,8 @@ def f64_log_posterior(chain, x: np.ndarray) -> np.ndarray:
     lp64 = np.full(len(x), _EXTRA_STD_CONST)
     for e, i0, i1 in zip(chain.emuList, offsets[:-1], offsets[1:]):
         stt = e.gp_state
+        xq = (apply_param_pca(e.param_pca_state, e.param_pca_groups, x)
+              if e.parameterTrafoPCA_ else x)
         ls = np.exp(_np(stt.params["log_ls"]))
         amp = np.exp(_np(stt.params["log_amp"]))
         noise = np.exp(_np(stt.params["log_noise"]))
@@ -49,7 +54,7 @@ def f64_log_posterior(chain, x: np.ndarray) -> np.ndarray:
         gv = np.zeros((len(x), npc))
         for k in range(npc):
             xs = xt / ls[k]
-            qs = x / ls[k]
+            qs = xq / ls[k]
             d2 = np.maximum(
                 np.sum(xs**2, 1)[:, None] + np.sum(qs**2, 1)[None, :]
                 - 2 * xs @ qs.T, 0,

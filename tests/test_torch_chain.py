@@ -520,3 +520,33 @@ def test_run_mcmc_posterior_moments_match_jax(chains):
         a, b = stat(js), stat(ps)
         se = np.sqrt(a.var(0, ddof=1) / 8 + b.var(0, ddof=1) / 8)
         assert np.all(np.abs(a.mean(0) - b.mean(0)) < 5 * se), (a.mean(0), b.mean(0), se)
+
+
+def test_synthetic_chain_trained_jointly_matches_jax(tmp_path):
+    """The slice as a whole: build_synthetic_chain at a small size (nev 60,
+    ndim 4, two blocks, npc 2, gp_maxiter=10) trains jointly in each
+    package from the same seed; the port's float64 log_posterior over 32
+    walkers equals the JAX chain's (1e-8 relative: the fits agree to
+    optimizer tolerance, far below that here) and its float32 chain stays
+    within the precision gate of its own float64 oracle."""
+    from gpbayestools_hic_tpu.utils.synthetic import build_synthetic_chain as j_build
+    from gpbayestools_hic_tpu_torch.utils.synthetic import build_synthetic_chain
+    from gpbayestools_hic_tpu_torch.utils.validation import PRECISION_GATE
+
+    kw = dict(nev=60, ndim=4, nobs_blocks=(5, 3), npc=2, gp_maxiter=10, seed=0)
+    (tmp_path / "j").mkdir()
+    (tmp_path / "p").mkdir()
+    (tmp_path / "p32").mkdir()
+    jc, _ = j_build(tmpdir=str(tmp_path / "j"), **kw)
+    stats = {}
+    pc, secs = build_synthetic_chain(tmpdir=str(tmp_path / "p"), fit_stats=stats, **kw, **F64)
+    assert secs > 0 and 0 < stats["iterations"] <= 10
+    for e, je in zip(pc.emuList, jc.emuList):
+        np.testing.assert_allclose(e.gp_state.lml.numpy(), np.asarray(je.gp_state.lml),
+                                   rtol=0, atol=1e-6)
+    x = pc.random_pos(32, seed=1)
+    lp = pc.log_posterior(x)
+    np.testing.assert_allclose(lp, np.asarray(jc.log_posterior(x)), rtol=1e-8)
+    p32, _ = build_synthetic_chain(tmpdir=str(tmp_path / "p32"), device="cpu", **kw)
+    gap = np.abs(p32.log_posterior(x) - f64_log_posterior(p32, x)).max()
+    assert gap < PRECISION_GATE, gap

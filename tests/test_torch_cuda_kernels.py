@@ -580,3 +580,34 @@ def test_cuda_emulator_past_the_kernels_dim_takes_the_plain_path(cuda_device, tm
     (g64,) = torch.autograd.grad((gm64.sum() + gv64.sum()), x64)
     assert _rel(gm, gm64) < 1e-4 and _rel(gv, gv64) < 1e-4
     assert _rel(g32, g64) < 1e-3
+
+
+def test_cuda_gp_fit_matches_the_cpu_fit(cuda_device):
+    """The batched GP fit on the card (cuSOLVER Cholesky) in float64 gives
+    the CPU's float64 fit (LML to 1e-6, log-hyperparameters to 1e-5:
+    optimizer tolerance), and in float32 a fit whose every LML is finite and
+    above the initialization's; TF32 left on refuses to train."""
+    from gpbayestools_hic_tpu_torch.models import gp
+
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 1, size=(120, 5))
+    y = np.stack([np.sin(3 * x[:, 0]) + np.cos(2 * x[:, 1]) + x[:, 2] * x[:, 3],
+                  np.cos(4 * x[:, 4]) + x[:, 0] ** 2, np.sin(x @ np.arange(1.0, 6.0))])
+    ptp = np.ones(5)
+    cpu = gp.gp_fit(torch.tensor(x), torch.tensor(y), ptp, maxiter=30)
+    dev = gp.gp_fit(torch.tensor(x, device=cuda_device), torch.tensor(y, device=cuda_device),
+                    ptp, maxiter=30)
+    np.testing.assert_allclose(dev.lml.cpu().numpy(), cpu.lml.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(dev.params["log_ls"].cpu().numpy(),
+                               cpu.params["log_ls"].numpy(), rtol=0, atol=1e-5)
+    f32 = dict(dtype=torch.float32, device=cuda_device)
+    fit32 = gp.gp_fit(torch.tensor(x, **f32), torch.tensor(y, **f32), ptp, maxiter=30)
+    init32 = gp.gp_fit(torch.tensor(x, **f32), torch.tensor(y, **f32), ptp, maxiter=0)
+    assert torch.isfinite(fit32.lml).all() and (fit32.lml > init32.lml).all()
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            gp.gp_fit(torch.tensor(x, **f32), torch.tensor(y, **f32), ptp, maxiter=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before

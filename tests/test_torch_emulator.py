@@ -123,15 +123,6 @@ def test_port_training_maxiter0_reproduces_jax_state(toy_files, jax_saves):
     np.testing.assert_allclose(e.predict(X)[1], je.predict(X)[1], rtol=1e-10, atol=1e-12)
 
 
-def test_training_with_iterations_not_ported(toy_files):
-    _, pkl, par = toy_files
-    e = Emulator(pkl, par, npc=3, gp_maxiter=5, **F64)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        e.trainEmulatorAutoMask()
-    with pytest.raises(NotImplementedError, match="parameterTrafoPCA"):
-        Emulator(pkl, par, npc=3, parameterTrafoPCA=True, **F64)
-
-
 def test_f32_emulator_routes_through_fused_path(jax_saves):
     """A float32 RBF emulator's fast-gradient raw predict takes the fused
     op (the kernels on CUDA, the plain version here) and agrees with the
@@ -147,10 +138,15 @@ def test_f32_emulator_routes_through_fused_path(jax_saves):
     np.testing.assert_allclose(gv32.numpy(), gv64.numpy(), atol=1e-4)
 
 
-def test_no_gpu_without_explicit_cpu_raises(jax_saves, monkeypatch):
+def test_no_gpu_without_explicit_cpu_raises(toy_files, jax_saves, monkeypatch):
+    """Loading, and building an emulator to train, ask for CUDA unless the
+    caller passes device='cpu'; without a card they raise."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Emulator.load(jax_saves["rbf0"][1])
+    _, pkl, par = toy_files
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Emulator(pkl, par, npc=3, gp_maxiter=30)
 
 
 def test_unpickler_maps_jax_state_classes(jax_saves):
@@ -161,21 +157,27 @@ def test_unpickler_maps_jax_state_classes(jax_saves):
 
 
 def test_unpickler_rejects_unported_classes(tmp_path):
-    from gpbayestools_hic_tpu.models.param_pca import ParamPCAState
+    """A pickled JAX-package class the port lacks (the BAND head) raises
+    NotImplementedError naming it, instead of importing the JAX package."""
+    from gpbayestools_hic_tpu.models.emulator_band import EmulatorBAND
 
-    path = tmp_path / "pp.pkl"
-    jio.save_pytree(str(path), {"pp": ParamPCAState((), (), ())}, {})
-    with pytest.raises(NotImplementedError, match="ParamPCAState"):
+    path = tmp_path / "band.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"tree": {"cls": EmulatorBAND}, "meta": {}}, f)
+    with pytest.raises(NotImplementedError, match="EmulatorBAND"):
         io.load_pytree(str(path))
 
 
 def test_save_pytree_round_trip(tmp_path):
+    """Tensors come back as numpy arrays; NamedTuples are written as plain
+    tuples (so that no class of the port is in the file)."""
     tree = {"a": torch.arange(3.0), "s": scalers.StandardScalerState(
         np.ones(2), np.ones(2), np.zeros(2)), "n": None}
     io.save_pytree(tmp_path / "t.pkl", tree, {"k": 1})
     back, meta = io.load_pytree(tmp_path / "t.pkl")
     np.testing.assert_array_equal(back["a"], np.arange(3.0))
-    assert isinstance(back["s"], scalers.StandardScalerState) and back["n"] is None
+    assert type(back["s"]) is tuple and back["n"] is None
+    np.testing.assert_array_equal(scalers.StandardScalerState(*back["s"]).var, np.zeros(2))
     assert meta == {"k": 1}
 
 
@@ -201,16 +203,22 @@ def test_host_helpers_match_jax(toy_files, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_isolation_subprocess_loads_jax_save_without_jax(jax_saves):
-    """A fresh process imports the port and loads a JAX-saved emulator:
-    neither jax nor any gpbayestools_hic_tpu module gets imported."""
+def test_isolation_subprocess_loads_jax_save_without_jax(jax_saves, jax_pca_save):
+    """A fresh process imports the port and loads JAX-saved emulators, one
+    with a ParamPCAState: neither jax nor any gpbayestools_hic_tpu module
+    gets imported."""
     code = (
         "import sys\n"
+        "import numpy as np\n"
         "from gpbayestools_hic_tpu_torch.models import Emulator\n"
         "from gpbayestools_hic_tpu_torch.samplers import Chain\n"
         f"e = Emulator.load({jax_saves['rbf5'][1]!r}, device='cpu')\n"
         "m, c = e.predict([[0.5, 0.5, 0.5]])\n"
         "assert m.shape == (1, 6) and c.shape == (1, 6, 6)\n"
+        f"p = Emulator.load({jax_pca_save[1]!r}, device='cpu')\n"
+        "assert p.parameterTrafoPCA_ and len(p.param_pca_state.npcs) == 3\n"
+        f"m = p.predict(np.full((2, 20), 0.2), return_cov=False)\n"
+        "assert m.shape == (2, 6) and np.isfinite(m).all()\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [k for k in sys.modules if k == 'gpbayestools_hic_tpu' "
         "or k.startswith('gpbayestools_hic_tpu.')]\n"
@@ -310,3 +318,247 @@ def test_emulator_past_the_kernels_dim_takes_the_plain_path(tmp_path):
     jmean, jcov = je.predict(X)
     np.testing.assert_allclose(mean, jmean, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(cov, jcov, rtol=1e-3, atol=1e-6)
+
+
+# ------------------------------------------------------------ training
+
+
+@pytest.fixture(scope="module")
+def pca_files(tmp_path_factory):
+    """Training pickle + parameter file of a 20-parameter flagship-layout
+    design (40 events, 6 observables), for parameterTrafoPCA."""
+    tmp = tmp_path_factory.mktemp("emu_pca")
+    rng = np.random.default_rng(11)
+    nev, ndim, nobs = 40, 20, 6
+    lo, hi = np.zeros(ndim), np.ones(ndim)
+    lo[15:19], hi[15:19] = 0.01, 0.3
+    lo[12:15], hi[12:15] = 0.01, 0.4
+    lo[2:5], hi[2:5] = 0.5, 3.0
+    design = lo + (hi - lo) * rng.uniform(size=(nev, ndim))
+    base = 2.0 + np.sin(design @ rng.uniform(0.5, 1.5, size=(ndim, nobs)))
+    pkl = tmp / "train.pkl"
+    with open(pkl, "wb") as f:
+        pickle.dump({str(i): {"parameter": design[i],
+                              "obs": np.stack([base[i], 0.01 * np.abs(base[i])])}
+                     for i in range(nev)}, f)
+    par = tmp / "pars.txt"
+    par.write_text("".join(f"p{i}: $p_{i}$, {lo[i]}, {hi[i]}\n" for i in range(ndim)))
+    return tmp, str(pkl), str(par), lo, hi
+
+
+TRAINED = {  # name -> (which files, Emulator kwargs, kernel)
+    "rbf30": ("toy", dict(gp_maxiter=30), "RBF"),
+    "maternprod30": ("toy", dict(gp_maxiter=30), "MaternProd"),
+    "pca30": ("pca", dict(gp_maxiter=30, parameterTrafoPCA=True), "RBF"),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_trained(toy_files, pca_files):
+    """JAX emulators trained at gp_maxiter=30 on the files, once."""
+    out = {}
+    for name, (which, kw, kernel) in TRAINED.items():
+        _, pkl, par = (toy_files if which == "toy" else pca_files[:3])
+        e = JEmulator(pkl, par, npc=3, **kw)
+        e.trainEmulator(np.ones(e.nev, dtype=bool), kernel_type=kernel)
+        out[name] = e
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_pca_save(jax_trained, pca_files):
+    path = pca_files[0] / "jax_pca.pkl"
+    jax_trained["pca30"].save(str(path))
+    return jax_trained["pca30"], str(path)
+
+
+def _query(which, m, seed):
+    rng = np.random.default_rng(seed)
+    if which == "toy":
+        return rng.uniform(0.05, 0.95, size=(m, 3))
+    design = rng.uniform(size=(m, 20))
+    design[:, 15:19] = 0.01 + 0.29 * design[:, 15:19]
+    design[:, 12:15] = 0.01 + 0.39 * design[:, 12:15]
+    design[:, 2:5] = 0.5 + 2.5 * design[:, 2:5]
+    return design
+
+
+@pytest.mark.parametrize("name", list(TRAINED))
+def test_port_training_matches_jax(toy_files, pca_files, jax_trained, name):
+    """An Emulator trained by the port (gp_maxiter=30, float64) on the
+    pickle the JAX Emulator trained on: the fitted GP state (LML to 1e-6,
+    log-hyperparameters to 1e-5: optimizer tolerance), the parameter-PCA
+    design, and predict's mean and covariance (1e-6 relative: the optima
+    agree to 1e-5 in the hyperparameters)."""
+    which, kw, kernel = TRAINED[name]
+    _, pkl, par = toy_files if which == "toy" else pca_files[:3]
+    e = Emulator(pkl, par, npc=3, **kw, **F64)
+    e.trainEmulator(np.ones(e.nev, dtype=bool), kernel_type=kernel)
+    je = jax_trained[name]
+    np.testing.assert_allclose(e.gp_state.lml.numpy(), np.asarray(je.gp_state.lml),
+                               rtol=0, atol=1e-6)
+    for k in ("log_amp", "log_ls", "log_noise"):
+        np.testing.assert_allclose(e.gp_state.params[k].numpy(),
+                                   np.asarray(je.gp_state.params[k]), rtol=0, atol=1e-5)
+    if e.parameterTrafoPCA_:
+        np.testing.assert_allclose(e.PCA_new_design_points, je.PCA_new_design_points,
+                                   rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(e.design_max, je.design_max, rtol=1e-10, atol=1e-12)
+    X = _query(which, 6, 1)
+    mean, cov = e.predict(X)
+    jmean, jcov = je.predict(X)
+    np.testing.assert_allclose(mean, jmean, rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(cov, jcov, rtol=1e-6, atol=1e-8)
+    gm, gv = e.predict_pc_raw_fastgrad(torch.tensor(X))
+    jgm, jgv = je.predict_pc_raw_pure_fastgrad(je.predict_state, X)
+    np.testing.assert_allclose(gm.numpy(), np.asarray(jgm), rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(jgv), rtol=1e-6, atol=1e-8)
+
+
+def test_joint_training_equals_each_emulator_alone_and_jax(tmp_path):
+    """train_emulators_jointly (one fit over both emulators' GPs) gives
+    each emulator what its own trainEmulator gives (LML rtol 1e-4, the
+    JAX package's own joint-vs-individual check), and the JAX joint fit
+    (LML to 1e-6, log-hyperparameters to 1e-5); its checks refuse a
+    different design."""
+    from gpbayestools_hic_tpu.models import train_emulators_jointly as j_joint
+    from gpbayestools_hic_tpu_torch.models import train_emulators_jointly
+
+    rng = np.random.default_rng(5)
+    design = rng.uniform(0, 1, size=(30, 3))
+    par = tmp_path / "p.txt"
+    par.write_text("".join(f"p{i}: $p_{i}$, 0.0, 1.0\n" for i in range(3)))
+    pkls = []
+    for b, nobs in enumerate((4, 5)):
+        base = 2.0 + np.sin(design @ rng.uniform(1, 2.5, size=(3, nobs)))
+        pkl = tmp_path / f"t{b}.pkl"
+        with open(pkl, "wb") as f:
+            pickle.dump({str(i): {"parameter": design[i],
+                                  "obs": np.stack([base[i], 0.01 * np.abs(base[i])])}
+                         for i in range(30)}, f)
+        pkls.append(str(pkl))
+
+    def emus(cls, **kw):
+        return [cls(p, str(par), npc=2, gp_maxiter=30, **kw) for p in pkls]
+
+    joint = emus(Emulator, **F64)
+    stats = {}
+    train_emulators_jointly(joint, stats=stats)
+    assert stats["iterations"] > 0 and stats["host_syncs"] == stats["trials"]
+    alone = emus(Emulator, **F64)
+    for e in alone:
+        e.trainEmulatorAutoMask()
+    jjoint = emus(JEmulator)
+    j_joint(jjoint)
+    X = np.random.default_rng(6).uniform(0.05, 0.95, size=(4, 3))
+    for e, a, je in zip(joint, alone, jjoint):
+        np.testing.assert_allclose(e.gp_state.lml.numpy(), a.gp_state.lml.numpy(), rtol=1e-4)
+        np.testing.assert_allclose(e.gp_state.lml.numpy(), np.asarray(je.gp_state.lml),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(e.gp_state.params["log_ls"].numpy(),
+                                   np.asarray(je.gp_state.params["log_ls"]), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(e.predict(X)[0], je.predict(X)[0], rtol=1e-6)
+    other = emus(Emulator, **F64)
+    other[1].design_points = other[1].design_points + 0.1
+    with pytest.raises(ValueError, match="design"):
+        train_emulators_jointly(other)
+    mixed = emus(Emulator, **F64)
+    mixed[1].seed = 3
+    with pytest.raises(ValueError, match="seed"):
+        train_emulators_jointly(mixed)
+
+
+def test_sample_y_moments_and_random_state(toy_files):
+    """sample_y draws (m, n_samples, nobs) whose mean and covariance match
+    predict (3000 draws: mean to 0.05 of the spread, covariance to 15%);
+    an int seed reproduces, None draws afresh, a bad type raises."""
+    _, pkl, par = toy_files
+    e = Emulator(pkl, par, npc=3, gp_maxiter=30, **F64)
+    e.trainEmulatorAutoMask()
+    X = _query("toy", 3, 2)
+    draws = e.sample_y(X, n_samples=3000, random_state=0)
+    assert draws.shape == (3, 3000, 6) and np.isfinite(draws).all()
+    mean, cov = e.predict(X)
+    sd = np.sqrt(np.diagonal(cov, axis1=1, axis2=2))
+    np.testing.assert_allclose(draws.mean(1), mean, atol=0.05 * sd.max())
+    for i in range(3):
+        np.testing.assert_allclose(np.cov(draws[i].T), cov[i], rtol=0.15,
+                                   atol=0.15 * np.abs(cov[i]).max())
+    np.testing.assert_array_equal(e.sample_y(X, 5, random_state=7), e.sample_y(X, 5, random_state=7))
+    np.testing.assert_array_equal(e.sample_y(X, 5, random_state=np.random.default_rng(1)),
+                                  e.sample_y(X, 5, random_state=np.random.default_rng(1)))
+    assert not np.array_equal(e.sample_y(X, 5), e.sample_y(X, 5))
+    with pytest.raises(TypeError, match="random_state"):
+        e.sample_y(X, 5, random_state="seed")
+
+
+def test_port_save_loads_in_jax_without_the_port(pca_files, tmp_path):
+    """A port-trained emulator with parameter PCA, saved by the port, is
+    loaded by the JAX package's Emulator.load in a fresh process that
+    never imports the port, and predicts what the port predicts (1e-10,
+    float64); the port loads its own save back the same."""
+    _, pkl, par = pca_files[:3]
+    e = Emulator(pkl, par, npc=3, gp_maxiter=10, parameterTrafoPCA=True, **F64)
+    e.gp_map_prior_strength = 0.2
+    e.trainEmulatorAutoMask()
+    path, out = tmp_path / "port.pkl", tmp_path / "jax_pred.npz"
+    e.save(str(path))
+    X = _query("pca", 5, 3)
+    np.save(tmp_path / "X.npy", X)
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "jax.config.update('jax_enable_x64', True)\n"
+        "from gpbayestools_hic_tpu.models import Emulator\n"
+        f"e = Emulator.load({str(path)!r})\n"
+        f"X = np.load({str(tmp_path / 'X.npy')!r})\n"
+        "m, c = e.predict(X)\n"
+        "assert e.gp_config.map_prior_strength == 0.2\n"
+        f"np.savez({str(out)!r}, m=m, c=c)\n"
+        "bad = [k for k in sys.modules if k.startswith('gpbayestools_hic_tpu_torch')]\n"
+        "assert not bad, bad\n"
+        "print('jax-loaded')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "jax-loaded" in res.stdout
+    mean, cov = e.predict(X)
+    ref = np.load(out)
+    np.testing.assert_allclose(ref["m"], mean, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ref["c"], cov, rtol=1e-10, atol=1e-12)
+    back = Emulator.load(str(path), **F64)
+    assert back.gp_config.map_prior_strength == 0.2
+    np.testing.assert_allclose(back.predict(X)[1], cov, rtol=1e-12, atol=1e-14)
+
+
+def test_jax_param_pca_save_loads_in_the_port(jax_pca_save):
+    """A JAX save with a ParamPCAState loads in the port (the class mapped
+    onto the port's) and predicts as the JAX emulator does (1e-10, float64,
+    same factors), in every predict entry."""
+    je, path = jax_pca_save
+    e = Emulator.load(path, **F64)
+    assert type(e.param_pca_state).__module__.startswith("gpbayestools_hic_tpu_torch")
+    X = _query("pca", 6, 4)
+    mean, cov = e.predict(X)
+    jmean, jcov = je.predict(X)
+    np.testing.assert_allclose(mean, jmean, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(cov, jcov, rtol=1e-10, atol=1e-12)
+    dm, dv = e.predict_diag(torch.tensor(X))
+    jdm, jdv = je.predict_diag_device(jnp_array(X))
+    np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), rtol=1e-10, atol=1e-12)
+    for fast in (False, True):
+        gm, gv = (e.predict_pc_raw_fastgrad if fast else e.predict_pc_raw)(torch.tensor(X))
+        jfn = je.predict_pc_raw_pure_fastgrad if fast else je.predict_pc_raw_pure
+        jgm, jgv = jfn(je.predict_state, X)
+        np.testing.assert_allclose(gm.numpy(), np.asarray(jgm), rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(gv.numpy(), np.asarray(jgv), rtol=1e-10, atol=1e-12)
+
+
+def jnp_array(x):
+    import jax.numpy as jnp
+
+    return jnp.asarray(x)
