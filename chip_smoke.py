@@ -36,9 +36,10 @@ It imports nothing of JAX or the JAX package.  In order it
    route's largest n + 1, one non-PD matrix planted in each batch (the MVN
    kernel timed by replaying a CUDA graph of its launches, so that the
    host's enqueue stays out of the measured time);
-4. drives four paths, each with every launch count set to 0 just before
+4. drives seven paths, each with every launch count set to 0 just before
    it and read just after it (a path that never launched one of its
-   kernels fails the run):
+   kernels fails the run; f and g must launch the forward and the fast
+   backward, h the forward):
    a. ``likelihood_mode="auto"``: the f32 log-posterior on 1024 walkers,
       held within 0.5 log-units (and, for this route, 0.02) of the f64
       numpy oracle at 64 points, then ``Chain.run_MCMC_HMC`` with 1024
@@ -52,6 +53,36 @@ It imports nothing of JAX or the JAX package.  In order it
    d. HMC with ``grad_precision="high"`` (256 walkers, the seed and steps
       of the 256-walker run of a); the default's mean acceptance may not
       fall more than 0.10 below it;
+   and three more paths on the same chain, back at
+   ``grad_precision="default"`` and ``"auto"`` mode (the three samplers
+   cut in depth only, the widths the flagship's):
+   f. ``hmc-auto-L+resume``: ``run_hmc`` on ``chain.posterior_with_state()``
+      at 256 walkers with ``n_leapfrog="auto"``, ``l_max=8``,
+      ``probe_steps=16`` (the defaults are 16 and 64) and 8 warmup steps
+      per phase, then ``Chain.run_MCMC_HMC(nsteps=8, warm_start=res)`` (no
+      chain file: it starts from the final state) and ``run_MCMC_HMC(
+      nsteps=8, resume=True, warm_start=res2)``; the chain file must grow
+      from 8 to 16 steps and neither continuation may warm up; the probe's
+      gradients per second are logged;
+   g. ``ptlmc``: ``Chain.run_MCMC_PTLMC`` with 16 cold and 50 tempered
+      chains, maxtemp 100 and 1000 start points, with gradients (32 tuning
+      + 16 production steps) and without (16 + 8); the chains must be
+      finite, inside the box and of the contract's shape, and no chain's
+      log posterior may fall in the pre-optimization by more than
+      ``PREOPT_TOL``; the pre-optimization's counts, the milliseconds per
+      step and the swap acceptance are logged;
+   h. ``smc``: ``run_smc`` with what ``Chain.run_pocoMC`` passes (the
+      chain's finite log-likelihood, its state and its box) at 1024 prior,
+      256 active, 512 effective particles, ``n_total`` 1024, 1024 evidence
+      draws and 6 iterations; the samples must be finite and inside the
+      box, the weights sum to 1 and ``logz`` be finite; each iteration's
+      beta, MCMC steps, flow-fit steps and its split between flow fit, MCMC
+      and host are logged; then a known-evidence problem on the card (a
+      normalized 17-d correlated Gaussian likelihood well inside the unit
+      box, ``KE_KNOBS``, run to ``n_total``): the importance-sampling
+      estimate must land within ``KE_SIGMAS`` of its (khat-calibrated)
+      errors plus ``KE_SLACK`` of the log evidence; the selected ``logz``
+      and the persistent-sampling estimate are logged against it;
    then trains an emulator with ``parameterTrafoPCA=True`` on the card (a
    synthetic 20-parameter design in the flagship's layout, 500 events),
    holds its predict, predict_pc_raw and predict_pc_raw_fastgrad on 64
@@ -71,8 +102,9 @@ It imports nothing of JAX or the JAX package.  In order it
       walkers against the gate, then ``run_mcmc`` (1024 walkers, 4 + 4
       steps); it must launch the wide route at (512, 1088) and never the
       cluster route;
-6. prints the kernel table as one JSON line, the card's name and power
-   limit, and as its last line ``{"ok": true, "device": {...}}``.
+6. prints the kernel table as one JSON line (launches summed over the
+   eight paths), the card's name and power limit, and as its last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last
 line.  Without CUDA, or outside the repository, it exits non-zero at once.
@@ -198,6 +230,48 @@ AUTO_GATE = 0.02
 # much: the default's mean acceptance against the full-precision run at the
 # same walkers, seed and steps
 MAX_ACCEPT_DROP = 0.10
+# path f, HMC with n_leapfrog="auto" on the flagship: the probe's depth is
+# cut (l_max 8 and 16 probe steps, against 16 and 64: 128 probe gradients
+# against 1024), the walkers and widths are the flagship's
+AUTOL_WALKERS = 256
+AUTOL_LMAX = 8
+AUTOL_PROBE = 16
+AUTOL_BURN = 8         # warmup steps per phase
+AUTOL_STEPS = 8        # production steps of each of the three runs
+# path g, PTLMC with the JAX package's Chain defaults (16 cold chains, 50
+# tempered, maxtemp 100, 1000 start points), cut in depth only
+PT_WALKERS = 16
+PT_TEMPS = 50
+PT_MAXTEMP = 100.0
+PT_STARTS = 1000
+PT_STEPS = 16          # with gradients: 32 tuning + 16 production steps
+PT_STEPS_NOGRAD = 8
+# the pre-optimization only accepts steps that raise the log posterior, so
+# each chain's optimum is at least its start in exact arithmetic; the two
+# are float32 evaluations of the posterior in different batches, each
+# within AUTO_GATE of float64 (path a), so they may disagree by twice that
+PREOPT_TOL = 2 * AUTO_GATE
+# path h, SMC as Chain.run_pocoMC calls it on the flagship, cut in depth
+# (6 iterations, and particle counts below run_pocoMC's defaults of 2000 /
+# 250 / 1000 / 5000 / 5000)
+SMC_FLAGSHIP = dict(n_prior=1024, n_active=256, n_effective=512, n_total=1024,
+                    n_evidence=1024, max_iterations=6)
+# the known-evidence problem on the card (utils/synthetic.py::
+# gaussian_evidence_problem): a normalized 17-d correlated Gaussian
+# likelihood (standard deviations 0.05-0.1, |correlations| <= 0.33, means
+# 0.4-0.6: at least 4.3 standard deviations inside the unit box), so
+# log Z = log(mass inside) = -1.2e-5 under the uniform prior; the run
+# goes to n_total
+KE_NDIM = 17
+# Depth cut: the cold flow fit at 150 steps and the warm ones at 75 (the
+# defaults 300 and 100), since each AdamW step costs about 30 ms of host
+# dispatch on the card (H100, PR 8) and the run takes 17 to 18 iterations
+KE_KNOBS = dict(n_prior=2048, n_active=512, n_effective=1024, n_total=2048,
+                n_evidence=4096, flow_fit_steps=150)
+# |logz_is - truth| may be 3 errors (khat-inflated as the selection
+# inflates them) plus 0.05 for the float32 sums
+KE_SIGMAS = 3.0
+KE_SLACK = 0.05
 
 
 def log(*a):
@@ -721,9 +795,193 @@ def ensemble_run(chain, label, burn, steps):
         raise SystemExit(f"{label}: run_mcmc produced a malformed chain or non-finite log-probs")
 
 
+def hmc_auto_resume(chain, tmp):
+    """Path f: run_hmc with n_leapfrog="auto" on the flagship posterior,
+    then a warm start with no chain file and a resume with a warm start;
+    the chain file must grow from AUTOL_STEPS to 2 AUTOL_STEPS steps and
+    neither continuation may run a warmup step.  Logs the probe's
+    gradients per second."""
+    import pickle
+
+    import torch
+
+    from gpbayestools_hic_tpu_torch.samplers import hmc as phmc
+
+    phases, real = [], phmc._mh_phase
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        phases.append((kw.get("probe", False), kw["nsteps"], kw["n_leapfrog"],
+                       time.perf_counter() - t0))
+        return out
+
+    log_post, state = chain.posterior_with_state()
+    phmc._mh_phase = timed
+    try:
+        t0 = time.perf_counter()
+        res = phmc.run_hmc(log_post, chain.random_pos(AUTOL_WALKERS, seed=3), AUTOL_STEPS, 3,
+                           state=state, lo=chain.min, hi=chain.max, n_leapfrog="auto",
+                           l_max=AUTOL_LMAX, probe_steps=AUTOL_PROBE, warmup=AUTOL_BURN,
+                           scheme="auto", device=chain.device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        phmc._mh_phase = real
+    probe = [ph for ph in phases if ph[0]]
+    grads = AUTOL_PROBE * AUTOL_LMAX
+    log(f"hmc-auto-L: run_hmc, {AUTOL_WALKERS} walkers, warmup {AUTOL_BURN}/phase at L = "
+        f"{max(AUTOL_LMAX // 2, 1)}, probe {AUTOL_PROBE} steps at L = 1..{AUTOL_LMAX}: wall "
+        f"{wall:.2f} s, picked n_leapfrog {res.n_leapfrog}, scheme {res.scheme}, step size "
+        f"{res.step_size:.4f}, probe {probe[0][3]:.3f} s for {grads} gradient evaluations of "
+        f"{AUTOL_WALKERS} walkers ({grads / probe[0][3]:.1f} gradients per second)")
+    if not (1 <= res.n_leapfrog <= AUTOL_LMAX) or not np.isfinite(res.log_prob).all():
+        raise SystemExit("hmc-auto-L: bad length or non-finite log-probs")
+    t0 = time.perf_counter()
+    res2 = chain.run_MCMC_HMC(nsteps=AUTOL_STEPS, warm_start=res)
+    res3 = chain.run_MCMC_HMC(nsteps=AUTOL_STEPS, resume=True, warm_start=res2)
+    torch.cuda.synchronize()
+    with open(chain.mcmc_path, "rb") as f:
+        stored = pickle.load(f)["chain"]
+    log(f"hmc-auto-L: warm start + resume, {AUTOL_STEPS} steps each: wall "
+        f"{time.perf_counter() - t0:.2f} s, warmup steps {res2.warmup_steps} and "
+        f"{res3.warmup_steps}, chain file {stored.shape}, mean acceptance "
+        f"{float(np.mean(res2.acceptance)):.3f} and {float(np.mean(res3.acceptance)):.3f}")
+    if (res2.warmup_steps or res3.warmup_steps
+            or stored.shape != (AUTOL_WALKERS, 2 * AUTOL_STEPS, NDIM)
+            or not np.isfinite(stored).all() or not np.isfinite(res3.log_prob).all()):
+        raise SystemExit("hmc-auto-L: the continuation warmed up again, or the chain file "
+                         "did not grow as it should")
+
+
+def ptlmc_run(chain):
+    """Path g: Chain.run_MCMC_PTLMC with and without gradients; the chains
+    must be finite, inside the box and of the contract's shape, and no
+    chain's log posterior may fall in the pre-optimization beyond
+    PREOPT_TOL."""
+    import torch
+
+    for grads, nsteps in ((True, PT_STEPS), (False, PT_STEPS_NOGRAD)):
+        stats = {}
+        t0 = time.perf_counter()
+        chain.run_MCMC_PTLMC(nsteps=nsteps, nwalkers=PT_WALKERS, ntemps=PT_TEMPS,
+                             maxtemp=PT_MAXTEMP, nstartparameters=PT_STARTS,
+                             use_gradients=grads, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pre = stats["preopt"]
+        drop = float(np.max(pre["lp_before"] - pre["lp_after"]))
+        c = np.asarray(chain.chain)
+        log(f"ptlmc (use_gradients={grads}): {PT_TEMPS + PT_WALKERS} chains, "
+            f"{2 * nsteps} tuning + {nsteps} production steps: wall {wall:.2f} s; "
+            f"pre-optimization {pre['iterations']} iterations, {pre['trials']} trials, "
+            f"{pre['converged']}/{PT_TEMPS + PT_WALKERS} lanes converged, {pre['seconds']:.2f} s, "
+            f"log posterior median {np.median(pre['lp_before']):.2f} -> "
+            f"{np.median(pre['lp_after']):.2f}, largest fall {max(drop, 0.0):.2e}; jitter "
+            f"accepted {stats['jitter_accepted']} lanes; {stats['ms_per_step']:.2f} ms per "
+            f"step; swap acceptance {stats['swap_acceptance']:.3f}")
+        if drop > PREOPT_TOL:
+            raise SystemExit(f"ptlmc: the pre-optimization lowered a chain's log posterior "
+                             f"by {drop:.3g} (> {PREOPT_TOL})")
+        if (c.shape != (PT_WALKERS, nsteps, NDIM) or not np.isfinite(c).all()
+                or not np.all((c > chain.min) & (c < chain.max))):
+            raise SystemExit("ptlmc: malformed, non-finite or out-of-box chain")
+
+
+def _log_smc(label, res, its, wall):
+    for it in its:
+        log(f"{label} iter {it['iteration']}: beta {it['beta']:.5f}, {it['steps']} MCMC steps "
+            f"(accept {it['accept']:.3f}), {it['fit_steps']} flow-fit steps, flow fit "
+            f"{1e3 * it['fit_s']:.1f} ms, MCMC {1e3 * it['mcmc_s']:.1f} ms, host "
+            f"{1e3 * it['host_s']:.1f} ms")
+    fit = sum(it["fit_s"] for it in its)
+    mcmc = sum(it["mcmc_s"] for it in its)
+    host = sum(it["host_s"] for it in its)
+    log(f"{label}: {len(its)} iterations in {wall:.2f} s ({1e3 * wall / max(len(its), 1):.1f} ms "
+        f"per iteration: flow fit {1e3 * fit / max(len(its), 1):.1f}, MCMC "
+        f"{1e3 * mcmc / max(len(its), 1):.1f}, host {1e3 * host / max(len(its), 1):.1f}; the "
+        f"rest is set-up and evidence), {res['samples'].shape[0]} particles, ESS "
+        f"{res['ess']:.0f}, logz {res['logz']:.4f} +- {res['logz_err']:.4f} ({res['logz_source']}; "
+        f"PS {res['logz_ps']:.4f} +- {res['logz_err_ps']:.4f}, IS {res['logz_is']}, khat "
+        f"{res['logz_khat']}, bridge {res['logz_bridge']})")
+
+
+def smc_run(chain):
+    """Path h: run_smc as Chain.run_pocoMC calls it (the chain's finite
+    log-likelihood, its state and its box), cut in depth (SMC_FLAGSHIP);
+    then the known-evidence problem on the card."""
+    import torch
+
+    from gpbayestools_hic_tpu_torch.samplers.smc import run_smc
+
+    its = []
+    t0 = time.perf_counter()
+    res = run_smc(chain.device_fns["log_likelihood"], chain.min, chain.max,
+                  likelihood_state=chain._like_state, seed=42, device=chain.device,
+                  stats=its, **SMC_FLAGSHIP)
+    torch.cuda.synchronize()
+    _log_smc("smc (flagship)", res, its, time.perf_counter() - t0)
+    x, w = res["samples"], res["weights"]
+    if (not np.isfinite(x).all() or not np.all((x >= chain.min) & (x <= chain.max))
+            or abs(w.sum() - 1.0) > 1e-9 or not np.isfinite(res["logz"])):
+        raise SystemExit("smc: non-finite or out-of-box samples, weights not summing to 1, "
+                         "or a non-finite logz")
+    known_evidence(chain.device)
+
+
+def known_evidence(device):
+    """SMC on the card to n_total on a normalized 17-d correlated Gaussian
+    likelihood well inside the unit box (KE_KNOBS).  The importance-sampling
+    estimate must land within KE_SIGMAS of its errors plus KE_SLACK of the
+    truth, its error inflated as ``_select_evidence`` inflates it when the
+    weights' tail index khat exceeds 0.7.  The selected ``logz`` and the
+    persistent-sampling estimate are logged against the truth: on this
+    problem the persistent-sampling estimate is biased by several units in
+    both packages (``tools/smc_evidence_gap.py``), and ``logz`` is that
+    estimate whenever the importance-sampling one does not survive the
+    3-sigma cross-check."""
+    import torch
+
+    from gpbayestools_hic_tpu_torch.samplers.smc import (
+        EVIDENCE_KHAT_ERR_INFLATE, EVIDENCE_KHAT_MAX, run_smc)
+    from gpbayestools_hic_tpu_torch.utils.synthetic import gaussian_evidence_problem
+
+    prob = gaussian_evidence_problem(KE_NDIM, seed=0)
+    truth = prob["truth"]
+    prec = torch.tensor(prob["prec"], dtype=torch.float32, device=device)
+    mean = torch.tensor(prob["mu"], dtype=torch.float32, device=device)
+    const = prob["const"]
+
+    def logl(state, x, finite):
+        r = x - mean
+        return -0.5 * ((r @ prec) * r).sum(1) + const
+
+    its = []
+    t0 = time.perf_counter()
+    res = run_smc(logl, np.zeros(KE_NDIM), np.ones(KE_NDIM), seed=0, device=device, stats=its,
+                  **KE_KNOBS)
+    torch.cuda.synchronize()
+    _log_smc("smc (known evidence)", res, its, time.perf_counter() - t0)
+    khat = res["logz_khat"]
+    err_is = res["logz_err_is"] * (EVIDENCE_KHAT_ERR_INFLATE if khat is not None
+                                   and khat > EVIDENCE_KHAT_MAX else 1.0)
+    gap = abs(res["logz_is"] - truth)
+    log(f"smc (known evidence): {KE_NDIM}-d Gaussian, {KE_KNOBS}: truth {truth:.6f}; IS "
+        f"{res['logz_is']:.4f} +- {err_is:.4f} (khat {khat}), |gap| {gap:.4f} (allowed "
+        f"{KE_SIGMAS} x err + {KE_SLACK} = {KE_SIGMAS * err_is + KE_SLACK:.4f}); logz "
+        f"{res['logz'] - truth:+.4f} +- {res['logz_err']:.4f} ({res['logz_source']}), PS "
+        f"{res['logz_ps'] - truth:+.4f} +- {res['logz_err_ps']:.4f}, bridge "
+        f"{(res['logz_bridge'] or float('nan')) - truth:+.4f} against the truth")
+    if gap > KE_SIGMAS * err_is + KE_SLACK:
+        raise SystemExit("smc: the importance-sampling evidence misses the known evidence "
+                         "beyond its error")
+
+
 def drive_paths(chain, tmp, on_paths):
-    """The four paths, each between a reset and a reading of the launch
-    counts; adds the kernels each path must launch to ``on_paths``.
+    """The seven paths on the flagship chain (a-d, f-h), each between a
+    reset and a reading of the launch counts; adds the kernels each path
+    must launch to ``on_paths``.
     Returns ``{path: {kernel: launches}}``."""
     from gpbayestools_hic_tpu_torch.ops import registry
     from gpbayestools_hic_tpu_torch.utils.validation import f64_log_posterior
@@ -758,11 +1016,23 @@ def drive_paths(chain, tmp, on_paths):
         accept["high"] = hmc_run(chain, "grad_precision=high", HIGH_WALKERS, HIGH_BURN,
                                  HIGH_STEPS)
 
+    def default_precision():
+        for e in chain.emuList:
+            e.gp_grad_precision = "default"
+            e.gp_config = e.gp_config._replace(grad_precision="default")
+
+    def hmc_auto():
+        default_precision()
+        hmc_auto_resume(chain, tmp)
+
     paths = (
         ("auto+hmc", auto_hmc, ("fused_predict_fwd", "fused_predict_bwd")),
         ("generic+ensemble", generic, ("fused_mvn_loglike",)),
         ("stitched+ensemble", stitched, ("fused_mvn_loglike_cluster",)),
         ("hmc grad_precision=high", hmc_high, ("fused_predict_fwd", "fused_predict_bwd_high")),
+        ("hmc-auto-L+resume", hmc_auto, ("fused_predict_fwd", "fused_predict_bwd")),
+        ("ptlmc", lambda: ptlmc_run(chain), ("fused_predict_fwd", "fused_predict_bwd")),
+        ("smc", lambda: smc_run(chain), ("fused_predict_fwd",)),
     )
     counts = {}
     for name, run, kernels in paths:
@@ -780,6 +1050,8 @@ def drive_paths(chain, tmp, on_paths):
             raise SystemExit(f"path {name} never launched {missing}")
     if counts["hmc grad_precision=high"]["fused_predict_bwd"] != 0:
         raise SystemExit("grad_precision='high' still ran the fast backward")
+    if any(counts[p]["fused_predict_bwd_high"] for p in ("hmc-auto-L+resume", "ptlmc")):
+        raise SystemExit("paths f and g ran the full-precision backward, not the fast one")
     log(f"HMC mean acceptance at {HIGH_WALKERS} walkers, same seed and steps: "
         f"grad_precision=default {accept['default']:.3f}, high {accept['high']:.3f} "
         f"(the default may be at most {MAX_ACCEPT_DROP} below)")
@@ -1121,7 +1393,7 @@ def main() -> int:
         stats["fused_mvn_loglike_panel"]["also"].insert(0, flagship_wide)
         counts.update(drive_wide_path(wide, tmp))
     launches = {k: sum(c[k] for c in counts.values()) for k in registry.KERNELS}
-    log(f"kernel launches over the five paths: {launches}")
+    log(f"kernel launches over the eight paths: {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     missing = [k for k in on_paths if launches[k] == 0]
     if missing:

@@ -9,8 +9,9 @@ Layering (mirrors the JAX package):
   ops/       -- kernels, linalg, scalers/PCA, the fused GP-predict and MVN
                 kernels and their registry
   models/    -- batched GP, Emulator
-  samplers/  -- Chain (calibration posterior), ensemble sampler, HMC
-  utils/     -- IO contracts, convergence metrics, synthetic problems,
+  samplers/  -- Chain (calibration posterior), ensemble sampler, HMC,
+                PTLMC, flow-preconditioned SMC
+  utils/     -- IO contracts, convergence metrics, priors, synthetic problems,
                 the float64 posterior oracle
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

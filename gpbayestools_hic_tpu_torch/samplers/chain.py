@@ -19,17 +19,20 @@ PyTorch port of the JAX package's ``samplers/chain.py``:
   :func:`..ops.fused_mvn.mvn_loglike_best`;
 - ``run_mcmc``: the ensemble sampler with emcee semantics (two-phase
   burn-in, top-lnprob resample, thinning, resume-by-append);
+- ``run_MCMC_HMC`` (with ``n_leapfrog="auto"``, ``warm_start`` and
+  ``resume``), ``run_MCMC_PTLMC`` (parallel-tempered Langevin MC) and
+  ``run_pocoMC`` (flow-preconditioned SMC with its evidence);
 - chain pickle contract ``{"chain": (nwalkers, nsteps, ndim)}``.
 
-Not ported yet (they raise ``NotImplementedError``): the PTLMC and SMC
-samplers, HMC ``resume``/``warm_start``/``n_leapfrog="auto"``, and device
-meshes (``devices=``/``mesh=``) on every sampler (see ROADMAP.md).
+Device meshes (``devices=``/``mesh=``) are not ported: every sampler
+raises ``NotImplementedError`` on them (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import logging
 import pickle
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -52,6 +55,20 @@ def _not_ported(what: str):
         f"{what} is not ported to the PyTorch package yet (see ROADMAP.md); "
         "the JAX package gpbayestools_hic_tpu has it"
     )
+
+
+def warm_fallback_seed(seed: int, final_state) -> int:
+    """Seed of a warm-started HMC run with no chain file: the CRC32 of the
+    warm start's final state, folded into ``(seed, 1 << 21)`` by
+    :func:`.ensemble.derive_seed`, so chained continuations with one seed
+    (run 2 from run 1, run 3 from run 2) draw distinct momenta, and the
+    same pair always gives the same stream.  (A resumed chain folds its
+    stored length in as ``(1 << 20) + len`` instead.)"""
+    from .ensemble import derive_seed
+
+    fs = np.ascontiguousarray(np.asarray(final_state, dtype=np.float64))
+    tag = zlib.crc32(fs.tobytes()) & 0x7FFFFFFF
+    return derive_seed(derive_seed(seed, 1 << 21), tag)
 
 
 def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
@@ -658,7 +675,7 @@ class Chain:
         nsteps: int = 500,
         nwalkers: int = 256,
         nburnsteps: int | str = "auto",
-        n_leapfrog: int | None = None,
+        n_leapfrog: int | str | None = None,
         nthin: int = 1,
         seed: int = 0,
         target_accept: float = 0.8,
@@ -677,25 +694,64 @@ class Chain:
         Same knobs and defaults as the JAX package: ``nburnsteps`` is the
         per-phase warmup length (``"auto"``: each adaptation phase stops
         itself once the step size has settled with acceptance on target),
-        ``n_leapfrog=None`` means 8, ``scheme="auto"`` picks windowed HMC
-        with persistent momentum at adapted acceptance >= 0.75 and endpoint
-        MH otherwise, ``warmup_walkers="auto"`` adapts on
-        ``min(256, nwalkers)`` walkers.  Writes ``{"chain": (nwalkers,
-        ceil(nsteps/nthin), ndim)}`` to ``mcmc_path``.
+        ``n_leapfrog=None`` means 8 for a fresh run and ``"auto"`` (the
+        warm start's length) with a ``warm_start``, ``scheme="auto"`` picks
+        windowed HMC with persistent momentum at adapted acceptance >= 0.75
+        and endpoint MH otherwise, ``warmup_walkers="auto"`` adapts on
+        ``min(256, nwalkers)`` walkers.
+
+        ``resume=True`` continues the chain pickle at ``mcmc_path``: the
+        walkers restart from its last samples (the file's walker count
+        wins) and the thinned samples are appended.  ``warm_start`` (an
+        :class:`.hmc.HMCResult` on this posterior) skips every adaptation
+        phase; with no chain pickle the walkers start from its final state
+        (logged as a warning when ``resume=True``).  Writes ``{"chain":
+        (nwalkers, ceil(nsteps/nthin), ndim)}`` to ``mcmc_path``.
         """
+        from .ensemble import derive_seed
         from .hmc import run_hmc
 
         if devices is not None or mesh is not None:
             raise _not_ported("multi-device HMC (devices=/mesh=)")
-        if resume or warm_start is not None:
-            raise _not_ported("HMC resume / warm_start")
         if n_leapfrog is None:
-            n_leapfrog = 8
-        if isinstance(n_leapfrog, str):
-            raise _not_ported('n_leapfrog="auto"')
+            n_leapfrog = "auto" if warm_start is not None else 8
         logger.info("Starting HMC ...")
+        chain_data = {}
+        if resume:
+            try:
+                with open(self.mcmc_path, "rb") as f:
+                    chain_data = pickle.load(f)
+            except FileNotFoundError:
+                pass
         log_post, like_state = self.posterior_with_state()
-        x0 = self.random_pos(nwalkers, seed=seed)
+        if "chain" in chain_data:
+            prev = np.asarray(chain_data["chain"])
+            self._validate_resume_chain(prev)
+            logger.info("restarting from last point of existing chain")
+            nwalkers = prev.shape[0]
+            x0 = prev[:, -1, :]
+            # a resumed run with the same seed must not replay the fresh
+            # run's momenta: fold the stored length in
+            run_seed = derive_seed(seed, (1 << 20) + prev.shape[1])
+        elif warm_start is not None:
+            # no warmup runs under warm_start, so prior draws would go
+            # straight into the chain: continue from the final walkers
+            if resume:
+                logger.warning(
+                    "resume=True but no chain found at %s; continuing from "
+                    "warm_start's final walker positions", self.mcmc_path,
+                )
+            x0 = np.asarray(warm_start.final_state)
+            if x0.ndim != 2 or x0.shape[1] != self.ndim:
+                raise ValueError(
+                    f"warm_start.final_state has shape {x0.shape}, "
+                    f"expected (nwalkers, {self.ndim})"
+                )
+            nwalkers = x0.shape[0]
+            run_seed = warm_fallback_seed(seed, x0)
+        else:
+            x0 = self.random_pos(nwalkers, seed=seed)
+            run_seed = seed
         if isinstance(warmup_walkers, str):
             if warmup_walkers != "auto":
                 raise ValueError(
@@ -704,16 +760,165 @@ class Chain:
                 )
             warmup_walkers = min(256, nwalkers)
         res = run_hmc(
-            log_post, x0, nsteps, seed,
+            log_post, x0, nsteps, run_seed,
             state=like_state, lo=self.min, hi=self.max,
             n_leapfrog=n_leapfrog, warmup=nburnsteps,
             target_accept=target_accept, traj_jitter=traj_jitter,
-            scheme=scheme, window=window, persist=persist,
+            warm_start=warm_start, scheme=scheme, window=window, persist=persist,
             warmup_walkers=warmup_walkers, device=self.device, dtype=self._dtype,
         )
         logger.info(
             "HMC: step size %.4f, n_leapfrog %d, mean accept %.3f",
             res.step_size, res.n_leapfrog, float(np.mean(res.acceptance)),
         )
-        self._append_and_write_chain({}, res.chain, nthin)
+        self._append_and_write_chain(chain_data, res.chain, nthin)
         return res
+
+    # ---------------------------------------------------------------- PTLMC
+
+    def run_MCMC_PTLMC(
+        self,
+        nsteps: int = 500,
+        nwalkers: int = 16,
+        ntemps: int = 50,
+        maxtemp: float = 100.0,
+        nstartparameters: int = 1000,
+        seed: int = 0,
+        use_gradients: bool = False,
+        devices: int | None = None,
+        mesh=None,
+        stats: dict | None = None,
+    ):
+        """Parallel-tempered Langevin MC (:func:`.ptlmc.run_ptlmc`), with the
+        JAX package's knobs.  ``use_gradients=True`` turns on the Langevin
+        drift.  Writes ``{"chain": (nwalkers, nsteps, ndim)}`` (the
+        ``T = 1`` chains) to ``mcmc_path``.  ``stats``, when given,
+        receives the run's counts and timings."""
+        from .ptlmc import run_ptlmc
+
+        if devices is not None or mesh is not None:
+            raise _not_ported("multi-device PTLMC (devices=/mesh=)")
+        logger.info("Starting MCMC ...")
+        log_post, like_state = self.posterior_with_state()
+        theta = run_ptlmc(
+            log_post,
+            lambda n: self.random_pos(n, seed=seed),
+            numtemps=ntemps,
+            numchain=nwalkers,
+            sampperchain=nsteps,
+            maxtemp=maxtemp,
+            nstartparameters=nstartparameters,
+            seed=seed,
+            state=like_state,
+            use_gradients=use_gradients,
+            device=self.device,
+            dtype=self._dtype,
+            stats=stats,
+        )
+        self.chain = np.asarray(theta).reshape((nwalkers, nsteps, self.ndim))
+        logger.info("Writing MCMC chains to file...")
+        with open(self.mcmc_path, "wb") as f:
+            pickle.dump({"chain": self.chain}, f)
+
+    # ----------------------------------------------------------------- SMC
+
+    def smc_checkpoint_path(self) -> Path:
+        """``<stem>_smc_checkpoint.pkl`` beside ``mcmc_path``: two chains in
+        one directory keep separate checkpoints."""
+        return self.mcmc_path.with_name(f"{self.mcmc_path.stem}_smc_checkpoint.pkl")
+
+    def run_pocoMC(
+        self,
+        n_effective: int = 1000,
+        n_active: int = 250,
+        n_prior: int = 2000,
+        sample: str = "tpcn",
+        n_max_steps: int = 200,
+        random_state: int = 42,
+        n_total: int = 5000,
+        n_evidence: int = 5000,
+        pool=None,
+        prior=None,
+        devices: int | None = None,
+        mesh=None,
+        resume: bool = False,
+        checkpoint: bool = True,
+        **smc_kwargs,
+    ):
+        """Flow-preconditioned SMC with pocoMC semantics
+        (:func:`.smc.run_smc`), with the JAX package's knobs.
+
+        ``prior``: ``None`` (the uniform box), a list of frozen scipy
+        distributions (or an object with ``dists``), converted to a
+        :class:`..utils.priors.ScipyPrior`, or an object with
+        ``log_prior_torch``; anything else is refused.  An integer ``pool``
+        is logged and ignored (one card).  ``checkpoint`` writes the
+        sampler state after every iteration to
+        :meth:`smc_checkpoint_path`; ``resume=True`` continues from it,
+        bit for bit the uninterrupted run.  Further keyword arguments go
+        to :func:`.smc.run_smc` (``max_iterations``, the flow budget, the
+        evidence proposal).  Writes the chain dict (``chain, weights,
+        logl, logp, logz, logz_err`` and every evidence estimate) to
+        ``mcmc_path`` and returns it.
+        """
+        from ..utils.priors import ScipyPrior
+        from .smc import run_smc
+
+        if resume and not checkpoint:
+            raise ValueError(
+                "resume=True requires checkpoint=True (the resume state "
+                "is the checkpoint file)"
+            )
+        if devices is not None or mesh is not None:
+            raise _not_ported("multi-device SMC (devices=/mesh=)")
+        if isinstance(pool, int) and pool > 1:
+            logger.info("pool=%d ignored: the port runs the particles on one device", pool)
+        if prior is not None and not hasattr(prior, "log_prior_torch"):
+            if isinstance(prior, (list, tuple)):
+                prior = ScipyPrior(prior)
+            elif hasattr(prior, "dists"):
+                prior = ScipyPrior(prior.dists)
+        if prior is not None and getattr(prior, "dim", self.ndim) != self.ndim:
+            raise ValueError("prior.dim does not match the model parameter space")
+
+        logger.info("Starting preconditioned SMC ...")
+        result = run_smc(
+            self.device_fns["log_likelihood"],
+            self.min,
+            self.max,
+            likelihood_state=self._like_state,
+            n_effective=n_effective,
+            n_active=n_active,
+            n_prior=n_prior,
+            sample=sample,
+            n_max_steps=n_max_steps,
+            n_total=n_total,
+            n_evidence=n_evidence,
+            seed=random_state,
+            custom_prior=prior,
+            checkpoint_path=self.smc_checkpoint_path() if checkpoint else None,
+            resume=resume,
+            device=self.device,
+            dtype=self._dtype,
+            **smc_kwargs,
+        )
+        logger.info("Log evidence: %s", result["logz"])
+        logger.info("Log evidence error: %s", result["logz_err"])
+        chain_data = {
+            "chain": np.asarray(result["samples"]),
+            "weights": np.asarray(result["weights"]),
+            "logl": np.asarray(result["logl"]),
+            "logp": np.asarray(result["logp"]),
+        }
+        chain_data.update({k: result[k] for k in _EVIDENCE_KEYS})
+        self.chain = chain_data["chain"]
+        with open(self.mcmc_path, "wb") as f:
+            pickle.dump(chain_data, f)
+        return chain_data
+
+
+# the evidence entries of run_pocoMC's chain dict, as the JAX package writes them
+_EVIDENCE_KEYS = (
+    "logz", "logz_err", "logz_ps", "logz_err_ps", "logz_source", "logz_is",
+    "logz_err_is", "logz_khat", "logz_bridge", "logz_err_bridge",
+)

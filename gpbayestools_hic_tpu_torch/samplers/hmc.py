@@ -19,12 +19,18 @@ PyTorch port of the JAX package's ``samplers/hmc.py`` on the path that
   multinomial baseline; ``scheme="auto"`` picks windowed + persist 0.7 at
   adapted acceptance >= 0.75 and MH otherwise.
 - ``warmup_walkers`` adapts on a walker subset and tiles it up.
+- ``n_leapfrog="auto"`` calibrates the production trajectory length: a
+  probe phase runs walker ``w`` at step ``s`` with length
+  ``1 + ((w + s) mod l_max)`` and :func:`_select_leapfrog` picks the
+  length with the most effective samples per gradient.
+- ``warm_start`` reuses a previous run's metric, step size and length and
+  skips every adaptation phase.
 
 The JAX sampler is one compiled ``lax.scan``; here each phase is a Python
 loop over steps, with every random draw taken from one explicitly seeded
 ``torch.Generator``.  The transition functions take their random inputs
 as arguments, so a single step can be checked against a transcription.
-Not ported yet: ``n_leapfrog="auto"``, ``warm_start``, device meshes.
+Device meshes are not ported (``Chain`` raises on ``devices=``/``mesh=``).
 """
 
 from __future__ import annotations
@@ -145,6 +151,47 @@ def mh_transition(vg, u, lp_u, lp_x, g, e, p0, L, n_leapfrog, log_unif):
     )
 
 
+def probe_transition(vg, u, lp_u, lp_x, g, e, p0, step, l_max, log_unif):
+    """One probe step of ``n_leapfrog="auto"``: :func:`mh_transition` with
+    walker ``w`` at the rotating length ``1 + ((w + step) mod l_max)``, so
+    every length is probed with any walker count and each transition is
+    attributable to one length (:func:`_select_leapfrog`)."""
+    L = 1 + (torch.arange(u.shape[0], device=u.device) + step) % l_max
+    return mh_transition(vg, u, lp_u, lp_x, g, e, p0, L, l_max, log_unif)
+
+
+def _select_leapfrog(us: np.ndarray, l_max: int) -> int:
+    """Pick the trajectory length maximizing effective samples per gradient.
+
+    ``us``: probe-phase u-space chain (nsteps, nwalkers, ndim); the
+    transition into ``us[s]`` ran walker ``w`` at length ``1 + ((w + s)
+    mod l_max)``.  Each length is scored by the AR(1) mixing rate per
+    gradient of its worst coordinate, ``min_d (1 - rho_1[d]) / ((1 +
+    rho_1[d]) L)``, with the lag-1 autocorrelation pooled over the
+    transitions of that length.  Lengths with fewer than 8 lag pairs are
+    ignored; if every length is starved, ``max(l_max // 2, 1)``.  A copy
+    of the JAX package's function (host numpy).
+    """
+    us = np.asarray(us, np.float64)
+    nsteps, nwalkers, _ = us.shape
+    c = us - us.mean(axis=(0, 1))
+    a, b = c[:-1], c[1:]
+    grp = (np.arange(nwalkers)[None, :] + np.arange(1, nsteps)[:, None]) % l_max
+    score = np.full(l_max + 1, -np.inf)
+    for L in range(1, l_max + 1):
+        mask = grp == L - 1
+        if mask.sum() < 8:
+            continue
+        m3 = mask[:, :, None]
+        num = np.sum(a * b * m3, axis=(0, 1))
+        den = np.sqrt(np.sum(a**2 * m3, axis=(0, 1)) * np.sum(b**2 * m3, axis=(0, 1)))
+        rho = np.clip(num / np.maximum(den, 1e-300), -0.999, 0.999)
+        score[L] = np.min((1.0 - rho) / ((1.0 + rho) * L))
+    if not np.isfinite(score).any():
+        return max(l_max // 2, 1)
+    return int(np.argmax(score))
+
+
 def trajectory_transition(vg, u, p_prev, lp_u, lp_x, g, e, xi, s, gumbel_u,
                           acc_u, *, n_leapfrog, window, persist):
     """One windowed (``window > 0``) or multinomial (``window == 0``) HMC
@@ -242,12 +289,14 @@ def _uniform(gen, shape, dtype, device, lo=0.0, hi=1.0):
 
 
 def _mh_phase(vg, tf, bounded, u0, gen, log_eps0, *, nsteps, n_leapfrog,
-              adapt, target_accept, traj_jitter, da0=None):
+              adapt, target_accept, traj_jitter, da0=None, probe=False):
     """``nsteps`` endpoint-MH steps from ``u0``.
 
     Returns ``(xs (nsteps, m, d), lp_x (nsteps, m), acc (nsteps,), u_final,
     da)`` with ``da = (hbar, log_eps, log_eps_bar, t)`` the dual-averaging
-    state (with ``adapt=False`` the step size stays ``log_eps0``).
+    state (with ``adapt=False`` the step size stays ``log_eps0``).  With
+    ``probe`` the steps are :func:`probe_transition`s at ``l_max =
+    n_leapfrog`` and ``xs`` holds the u-space positions.
     """
     dtype, dev = u0.dtype, u0.device
     u = u0
@@ -256,18 +305,23 @@ def _mh_phase(vg, tf, bounded, u0, gen, log_eps0, *, nsteps, n_leapfrog,
     hbar, log_eps, log_eps_bar, t = da0 if da0 is not None else (0.0, log_eps0, log_eps0, 0.0)
     m = u.shape[0]
     xs, lps, accs = [], [], []
-    for _ in range(nsteps):
+    for step in range(nsteps):
         e = math.exp(log_eps) * _uniform(gen, (m, 1), dtype, dev, 0.9, 1.1)
         p0 = torch.randn(u.shape, generator=gen, dtype=dtype, device=dev)
-        if traj_jitter > 0:
+        if traj_jitter > 0 and not probe:
             lo_L = max(n_leapfrog - traj_jitter, 1)
             L = torch.randint(lo_L, n_leapfrog + 1, (m,), generator=gen, device=dev)
         else:
             L = None
         log_unif = torch.log(_uniform(gen, (m,), dtype, dev))
-        u, lp_u, lp_x, g, acc_prob = mh_transition(
-            vg, u, lp_u, lp_x, g, e, p0, L, n_leapfrog, log_unif
-        )
+        if probe:
+            u, lp_u, lp_x, g, acc_prob = probe_transition(
+                vg, u, lp_u, lp_x, g, e, p0, step, n_leapfrog, log_unif
+            )
+        else:
+            u, lp_u, lp_x, g, acc_prob = mh_transition(
+                vg, u, lp_u, lp_x, g, e, p0, L, n_leapfrog, log_unif
+            )
         acc = float(acc_prob)
         if adapt:
             t = t + 1.0
@@ -275,7 +329,7 @@ def _mh_phase(vg, tf, bounded, u0, gen, log_eps0, *, nsteps, n_leapfrog,
             log_eps = mu_da - math.sqrt(t) / 0.05 * hbar
             w = t**-0.75
             log_eps_bar = w * log_eps + (1 - w) * log_eps_bar
-        xs.append(_u_to_x(u, tf, bounded)[0])
+        xs.append(u if probe else _u_to_x(u, tf, bounded)[0])
         lps.append(lp_x)
         accs.append(acc)
     return (torch.stack(xs), torch.stack(lps), np.asarray(accs), u,
@@ -374,13 +428,16 @@ def run_hmc(
     state=None,
     lo=None,
     hi=None,
-    n_leapfrog: int = 8,
+    n_leapfrog: int | str = 8,
     warmup: int | str = 128,
     warmup_leapfrog: int | None = None,
     warmup_walkers: int | None = None,
     eps0: float = 0.1,
     target_accept: float = 0.8,
     traj_jitter: int = 1,
+    l_max: int = 16,
+    probe_steps: int = 64,
+    warm_start: HMCResult | None = None,
     scheme: str = "mh",
     window: int | None = None,
     persist: float = 0.0,
@@ -398,27 +455,47 @@ def run_hmc(
     (warmup at ``max(n_leapfrog // 2, 1)`` leapfrog steps unless
     ``warmup_leapfrog`` is given; ``traj_jitter`` draws per-walker lengths
     from ``{max(L - traj_jitter, 1), ..., L}``; ``window`` defaults to
-    ``min(2, (L + 1) // 2)``).  All randomness comes from one generator
-    seeded with ``seed`` on ``device`` (default CUDA).
+    ``min(2, (L + 1) // 2)``).
+
+    ``n_leapfrog="auto"``: warmup runs at ``max(l_max // 2, 1)``, then a
+    probe of ``probe_steps`` steps at the rotating lengths ``1 .. l_max``
+    picks the production length (:func:`_select_leapfrog`, reported as
+    ``result.n_leapfrog``).  An explicit ``window`` is checked for
+    ``window >= 1`` before any warmup runs; its upper limit ``2 window <=
+    L + 1`` is checked once ``L`` is known.
+
+    ``warm_start``: an :class:`HMCResult` of an earlier run on the same
+    posterior.  Its metric, step size and (under ``"auto"``) length are
+    reused and every adaptation phase is skipped (``warmup_steps == 0``);
+    ``scheme="auto"`` decides on its production acceptance.  An integer
+    ``n_leapfrog`` overrides its length.
+
+    All randomness comes from one generator seeded with ``seed`` on
+    ``device`` (default CUDA).
     """
     if scheme not in ("mh", "multinomial", "windowed", "auto"):
         raise ValueError(
             f"scheme must be 'auto', 'mh', 'windowed', or 'multinomial', "
             f"got {scheme!r}"
         )
-    if isinstance(n_leapfrog, str):
-        raise NotImplementedError(
-            'n_leapfrog="auto" is not ported to the PyTorch package yet '
-            "(see ROADMAP.md)"
-        )
     if not 0.0 <= persist < 1.0:
         raise ValueError(f"persist must be in [0, 1), got {persist}")
     if persist > 0.0 and scheme not in ("windowed", "auto"):
         raise ValueError("persist > 0 requires scheme='windowed' (or 'auto')")
-    n_leapfrog = int(n_leapfrog)
-    if scheme == "windowed" or (scheme == "auto" and window is not None):
-        w_eff = window if window is not None else min(2, (n_leapfrog + 1) // 2)
-        if w_eff < 1 or 2 * w_eff > n_leapfrog + 1:
+    auto_l = isinstance(n_leapfrog, str)
+    if auto_l and n_leapfrog != "auto":
+        raise ValueError(f"n_leapfrog must be an int or 'auto', got {n_leapfrog!r}")
+    if auto_l and l_max < 1:
+        raise ValueError(f"l_max must be >= 1, got {l_max}")
+    windowed_asked = scheme == "windowed" or (scheme == "auto" and window is not None)
+    if windowed_asked and auto_l:
+        # the length is not known before the probe, but a window below 1
+        # fails whatever it picks: refuse before any warmup runs
+        if window is not None and window < 1:
+            raise ValueError(f"window={window} needs 1 <= window")
+    elif windowed_asked:
+        w_eff = window if window is not None else min(2, (int(n_leapfrog) + 1) // 2)
+        if w_eff < 1 or 2 * w_eff > int(n_leapfrog) + 1:
             raise ValueError(
                 f"window={w_eff} needs 1 <= window and 2*window <= "
                 f"n_leapfrog + 1 (n_leapfrog={n_leapfrog})"
@@ -426,8 +503,11 @@ def run_hmc(
     auto_warmup = isinstance(warmup, str)
     if auto_warmup and warmup != "auto":
         raise ValueError(f"warmup must be an int or 'auto', got {warmup!r}")
-    if not auto_warmup and int(warmup) < 1:
-        raise ValueError(f"warmup must be >= 1 (got {warmup})")
+    if not auto_warmup and int(warmup) < 1 and warm_start is None:
+        raise ValueError(
+            f"warmup must be >= 1 (got {warmup}); to skip adaptation pass "
+            "warm_start= from a previous HMCResult"
+        )
     if state is None:
         fn = log_prob_fn
 
@@ -438,12 +518,15 @@ def run_hmc(
     dtype = resolve_dtype(dtype)
     x0 = np.asarray(x0.detach().cpu() if torch.is_tensor(x0) else x0, dtype=np.float64)
     nwalkers, ndim = x0.shape
-    if warmup_leapfrog is not None:
+    if auto_l:
+        # the adapted step size must carry over to probe lengths up to l_max
+        l_warm = max(l_max // 2, 1)
+    elif warmup_leapfrog is not None:
         l_warm = int(warmup_leapfrog)
         if l_warm < 1:
             raise ValueError(f"warmup_leapfrog must be >= 1, got {warmup_leapfrog}")
     else:
-        l_warm = max(n_leapfrog // 2, 1)
+        l_warm = max(int(n_leapfrog) // 2, 1)
     n_warm_walk = nwalkers if warmup_walkers is None else int(warmup_walkers)
     if not 1 <= n_warm_walk <= nwalkers:
         raise ValueError(
@@ -466,49 +549,80 @@ def run_hmc(
     def vg_of(tf):
         return make_value_and_grad(log_prob_fn, state, tf, bounded)
 
-    # ---- phase A: identity metric, adapt eps, estimate the metric
-    mu0, chol0 = np.zeros(ndim), np.eye(ndim)
-    tf = tf_of(mu0, chol0)
-    u0 = t(_x_to_u(x0[:n_warm_walk], lo_np, width_np, mu0, chol0))
-    log_eps0 = math.log(eps0)
-    if auto_warmup:
-        xs_np, _, log_eps, n_done, _ = _adaptive_phase(
-            vg_of(tf), tf, bounded, u0, gen, log_eps0, n_leapfrog=l_warm,
-            target_accept=target_accept, traj_jitter=traj_jitter,
-        )
+    if warm_start is not None:
+        # ---- reuse an earlier run's adaptation: no warmup phase runs
+        mu_z = np.asarray(warm_start.precond_mu, np.float64)
+        chol_z = np.asarray(warm_start.precond_chol, np.float64)
+        if mu_z.shape != (ndim,) or chol_z.shape != (ndim, ndim):
+            raise ValueError(
+                f"warm_start metric is for ndim={mu_z.shape[0]}, x0 has ndim={ndim}"
+            )
+        tf = tf_of(mu_z, chol_z)
+        vg = vg_of(tf)
+        uf = t(_x_to_u(x0, lo_np, width_np, mu_z, chol_z))
+        log_eps = math.log(warm_start.step_size)
+        n_warm_total = 0
+        # the earlier run's production acceptance stands in for the
+        # adapted one in the scheme="auto" choice
+        adapted_acc = float(np.mean(np.asarray(warm_start.acceptance)))
+        if auto_l:
+            n_leapfrog = int(warm_start.n_leapfrog)
     else:
-        xs, _, _, _, da = _mh_phase(
-            vg_of(tf), tf, bounded, u0, gen, log_eps0, nsteps=int(warmup),
-            n_leapfrog=l_warm, adapt=True, target_accept=target_accept,
-            traj_jitter=traj_jitter,
-        )
-        xs_np, n_done, log_eps = xs.cpu().numpy(), int(warmup), da[2]
-    half = xs_np[n_done // 2:].reshape(-1, ndim).astype(np.float64)
-    z = _x_to_u(half, lo_np, width_np, mu0, chol0)
-    mu_z = z.mean(0)
-    cov_z = np.atleast_2d(np.cov(z.T)) + 1e-10 * np.eye(ndim)
-    chol_z = np.linalg.cholesky(cov_z)
+        # ---- phase A: identity metric, adapt eps, estimate the metric
+        mu0, chol0 = np.zeros(ndim), np.eye(ndim)
+        tf = tf_of(mu0, chol0)
+        u0 = t(_x_to_u(x0[:n_warm_walk], lo_np, width_np, mu0, chol0))
+        log_eps0 = math.log(eps0)
+        if auto_warmup:
+            xs_np, _, log_eps, n_done, _ = _adaptive_phase(
+                vg_of(tf), tf, bounded, u0, gen, log_eps0, n_leapfrog=l_warm,
+                target_accept=target_accept, traj_jitter=traj_jitter,
+            )
+        else:
+            xs, _, _, _, da = _mh_phase(
+                vg_of(tf), tf, bounded, u0, gen, log_eps0, nsteps=int(warmup),
+                n_leapfrog=l_warm, adapt=True, target_accept=target_accept,
+                traj_jitter=traj_jitter,
+            )
+            xs_np, n_done, log_eps = xs.cpu().numpy(), int(warmup), da[2]
+        half = xs_np[n_done // 2:].reshape(-1, ndim).astype(np.float64)
+        z = _x_to_u(half, lo_np, width_np, mu0, chol0)
+        mu_z = z.mean(0)
+        cov_z = np.atleast_2d(np.cov(z.T)) + 1e-10 * np.eye(ndim)
+        chol_z = np.linalg.cholesky(cov_z)
 
-    # ---- phase B: new metric, re-adapt eps from the phase-A end state
-    tf = tf_of(mu_z, chol_z)
-    vg = vg_of(tf)
-    u0 = t(_x_to_u(xs_np[-1].astype(np.float64), lo_np, width_np, mu_z, chol_z))
-    if auto_warmup:
-        _, uf, log_eps, n_done_b, adapted_acc = _adaptive_phase(
-            vg, tf, bounded, u0, gen, log_eps, n_leapfrog=l_warm,
-            target_accept=target_accept, traj_jitter=traj_jitter,
-        )
-    else:
-        _, _, accs_b, uf, da = _mh_phase(
-            vg, tf, bounded, u0, gen, log_eps, nsteps=int(warmup),
-            n_leapfrog=l_warm, adapt=True, target_accept=target_accept,
-            traj_jitter=traj_jitter,
-        )
-        log_eps, n_done_b = da[2], int(warmup)
-        adapted_acc = float(np.mean(accs_b[-max(len(accs_b) // 4, 1):]))
-    n_warm_total = n_done + n_done_b
-    if n_warm_walk < nwalkers:
-        uf = uf[torch.arange(nwalkers, device=dev) % n_warm_walk]
+        # ---- phase B: new metric, re-adapt eps from the phase-A end state
+        tf = tf_of(mu_z, chol_z)
+        vg = vg_of(tf)
+        u0 = t(_x_to_u(xs_np[-1].astype(np.float64), lo_np, width_np, mu_z, chol_z))
+        if auto_warmup:
+            _, uf, log_eps, n_done_b, adapted_acc = _adaptive_phase(
+                vg, tf, bounded, u0, gen, log_eps, n_leapfrog=l_warm,
+                target_accept=target_accept, traj_jitter=traj_jitter,
+            )
+        else:
+            _, _, accs_b, uf, da = _mh_phase(
+                vg, tf, bounded, u0, gen, log_eps, nsteps=int(warmup),
+                n_leapfrog=l_warm, adapt=True, target_accept=target_accept,
+                traj_jitter=traj_jitter,
+            )
+            log_eps, n_done_b = da[2], int(warmup)
+            adapted_acc = float(np.mean(accs_b[-max(len(accs_b) // 4, 1):]))
+        n_warm_total = n_done + n_done_b
+
+        # ---- probe: calibrate the production trajectory length
+        if auto_l:
+            us, _, _, uf, _ = _mh_phase(
+                vg, tf, bounded, uf, gen, log_eps, nsteps=probe_steps,
+                n_leapfrog=l_max, adapt=False, target_accept=target_accept,
+                traj_jitter=0, probe=True,
+            )
+            n_leapfrog = _select_leapfrog(us.cpu().numpy(), l_max)
+            logger.info("HMC n_leapfrog='auto': probe of %d steps picked L = %d",
+                        probe_steps, n_leapfrog)
+        if n_warm_walk < nwalkers:
+            uf = uf[torch.arange(nwalkers, device=dev) % n_warm_walk]
+    n_leapfrog = int(n_leapfrog)
 
     # ---- resolve scheme="auto" from the adapted acceptance
     persist_eff = float(persist)
@@ -526,9 +640,16 @@ def run_hmc(
 
     # ---- production: fixed eps
     if scheme in ("multinomial", "windowed"):
-        w_eff = 0 if scheme == "multinomial" else (
-            window if window is not None else min(2, (n_leapfrog + 1) // 2)
-        )
+        if scheme == "multinomial":
+            w_eff = 0
+        else:
+            # n_leapfrog may come from the probe: check against the final length
+            w_eff = window if window is not None else min(2, (n_leapfrog + 1) // 2)
+            if w_eff < 1 or 2 * w_eff > n_leapfrog + 1:
+                raise ValueError(
+                    f"window={w_eff} needs 1 <= window and 2*window <= "
+                    f"n_leapfrog + 1 (n_leapfrog={n_leapfrog})"
+                )
         xs, lps, accs, _ = _trajectory_phase(
             vg, tf, bounded, uf, gen, log_eps, nsteps=nsteps,
             n_leapfrog=n_leapfrog, window=w_eff, persist=persist_eff,

@@ -116,3 +116,29 @@ def build_synthetic_chain(
     )
     chain.loadEmulator(emus)
     return chain, gp_train_s
+
+
+def gaussian_evidence_problem(ndim: int = 17, seed: int = 0, sd_range=(0.05, 0.1)):
+    """A normalized correlated Gaussian likelihood well inside the unit box,
+    whose log evidence under the uniform prior is known: the log of the
+    Gaussian's mass inside the box, which the marginal masses outside
+    bound (``truth``; -1.2e-5 at the defaults, the means at least 4.3
+    standard deviations inside).  Returns a dict of float64 numpy arrays
+    ``mu``, ``prec``, ``cov`` and the floats ``const`` (the log
+    normalizer) and ``truth``; ``log L(x) = -0.5 (x - mu)^T prec (x - mu)
+    + const``."""
+    from scipy.stats import norm
+
+    rng = np.random.default_rng(seed)
+    sd = rng.uniform(*sd_range, ndim)
+    a = rng.normal(size=(ndim, ndim))
+    s = a @ a.T + ndim * np.eye(ndim)
+    cov = s / np.sqrt(np.outer(np.diag(s), np.diag(s))) * np.outer(sd, sd)
+    mu = rng.uniform(0.4, 0.6, ndim)
+    return {
+        "mu": mu,
+        "cov": cov,
+        "prec": np.linalg.inv(cov),
+        "const": float(-0.5 * np.linalg.slogdet(2 * np.pi * cov)[1]),
+        "truth": float(np.sum(np.log1p(-norm.cdf(-mu / sd) - norm.cdf(-(1 - mu) / sd)))),
+    }

@@ -26,6 +26,17 @@ from gpbayestools_hic_tpu_torch.utils.validation import f64_log_posterior
 F64 = dict(device="cpu", dtype=torch.float64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def chains(tmp_path_factory):
     """(jax_chain, port_chain_f64, paths) built from the same saved files."""
@@ -204,10 +215,15 @@ def test_run_hmc_contract_and_report(chains):
     assert np.all((res.chain > 0) & (res.chain < 1))
     rep = pc.convergence_report()
     assert set(rep) == {"rhat", "tau", "tau_converged", "ess", "converged"}
-    with pytest.raises(NotImplementedError):
-        pc.run_MCMC_HMC(nsteps=2, nwalkers=4, n_leapfrog="auto")
-    with pytest.raises(NotImplementedError):
-        pc.run_MCMC_HMC(nsteps=2, nwalkers=4, resume=True)
+    # n_leapfrog="auto" calibrates a length in [1, l_max], and resume=True
+    # appends to the pickle that run wrote
+    auto = pc.run_MCMC_HMC(nsteps=2, nwalkers=4, nburnsteps=4, n_leapfrog="auto", seed=3)
+    assert 1 <= auto.n_leapfrog <= 16 and auto.chain.shape == (4, 2, 3)
+    resumed = pc.run_MCMC_HMC(nsteps=2, nwalkers=8, nburnsteps=4, resume=True, seed=3)
+    with open(pc.mcmc_path, "rb") as f:
+        stored = pickle.load(f)["chain"]
+    assert resumed.chain.shape == (4, 2, 3) and stored.shape == (4, 4, 3)
+    np.testing.assert_array_equal(stored[:, 2:], resumed.chain)
 
 
 def test_hmc_posterior_moments_match_jax_hmc(chains):

@@ -204,14 +204,16 @@ def test_host_helpers_match_jax(toy_files, tmp_path):
 
 
 def test_isolation_subprocess_loads_jax_save_without_jax(jax_saves, jax_pca_save):
-    """A fresh process imports the port and loads JAX-saved emulators, one
-    with a ParamPCAState: neither jax nor any gpbayestools_hic_tpu module
-    gets imported."""
+    """A fresh process imports the port (the samplers included) and loads
+    JAX-saved emulators, one with a ParamPCAState: neither jax nor any
+    gpbayestools_hic_tpu module gets imported."""
     code = (
         "import sys\n"
         "import numpy as np\n"
         "from gpbayestools_hic_tpu_torch.models import Emulator\n"
         "from gpbayestools_hic_tpu_torch.samplers import Chain\n"
+        "from gpbayestools_hic_tpu_torch.samplers import flows, ptlmc, smc\n"
+        "from gpbayestools_hic_tpu_torch.utils import priors\n"
         f"e = Emulator.load({jax_saves['rbf5'][1]!r}, device='cpu')\n"
         "m, c = e.predict([[0.5, 0.5, 0.5]])\n"
         "assert m.shape == (1, 6) and c.shape == (1, 6, 6)\n"
