@@ -102,8 +102,43 @@ It imports nothing of JAX or the JAX package.  In order it
       walkers against the gate, then ``run_mcmc`` (1024 walkers, 4 + 4
       steps); it must launch the wide route at (512, 1088) and never the
       cluster route;
-6. prints the kernel table as one JSON line (launches summed over the
-   eight paths), the card's name and power limit, and as its last line
+6. frees that chain and drives a ninth path, i. ``analysis``, the
+   analysis toolkit as one workflow at the flagship's widths (d = 17,
+   n = 1000, the nine observable blocks), between a reset and a reading
+   of the counts; it must launch the forward and the fast backward:
+   design: ``generate_lhs(1000, 17, seed=0)`` (MaxPro, 20000 annealing
+   steps on the card), which must be Latin in every column and beat the
+   random LHS it started from in the exact minimum pairwise distance and
+   the exact MaxPro criterion (float64, host); training: nine
+   ``EmulatorBAND(method="PCSK", kernel_kind="RBF", gp_maxiter=30)`` heads
+   in float32 on the synthetic smooth model at the design (1% stat
+   errors), fitted jointly on the card and saved, one 170-observable head's
+   ``predict`` at 256 points held against its save loaded on the CPU in
+   float64 (``held_to_cpu``: at most ``PCA_VS_CPU32`` times the CPU float32
+   load's error); validation: ``validate_multiple_emulators`` on fresh
+   copies of the two 170-observable heads, the last 100 points held out,
+   E and <log H> finite, the held-out predictions held against the
+   retrained heads' saves on the CPU; sampling: a ``Chain`` over the nine
+   heads (``"auto"``, Woodbury) on pseudo-data at a truth point (5%
+   noise), the float32 posterior within ``AUTO_GATE`` of the float64
+   oracle at 64 points, then ``run_MCMC_HMC`` (256 walkers, 8 + 8 warmup,
+   16 steps); closure: percentiles, Delta_d (logged) and
+   ``posterior_predictive`` (64 draws) held against the CPU float64
+   copies; sensitivity: ``sensitivity_matrix`` (forward-mode autodiff) of
+   the two 170-observable heads at the truth against the CPU float64 copy
+   and against central differences (h = 0.01 theta) within 0.05;
+   clusters: the HMC chain's log-likelihoods, then
+   ``generate_posterior_clusters`` (top 1000, 3 clusters) on the card
+   against the CPU float64 run from the same k-means++ starts, centers and
+   inertia within 1e-4 relative.  After the counts are read: the forward
+   and the fast backward on every BAND head's fused state (b = 11 to 70
+   GPs, the PCSK noise in linv and alpha) at the HMC batch's 256 points,
+   against their plain versions and float64 at the kernel tolerances
+   above, and the posterior's gradient through them at 64 points against
+   a CPU float64 chain over the heads' copies (``AN_GRAD_TOL``);
+7. prints the kernel table as one JSON line (launches summed over the
+   nine paths; path i's per-head errors under ``band_heads``), the card's
+   name and power limit, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero without the last
@@ -272,6 +307,30 @@ KE_KNOBS = dict(n_prior=2048, n_active=512, n_effective=1024, n_total=2048,
 # inflates them) plus 0.05 for the float32 sums
 KE_SIGMAS = 3.0
 KE_SLACK = 0.05
+# path i, "analysis": the toolkit as one workflow at the flagship's widths
+# (d = 17, n = 1000, the nine observable blocks) on BAND PCSK heads with
+# the RBF kernel, which take the fused predict kernels
+AN_SEED = 0
+AN_PREDICT = 256       # points of the card-against-CPU predict check
+AN_HOLDOUT = 100       # validation holds out the last 100 design points
+AN_WALKERS = 256
+AN_BURN = 8            # HMC warmup steps per phase
+AN_STEPS = 16
+AN_DRAWS = 64          # posterior-predictive draws
+AN_EXP_NOISE = 0.05    # the pseudo-data: the model at the truth plus 5% noise
+AN_FD_STEP = 0.01
+# jacfwd against central differences (h = 0.01 theta) on the card: the
+# JAX package's test holds the two to this (tests/test_toolkit.py)
+AN_FD_ATOL = 0.05
+AN_TOP = 1000
+AN_CLUSTERS = 3
+# the gradient of path i's posterior (nine BAND heads, 11 to 70 PCs) through
+# the fused kernels against the CPU float64 chain, normwise: the fast
+# backward's contract (TOL_GRAD)
+AN_GRAD_TOL = TOL_GRAD
+# k-means on the card (float32) against the CPU float64 run from the same
+# k-means++ starts: centers and inertia, relative
+AN_CLUSTER_RTOL = 1e-4
 
 
 def log(*a):
@@ -402,6 +461,77 @@ def tf32_ms(fn):
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
+def hold_fused(fs, xq, ct_mean, ct_qf, label, high):
+    """The forward and the fast backward (and, with ``high``, the
+    full-precision backward) on the card against their plain versions on
+    the same inputs: the forward against the float32 plain forward
+    (TOL_VALUES) and the plain forward in float64 (TOL_FWD64), each backward
+    against the plain backward in float64 (TOL_GRAD, TOL_GRAD_HIGH).  Exits
+    on a miss.  Returns the forward's max abs error (mean and qf), the
+    normwise errors ``{"fwd": .., "fwd64": .., "bwd": ..}``, and the
+    backwards' max abs errors (the high one None without ``high``)."""
+    import torch
+    from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
+
+    b, n, d = fs.xs.shape
+    at = f"{label}(b={b}, n={n}, d={d}, m={xq.shape[0]})"
+    fs64 = fp.FusedState(*(t.double() for t in fs))
+    mean_k, qf_k, v_k = fp.fused_fwd(fs, xq, save_v=True)
+    mean_p, qf_p, v_p = fp.fused_fwd_plain(fs, xq, save_v=True)
+    torch.cuda.synchronize()
+    e_mean, r_mean = normwise(mean_k, mean_p)
+    e_qf, r_qf = normwise(qf_k, qf_p)
+    e_v, r_v = normwise(v_k, v_p)
+    log(f"kernel fused_predict_fwd vs plain {at}: "
+        f"mean max abs {e_mean:.3e} (normwise {r_mean:.3e}), qf max abs "
+        f"{e_qf:.3e} (normwise {r_qf:.3e}), v normwise {r_v:.3e}; tolerance "
+        f"{TOL_VALUES:g} normwise -- float32 on both sides, different "
+        f"summation order over n = {n}")
+    if not max(r_mean, r_qf, r_v) <= TOL_VALUES:
+        raise SystemExit(f"fused_predict_fwd disagrees with its plain version {at}")
+    mean64, qf64, _ = fp.fused_fwd_plain(fs64, xq.double())
+    e_mean64, r_mean64 = normwise(mean_k, mean64)
+    e_qf64, r_qf64 = normwise(qf_k, qf64)
+    _, r_mean_p64 = normwise(mean_p, mean64)
+    _, r_qf_p64 = normwise(qf_p, qf64)
+    log(f"kernel fused_predict_fwd vs the plain forward in float64 {at}: mean max abs "
+        f"{e_mean64:.3e} (normwise {r_mean64:.3e}), qf max abs {e_qf64:.3e} "
+        f"(normwise {r_qf64:.3e}); the float32 plain path sits at {r_mean_p64:.3e} / "
+        f"{r_qf_p64:.3e}; tolerance {TOL_FWD64:g} normwise -- 3xTF32, FP32 sums")
+    if not max(r_mean64, r_qf64) <= TOL_FWD64:
+        raise SystemExit(f"fused_predict_fwd is not FP32-class against the float64 forward {at}")
+
+    # the backward kernels against the plain backward in float64 on the same inputs
+    g_kern = fp.fused_bwd(fs, xq, v_k, ct_mean, ct_qf).sum(0)
+    torch.cuda.synchronize()
+    g_plain = fp.fused_bwd_plain(fs, xq, v_k, ct_mean, ct_qf).sum(0)
+    g64 = fp.fused_bwd_plain(fs64, xq.double(), v_k.double(), ct_mean.double(),
+                             ct_qf.double()).sum(0)
+    e_g, r_g = normwise(g_kern, g64)
+    _, r_plain64 = normwise(g_plain, g64)
+    log(f"kernel fused_predict_bwd vs the plain backward in float64 {at}: max abs "
+        f"{e_g:.3e} (normwise {r_g:.3e}; the float32 plain backward sits at "
+        f"{r_plain64:.3e}); tolerance {TOL_GRAD:g} normwise -- one TF32 pass on "
+        f"G^T v over n = {n}, the rest FP32")
+    if not r_g <= TOL_GRAD:
+        raise SystemExit(f"fused_predict_bwd disagrees with the float64 plain backward {at}")
+    e_h = None
+    if high:
+        g_high = fp.fused_bwd(fs, xq, v_k, ct_mean, ct_qf, "high").sum(0)
+        if torch.equal(g_kern, g_high):
+            raise SystemExit("fused_predict_bwd equals fused_predict_bwd_high bit for bit: "
+                             "the grad_precision knob is dead")
+        e_h, r_h = normwise(g_high, g64)
+        log(f"kernel fused_predict_bwd_high vs the plain backward in float64 {at}: max abs "
+            f"{e_h:.3e} (normwise {r_h:.3e}); tolerance {TOL_GRAD_HIGH:g} normwise -- "
+            f"3xTF32 G^T v with FP32 promotion, two chained FP32 sums over n = {n}")
+        if not r_h <= TOL_GRAD_HIGH:
+            raise SystemExit(f"fused_predict_bwd_high disagrees with the float64 plain "
+                             f"backward {at}")
+    errs = {"fwd": max(r_mean, r_qf, r_v), "fwd64": max(r_mean64, r_qf64), "bwd": r_g}
+    return max(e_mean, e_qf), errs, e_g, e_h
+
+
 def kernel_phase(chain, device):
     """Each kernel against its plain version at one emulator's shape, and
     timings rotated over the 9 emulators' states (144 MB of G, beyond the
@@ -418,56 +548,7 @@ def kernel_phase(chain, device):
     ct_mean = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=device)
     ct_qf = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=device)
 
-    fs64 = fp.FusedState(*(t.double() for t in fs))
-    mean_k, qf_k, v_k = fp.fused_fwd(fs, xq, save_v=True)
-    mean_p, qf_p, v_p = fp.fused_fwd_plain(fs, xq, save_v=True)
-    torch.cuda.synchronize()
-    e_mean, r_mean = normwise(mean_k, mean_p)
-    e_qf, r_qf = normwise(qf_k, qf_p)
-    e_v, r_v = normwise(v_k, v_p)
-    log(f"kernel fused_predict_fwd vs plain (b={b}, n={n}, d={d}, m={m}): "
-        f"mean max abs {e_mean:.3e} (normwise {r_mean:.3e}), qf max abs "
-        f"{e_qf:.3e} (normwise {r_qf:.3e}), v normwise {r_v:.3e}; tolerance "
-        f"{TOL_VALUES:g} normwise -- float32 on both sides, different "
-        f"summation order over n = {n}")
-    if not max(r_mean, r_qf, r_v) <= TOL_VALUES:
-        raise SystemExit("fused_predict_fwd disagrees with its plain version")
-    mean64, qf64, _ = fp.fused_fwd_plain(fs64, xq.double())
-    e_mean64, r_mean64 = normwise(mean_k, mean64)
-    e_qf64, r_qf64 = normwise(qf_k, qf64)
-    _, r_mean_p64 = normwise(mean_p, mean64)
-    _, r_qf_p64 = normwise(qf_p, qf64)
-    log(f"kernel fused_predict_fwd vs the plain forward in float64: mean max abs "
-        f"{e_mean64:.3e} (normwise {r_mean64:.3e}), qf max abs {e_qf64:.3e} "
-        f"(normwise {r_qf64:.3e}); the float32 plain path sits at {r_mean_p64:.3e} / "
-        f"{r_qf_p64:.3e}; tolerance {TOL_FWD64:g} normwise -- 3xTF32, FP32 sums")
-    if not max(r_mean64, r_qf64) <= TOL_FWD64:
-        raise SystemExit("fused_predict_fwd is not FP32-class against the float64 forward")
-
-    # kernels 2 and 3 against the plain backward in float64 on the same inputs
-    g_kern = fp.fused_bwd(fs, xq, v_k, ct_mean, ct_qf).sum(0)
-    g_high = fp.fused_bwd(fs, xq, v_k, ct_mean, ct_qf, "high").sum(0)
-    torch.cuda.synchronize()
-    g_plain = fp.fused_bwd_plain(fs, xq, v_k, ct_mean, ct_qf).sum(0)
-    g64 = fp.fused_bwd_plain(fs64, xq.double(), v_k.double(), ct_mean.double(),
-                             ct_qf.double()).sum(0)
-    e_g, r_g = normwise(g_kern, g64)
-    _, r_plain64 = normwise(g_plain, g64)
-    log(f"kernel fused_predict_bwd vs the plain backward in float64: max abs "
-        f"{e_g:.3e} (normwise {r_g:.3e}; the float32 plain backward sits at "
-        f"{r_plain64:.3e}); tolerance {TOL_GRAD:g} normwise -- one TF32 pass on "
-        f"G^T v over n = {n}, the rest FP32")
-    if not r_g <= TOL_GRAD:
-        raise SystemExit("fused_predict_bwd disagrees with the float64 plain backward")
-    if torch.equal(g_kern, g_high):
-        raise SystemExit("fused_predict_bwd equals fused_predict_bwd_high bit for bit: "
-                         "the grad_precision knob is dead")
-    e_h, r_h = normwise(g_high, g64)
-    log(f"kernel fused_predict_bwd_high vs the plain backward in float64: max abs "
-        f"{e_h:.3e} (normwise {r_h:.3e}); tolerance {TOL_GRAD_HIGH:g} normwise -- "
-        f"3xTF32 G^T v with FP32 promotion, two chained FP32 sums over n = {n}")
-    if not r_h <= TOL_GRAD_HIGH:
-        raise SystemExit("fused_predict_bwd_high disagrees with the float64 plain backward")
+    e_fwd, _, e_g, e_h = hold_fused(fs, xq, ct_mean, ct_qf, "", high=True)
 
     # timings, rotating over the emulators' states, after half a second of
     # the forward (the card idles through the CPU-bound checks before this
@@ -500,7 +581,7 @@ def kernel_phase(chain, device):
     stats = {}
     for name, t, tp, tl, tl32, (tc, fl, nbytes), err, precision in (
         ("fused_predict_fwd", t_fwd, t_fwd_plain, t_fwd_lib, t_fwd_lib32,
-         fwd_work(b, n, m, d, save_v=True), max(e_mean, e_qf),
+         fwd_work(b, n, m, d, save_v=True), e_fwd,
          "3xTF32 tensor cores for [G; alpha] k*, FP32 k* and qf"),
         ("fused_predict_bwd", t_bwd, t_bwd_plain, t_bwd_lib, t_bwd_lib32,
          bwd_work(b, n, m, d, passes=1), e_g,
@@ -1260,6 +1341,33 @@ def training_phase(tmp, device):
     return chain, {"fit_s": train_s, **fit, "peak_gib": peak}
 
 
+def held_to_cpu(label, card, cpu64, cpu32):
+    """Each named output computed on the card (float32) against the same
+    emulator loaded on the CPU in float64, normwise: at most PCA_VS_CPU32
+    times the error of its float32 load on the CPU.  Returns the card's
+    errors."""
+    import torch
+
+    def tensor(a):
+        return (a.detach().cpu() if torch.is_tensor(a)
+                else torch.tensor(np.asarray(a), dtype=torch.float64))
+
+    bad, errs = {}, {}
+    for k in cpu64:
+        want = tensor(cpu64[k])
+        err = normwise(tensor(card[k]), want)[1]
+        err32 = normwise(tensor(cpu32[k]), want)[1]
+        log(f"{label}: {k}: card float32 against the CPU float64 load {err:.2e} "
+            f"normwise; the CPU float32 load {err32:.2e} (at most {PCA_VS_CPU32:g} times "
+            "that)")
+        errs[k] = err
+        if not err <= PCA_VS_CPU32 * max(err32, 1e-7):
+            bad[k] = err
+    if bad:
+        raise SystemExit(f"{label}: the card disagrees with float64: {bad}")
+    return errs
+
+
 def param_pca_check(tmp, device):
     """An emulator with parameterTrafoPCA=True trained on the card (float32):
     predict, predict_pc_raw and predict_pc_raw_fastgrad (the transform
@@ -1314,22 +1422,299 @@ def param_pca_check(tmp, device):
                 out[f"{name} mean"], out[f"{name} var"] = gm.cpu(), gv.cpu()
         return {k: torch.as_tensor(v) for k, v in out.items()}
 
-    card, want = outputs(e, torch.float32, device), outputs(ref, torch.float64, "cpu")
-    host32 = outputs(cpu32, torch.float32, "cpu")
-    bad = {}
-    for k in want:
-        err, err32 = normwise(card[k], want[k])[1], normwise(host32[k], want[k])[1]
-        log(f"parameter PCA: {k}: card float32 against the CPU float64 load {err:.2e} "
-            f"normwise; the CPU float32 load {err32:.2e} (at most {PCA_VS_CPU32:g} times "
-            "that)")
-        if not err <= PCA_VS_CPU32 * max(err32, 1e-7):
-            bad[k] = err
-    if bad:
-        raise SystemExit(f"parameter PCA emulator on the card disagrees with float64: {bad}")
+    held_to_cpu("parameter PCA", outputs(e, torch.float32, device),
+                outputs(ref, torch.float64, "cpu"), outputs(cpu32, torch.float32, "cpu"))
     draws = e.sample_y(X[:8], n_samples=16, random_state=0)
     log(f"sample_y on the card: shape {draws.shape}, finite {np.isfinite(draws).all()}")
     if draws.shape != (8, 16, nobs) or not np.isfinite(draws).all():
         raise SystemExit("sample_y on the card returned malformed or non-finite draws")
+
+
+def band_kernel_check(chain, emus, cpu64, x, work, device):
+    """Path i's kernels at path i's shapes, after its launch counts are read
+    (so these launches do not count).  Each BAND head's fused state (b = its
+    kept PCs, 11 to 70; the PCSK per-design noise in linv and alpha, the
+    scalar learned noise in kdiag) at the HMC batch's points: the forward
+    and the fast backward against their plain versions and float64
+    (``hold_fused``).  Then the gradient HMC takes, of the nine heads'
+    posterior on the first N_ORACLE points: the card's (the fused kernels)
+    and the card's plain float32 one, against a CPU float64 chain over the
+    heads' float64 copies (the plain path), within AN_GRAD_TOL normwise.
+    Returns the per-head errors for the kernels line."""
+    import torch
+    from gpbayestools_hic_tpu_torch.samplers import Chain
+
+    rng = np.random.default_rng(AN_SEED + 1)
+    xq_all = torch.tensor(x, dtype=torch.float32, device=device)
+    heads = {"fused_predict_fwd": [], "fused_predict_bwd": []}
+    for i, e in enumerate(emus):
+        xq = e._transform_x(xq_all).contiguous()
+        b, m = e._fused.xs.shape[0], xq.shape[0]
+        ct_mean = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=device)
+        ct_qf = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=device)
+        e_fwd, errs, e_g, _ = hold_fused(e._fused, xq, ct_mean, ct_qf, f"path i, head {i} ",
+                                         high=False)
+        heads["fused_predict_fwd"].append(dict(b=b, m=m, max_abs_err=e_fwd,
+                                               normwise=errs["fwd"], normwise_f64=errs["fwd64"]))
+        heads["fused_predict_bwd"].append(dict(b=b, m=m, max_abs_err=e_g,
+                                               normwise_f64=errs["bwd"]))
+
+    def grad(ch, dtype, dev):
+        fn, state = ch.posterior_with_state()
+        xx = torch.tensor(x[:N_ORACLE], dtype=dtype, device=dev, requires_grad=True)
+        (g,) = torch.autograd.grad(fn(state, xx).sum(), xx)
+        return g.double().cpu()
+
+    ref = Chain(mcmc_path=str(work / "cpu64" / "chain.pkl"), expdata_path=str(work / "exp.pkl"),
+                model_parafile=str(work / "pars.txt"), device="cpu", dtype=torch.float64)
+    ref.loadEmulator(cpu64)
+    g64 = grad(ref, torch.float64, "cpu")
+    g_kern = grad(chain, torch.float32, device)
+    fused = [e._fused for e in emus]
+    for e in emus:
+        e._fused = None
+    try:
+        g_plain = grad(chain, torch.float32, device)
+    finally:
+        for e, f in zip(emus, fused):
+            e._fused = f
+    e_k, r_k = normwise(g_kern, g64)
+    _, r_p = normwise(g_plain, g64)
+    log(f"path i: the posterior's gradient at {N_ORACLE} points, against the CPU float64 "
+        f"chain (plain path): the card's fused kernels max abs {e_k:.3e} (normwise "
+        f"{r_k:.3e}), the card's plain float32 path normwise {r_p:.3e}; tolerance "
+        f"{AN_GRAD_TOL:g} normwise -- the fast backward's one TF32 pass, float32 elsewhere")
+    if not (torch.isfinite(g_kern).all() and r_k <= AN_GRAD_TOL):
+        raise SystemExit("path i: the posterior's gradient through the fused kernels "
+                         "disagrees with float64")
+    heads["posterior_gradient"] = dict(points=N_ORACLE, normwise_f64=r_k,
+                                       plain_f32_normwise_f64=r_p)
+    return heads
+
+
+def analysis_path(tmp, device):
+    """Path i, "analysis": the toolkit as one workflow on the card, between a
+    reset and a reading of the launch counts.  Design (MaxPro LHS, 1000 x
+    17), joint training of nine BAND PCSK RBF heads on the synthetic smooth
+    model at the design, validation of the two 170-observable heads, HMC
+    over the nine heads ("auto", Woodbury: the fused kernels), closure,
+    sensitivity and posterior clusters; each result held against the CPU
+    float64 copy (or its own yardstick).  Returns ``{"analysis": counts}``."""
+    import pickle
+
+    import torch
+    from gpbayestools_hic_tpu_torch.config import new_generator
+    from gpbayestools_hic_tpu_torch.design import lhd
+    from gpbayestools_hic_tpu_torch.models import Emulator, EmulatorBAND
+    from gpbayestools_hic_tpu_torch.models.joint import train_emulators_jointly
+    from gpbayestools_hic_tpu_torch.models.validation import validate_multiple_emulators
+    from gpbayestools_hic_tpu_torch.ops import registry
+    from gpbayestools_hic_tpu_torch.samplers import Chain
+    from gpbayestools_hic_tpu_torch.utils import (
+        delta_d, generate_posterior_clusters, percentile_params, posterior_predictive,
+        sensitivity_matrix, sensitivity_matrix_fd)
+    from gpbayestools_hic_tpu_torch.utils.synthetic import (
+        write_exp_pickle, write_parameter_file, write_training_pickle)
+    from gpbayestools_hic_tpu_torch.utils.validation import f64_log_posterior
+
+    name = "analysis"
+    work = Path(tmp) / name
+    work.mkdir()
+    registry.reset_launch_counts()
+    t_path = time.perf_counter()
+
+    # 1. design: the annealed LHS against the random LHS it started from
+    t0 = time.perf_counter()
+    design = lhd.generate_lhs(NEV, NDIM, seed=AN_SEED, cache=False, device=device)
+    torch.cuda.synchronize()
+    lhs_s = time.perf_counter() - t0
+    start = lhd._random_lhs(new_generator(device, AN_SEED), NEV, NDIM,
+                            dtype=torch.float32).double().cpu().numpy()
+    latin = all(sorted(np.floor(design[:, d] * NEV).astype(int).tolist()) == list(range(NEV))
+                for d in range(NDIM))
+    mpd, mpd0 = lhd.min_pairwise_distance(design), lhd.min_pairwise_distance(start)
+    maxpro = float(lhd._maxpro_energy(torch.tensor(design)))
+    maxpro0 = float(lhd._maxpro_energy(torch.tensor(start)))
+    log(f"{name}: design: MaxPro LHS {NEV} x {NDIM}, {min(20000, 200 * NEV)} annealing steps "
+        f"on the card in {lhs_s:.2f} s; one point per stratum in every column: {latin}; exact min pairwise "
+        f"distance {mpd0:.5f} -> {mpd:.5f}; exact log MaxPro criterion (float64, host) "
+        f"{maxpro0:.4f} -> {maxpro:.4f}")
+    if not (latin and mpd > mpd0 and maxpro < maxpro0):
+        raise SystemExit(f"{name}: the annealed design is not Latin or not better than its start")
+
+    # 2. training: nine PCSK RBF heads on the synthetic smooth model, jointly
+    rng = np.random.default_rng(AN_SEED)
+    truth = rng.uniform(0.35, 0.65, size=NDIM)
+    par = write_parameter_file(work / "pars.txt", NDIM)
+    pkls, exp_mean = [], []
+    for b, nobs in enumerate(BLOCKS):
+        freqs = rng.uniform(0.5, 2.0, size=(NDIM, nobs))
+        base = 2.0 + np.sin(design @ freqs)
+        pkls.append(write_training_pickle(work / f"train{b}.pkl", design, base,
+                                          0.01 * np.abs(base)))
+        exp_mean.append(2.0 + np.sin(truth @ freqs))
+    exp_mean = np.concatenate(exp_mean)
+
+    def head(b):
+        return EmulatorBAND(str(pkls[b]), str(par), method="PCSK", kernel_kind="RBF",
+                            gp_maxiter=FIT_MAXITER, device=device)
+
+    emus = [head(b) for b in range(len(BLOCKS))]
+    fit = {}
+    t0 = time.perf_counter()
+    train_emulators_jointly(emus, stats=fit)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    npcs = [e._npc_used for e in emus]
+    log(f"{name}: training: {len(emus)} PCSK RBF heads (float32) keep {npcs} PCs ({sum(npcs)} GPs on "
+        f"{NEV} points), joint fit at gp_maxiter={FIT_MAXITER} in {fit_s:.2f} s: "
+        f"{fit['iterations']} iterations, {fit['trials']} batched trials, "
+        f"{fit['converged']}/{sum(npcs)} lanes converged; fused state on every head: "
+        f"{all(e._fused is not None for e in emus)}")
+    t0 = time.perf_counter()
+    paths = []
+    for b, e in enumerate(emus):
+        paths.append(str(work / f"band{b}.sav"))
+        e.save(paths[-1])
+
+    def cpu_copies(path):
+        return (Emulator.load(path, device="cpu", dtype=torch.float64),
+                Emulator.load(path, device="cpu", dtype=torch.float32))
+
+    wide = [b for b, n in enumerate(BLOCKS) if n == 170]
+    x_pred = rng.uniform(0.0, 1.0, size=(AN_PREDICT, NDIM))
+
+    def mean_and_var(emu, x):
+        mean, cov = emu.predict(x)
+        return {"mean": mean, "cov diagonal": np.diagonal(cov, axis1=1, axis2=2)}
+
+    cpu = {b: cpu_copies(paths[b]) for b in wide}
+    log(f"{name}: saves of the nine heads and CPU float64 / float32 loads of blocks {wide}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    c64, c32 = cpu[wide[0]]
+    held_to_cpu(f"{name}: training, block {wide[0]} predict at {AN_PREDICT} points",
+                mean_and_var(emus[wide[0]], x_pred), mean_and_var(c64, x_pred),
+                mean_and_var(c32, x_pred))
+
+    # 3. validation: fresh copies of the two 170-observable heads
+    built = []
+
+    def factory(b):
+        def make():
+            built.append(head(b))
+            return built[-1]
+        return make
+
+    t0 = time.perf_counter()
+    res = validate_multiple_emulators({f"block {b}": factory(b) for b in wide},
+                                      n_test_points=AN_HOLDOUT)
+    torch.cuda.synchronize()
+    log(f"{name}: validation of blocks {wide} (hold out the last {AN_HOLDOUT} of {NEV}): "
+        f"{time.perf_counter() - t0:.2f} s; " + "; ".join(
+            f"{k}: mean E {r['mean_E']:.5f}, <log H> {r['mean_log_H']:.4f}"
+            for k, r in res.items()))
+    for (k, r), e in zip(res.items(), built):
+        if not (np.isfinite(r["mean_E"]) and np.isfinite(r["mean_log_H"])):
+            raise SystemExit(f"{name}: validation of {k} gave non-finite E or <log H>")
+        path = str(work / f"valid_{k.split()[-1]}.sav")
+        e.save(path)
+        v64, v32 = cpu_copies(path)
+        held = e.design_points_org_[-AN_HOLDOUT:]
+
+        def holdout(emu):
+            m = mean_and_var(emu, held)
+            return {"held-out mean": m["mean"], "held-out sd": np.sqrt(m["cov diagonal"])}
+
+        held_to_cpu(f"{name}: validation, {k}",
+                    {"held-out mean": r["pred"], "held-out sd": r["pred_err"]},
+                    holdout(v64), holdout(v32))
+    del built, res
+
+    # 4. sampling: HMC over the nine heads on pseudo-data at the truth
+    exp_err = AN_EXP_NOISE * np.abs(exp_mean)
+    exp_pkl = write_exp_pickle(work / "exp.pkl", exp_mean + exp_err * rng.normal(size=exp_mean.size),
+                               exp_err)
+    chain = Chain(mcmc_path=str(work / "mcmc" / "chain.pkl"), expdata_path=str(exp_pkl),
+                  model_parafile=str(par), device=device)
+    chain.loadEmulator(emus)
+    x = chain.random_pos(AN_WALKERS, seed=2)
+    t0 = time.perf_counter()
+    lp64 = f64_log_posterior(chain, x[:N_ORACLE])
+    log(f"{name}: float64 oracle at {N_ORACLE} points: {time.perf_counter() - t0:.2f} s")
+    check_posterior(chain, x, lp64, f"{name} (auto)", gate=AUTO_GATE)
+    acceptance = hmc_run(chain, name, AN_WALKERS, AN_BURN, AN_STEPS)
+
+    # 5. closure
+    t0 = time.perf_counter()
+    samples = np.asarray(chain.chain)
+    pct = percentile_params(samples)
+    dd = delta_d(samples, truth, chain.min, chain.max)
+    cpu_all = {b: cpu.get(b) or cpu_copies(paths[b]) for b in range(len(BLOCKS))}
+    pp = {tag: posterior_predictive(samples, emu_list, n_draws=AN_DRAWS, seed=AN_SEED)
+          for tag, emu_list in (("card", emus),
+                                ("cpu64", [cpu_all[b][0] for b in range(len(BLOCKS))]),
+                                ("cpu32", [cpu_all[b][1] for b in range(len(BLOCKS))]))}
+    log(f"{name}: closure: Delta_d against the truth {dd:.5f} (a workflow number); median "
+        f"minus truth, largest |.| {float(np.abs(pct[1] - truth).max()):.4f}; "
+        f"{time.perf_counter() - t0:.2f} s with the CPU copies of every head")
+    held_to_cpu(f"{name}: closure, posterior predictive ({AN_DRAWS} draws, {chain.nobs} "
+                "observables)", {"predictive": pp["card"]}, {"predictive": pp["cpu64"]},
+                {"predictive": pp["cpu32"]})
+
+    # 6. sensitivity at the truth for the two 170-observable heads
+    t0 = time.perf_counter()
+    for b in wide:
+        s_card = sensitivity_matrix(emus[b], truth)
+        s_fd = sensitivity_matrix_fd(emus[b], truth, rel_step=AN_FD_STEP)
+        gaps = held_to_cpu(f"{name}: sensitivity, block {b}", {"jacfwd": s_card},
+                           {"jacfwd": sensitivity_matrix(cpu_all[b][0], truth)},
+                           {"jacfwd": sensitivity_matrix(cpu_all[b][1], truth)})
+        fd_gap = float(np.abs(s_card - s_fd).max())
+        log(f"{name}: sensitivity, block {b}: shape {s_card.shape}, largest |S| "
+            f"{float(np.abs(s_card).max()):.4f}; card against CPU float64 {gaps['jacfwd']:.2e} "
+            f"normwise; max |jacfwd - central differences (h = {AN_FD_STEP} theta)| on the card "
+            f"{fd_gap:.2e} (allowed {AN_FD_ATOL})")
+        if not fd_gap <= AN_FD_ATOL:
+            raise SystemExit(f"{name}: jacfwd and central differences disagree on block {b}")
+
+    log(f"{name}: sensitivity: {time.perf_counter() - t0:.2f} s")
+
+    # 7. posterior clusters of the HMC chain by its log-likelihood
+    t0 = time.perf_counter()
+    logl = chain.compute_log_likelihood_for_chain(output_path=str(work / "loglike.pkl"))
+    clustered = work / "clusters.pkl"
+    with open(clustered, "wb") as f:
+        pickle.dump({"chain": samples.reshape(-1, NDIM), "logl": np.asarray(logl).reshape(-1)}, f)
+    st_card, st_cpu = {}, {}
+    centers, labels = generate_posterior_clusters(
+        clustered, AN_CLUSTERS, n_top_samples=AN_TOP, output_dir=work / "card",
+        device=device, stats=st_card)
+    centers64, _ = generate_posterior_clusters(
+        clustered, AN_CLUSTERS, n_top_samples=AN_TOP, output_dir=work / "cpu",
+        device="cpu", dtype=torch.float64, stats=st_cpu)
+    c_gap = float(np.abs(centers - centers64).max() / np.abs(centers64).max())
+    i_gap = abs(st_card["inertia"] - st_cpu["inertia"]) / st_cpu["inertia"]
+    nsamples = samples.shape[0] * samples.shape[1]
+    log(f"{name}: clusters: {AN_CLUSTERS} centers of the top {AN_TOP} of {nsamples} "
+        f"samples, cluster sizes {np.bincount(labels).tolist()}, inertia "
+        f"{st_card['inertia']:.4f} (CPU float64 {st_cpu['inertia']:.4f}); card against CPU "
+        f"float64: centers {c_gap:.2e}, inertia {i_gap:.2e} relative (allowed {AN_CLUSTER_RTOL}); "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (c_gap <= AN_CLUSTER_RTOL and i_gap <= AN_CLUSTER_RTOL):
+        raise SystemExit(f"{name}: k-means on the card disagrees with the CPU float64 run")
+
+    counts = dict(registry.LAUNCH_COUNTS)
+    log(f"path {name}: {time.perf_counter() - t_path:.1f} s, kernel launches {counts}, "
+        f"HMC mean acceptance {acceptance:.3f}")
+    missing = [k for k in ("fused_predict_fwd", "fused_predict_bwd") if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"path {name} never launched {missing}")
+    t0 = time.perf_counter()
+    heads = band_kernel_check(chain, emus, [cpu_all[b][0] for b in range(len(BLOCKS))], x,
+                              work, device)
+    log(f"{name}: the kernels at the BAND heads' shapes and the posterior's gradient: "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {name: counts}, heads
 
 
 def main() -> int:
@@ -1392,8 +1777,16 @@ def main() -> int:
         stats.update(wide_mvn_phase(wide, device))
         stats["fused_mvn_loglike_panel"]["also"].insert(0, flagship_wide)
         counts.update(drive_wide_path(wide, tmp))
+        del wide
+        gc.collect()
+        torch.cuda.empty_cache()
+        path_i, heads = analysis_path(tmp, device)
+        counts.update(path_i)
+        for k in ("fused_predict_fwd", "fused_predict_bwd"):
+            stats[k]["band_heads"] = heads[k]
+        stats["fused_predict_bwd"]["band_posterior_gradient"] = heads["posterior_gradient"]
     launches = {k: sum(c[k] for c in counts.values()) for k in registry.KERNELS}
-    log(f"kernel launches over the eight paths: {launches}")
+    log(f"kernel launches over the nine paths: {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     missing = [k for k in on_paths if launches[k] == 0]
     if missing:

@@ -8,11 +8,14 @@ JAX package's Pallas TPU kernels rewritten by hand in CUDA C++ for Hopper
 Layering (mirrors the JAX package):
   ops/       -- kernels, linalg, scalers/PCA, the fused GP-predict and MVN
                 kernels and their registry
-  models/    -- batched GP, Emulator
+  models/    -- batched GP, Emulator, EmulatorBAND (PCGP/PCSK/...), joint
+                training, validation harness, reference-emulator import
   samplers/  -- Chain (calibration posterior), ensemble sampler, HMC,
                 PTLMC, flow-preconditioned SMC
-  utils/     -- IO contracts, convergence metrics, priors, synthetic problems,
-                the float64 posterior oracle
+  design/    -- maximin / MaxPro Latin hypercubes annealed on the device
+  utils/     -- IO contracts, validation and convergence metrics, closure,
+                sensitivity, clustering, plotting, profiling, priors,
+                synthetic problems, the float64 posterior oracle
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

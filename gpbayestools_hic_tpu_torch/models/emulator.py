@@ -15,8 +15,12 @@ covariance ``(fstd * mean)^2``.
 
 ``save`` writes the JAX package's format with plain tuples for the state
 tuples, so the JAX package's ``Emulator.load`` reads it without importing
-this package.  Not ported yet (they raise ``NotImplementedError``): BAND
-save files (see ROADMAP.md).
+this package; ``load`` hands a save with a ``method`` field (a BAND head)
+to :class:`..models.emulator_band.EmulatorBAND`, in either package.
+
+Validation (``testEmulatorErrors*``) and the diagnostics
+(``outputPCAvsParam``, ``print_learning_curve``) retrain and predict on
+the emulator's device; ``predict_device`` returns device tensors.
 """
 
 from __future__ import annotations
@@ -56,13 +60,6 @@ from .param_pca import (
 )
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (see ROADMAP.md, "
-        "'Modules to port'); the JAX package gpbayestools_hic_tpu has it"
-    )
 
 
 class Emulator:
@@ -181,6 +178,12 @@ class Emulator:
     def trainEmulatorAutoMask(self):
         self.trainEmulator(np.ones(self.nev, dtype=bool))
 
+    def _training_data(self, eventMask):
+        """Masked training matrix; subclass hook.  The BAND impute heads
+        fill NaNs per fit on exactly this subset, so that holdout rows
+        never enter the fill of the training values."""
+        return self.model_data[np.asarray(eventMask, dtype=bool), :]
+
     def _prepare_training(self, eventMask, kernel_type: str):
         """Fit scaler/PCA on the host, build GP targets.
 
@@ -191,7 +194,7 @@ class Emulator:
         if kernel_type not in ("RBF", "Matern", "MaternProd"):
             raise ValueError(f"Unknown kernel type: {kernel_type}")
         eventMask = np.asarray(eventMask, dtype=bool)
-        data = np.asarray(self.model_data[eventMask, :], dtype=self._np_dtype)
+        data = np.asarray(self._training_data(eventMask), dtype=self._np_dtype)
 
         self.scaler = fit_standard_scaler(data)
         standardized = scaler_transform(self.scaler, data)
@@ -238,12 +241,14 @@ class Emulator:
                         map_prior_strength=map_prior_strength)
 
     def _select_npc(self, pca) -> int:
-        """Number of PCs to emulate (a subclass hook in the JAX package)."""
+        """Number of PCs to emulate; subclass hook (the BAND heads keep a
+        share of the variance instead of a fixed count)."""
         return min(self.npc, pca.components.shape[0])
 
     def _pc_noise_diag(self, eventMask, npc_used):
-        """Per-(PC, event) known noise variances for the GP Gram diagonal;
-        None for this homoskedastic head (a subclass hook)."""
+        """Per-(PC, event) known noise variances for the GP Gram diagonal,
+        a tensor on the emulator's device; None for this homoskedastic head
+        (PCSK and PCGPwM override it)."""
         return None
 
     def trainEmulator(self, eventMask, kernel_type: str = "RBF"):
@@ -390,6 +395,14 @@ class Emulator:
             mean, cov = self._predict_full(x, extra)
         return mean.cpu().numpy(), cov.cpu().numpy()
 
+    def predict_device(self, X: torch.Tensor, extra_std: torch.Tensor | None = None):
+        """Predict on device tensors with no host copy: ``X`` (m, d) on the
+        emulator's device and dtype -> ``(mean (m, nobs), cov (m, nobs,
+        nobs))``, differentiable in ``X``."""
+        if extra_std is None:
+            extra_std = torch.zeros(X.shape[0], dtype=self._dtype, device=self.device)
+        return self._predict_full(X, extra_std)
+
     def sample_y(self, X, n_samples: int = 1, random_state=None):
         """Sample model output at ``X``: (nsamples_X, n_samples, nobs).
 
@@ -429,6 +442,151 @@ class Emulator:
             y = z @ self._tensor(self._trans_matrix) + self._scaler_mean
         return y.cpu().numpy()
 
+    # ------------------------------------------------------------- validation
+
+    def _holdout_masks(self, nTestPoints: int):
+        train_mask = np.ones(self.nev, dtype=bool)
+        train_mask[self.nev - nTestPoints :] = False
+        return train_mask
+
+    def _validation_arrays(self, validate_mask: np.ndarray):
+        pred, pred_cov = self.predict(
+            self.design_points_org_[validate_mask, :], return_cov=True
+        )
+        pred_err = np.sqrt(np.diagonal(pred_cov, axis1=1, axis2=2))
+        if self.logTrafo_ and not self.exp_and_cov_diagonal_:
+            preds = np.exp(pred)
+            preds_err = pred_err * np.exp(pred)
+        else:
+            preds = pred
+            preds_err = pred_err
+        if self.logTrafo_:
+            truth = np.exp(self.model_data[validate_mask, :])
+            truth_err = self.model_data_err[validate_mask, :] * truth
+        else:
+            truth = np.array(self.model_data[validate_mask, :])
+            truth_err = np.array(self.model_data_err[validate_mask, :])
+        # imputed entries (the BAND impute heads) are model output, not
+        # observed truth: they are marked NaN, and the E/H metrics skip them
+        imp = getattr(self, "_impute_mask", None)
+        if imp is not None:
+            imp_v = np.asarray(imp, bool)[np.asarray(validate_mask, bool), :]
+            truth = np.where(imp_v, np.nan, truth)
+            truth_err = np.where(imp_v, np.nan, truth_err)
+        return (
+            preds.reshape(-1, self.nobs),
+            preds_err.reshape(-1, self.nobs),
+            truth.reshape(-1, self.nobs),
+            truth_err.reshape(-1, self.nobs),
+        )
+
+    def testEmulatorErrors(self, nTestPoints: int = 1, kernel_type: str = "RBF"):
+        """Hold out the last ``nTestPoints`` events; train on the rest and
+        predict the holdouts.  Returns ``(pred, pred_err, truth,
+        truth_err)``, each (nTestPoints, nobs) numpy."""
+        logger.info("Validating GP emulator ...")
+        train_mask = self._holdout_masks(nTestPoints)
+        self.trainEmulator(train_mask, kernel_type=kernel_type)
+        return self._validation_arrays(~train_mask)
+
+    def testEmulatorErrorsWithTrainingPoints(
+        self, nTestPoints: int = 1, kernel_type: str = "RBF"
+    ):
+        """Self-consistency: train without the last ``nTestPoints`` events
+        and predict the training points themselves."""
+        logger.info("Validating GP emulator ...")
+        train_mask = self._holdout_masks(nTestPoints)
+        self.trainEmulator(train_mask, kernel_type=kernel_type)
+        return self._validation_arrays(train_mask)
+
+    def getAvgTrainingDataRelError(self):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            rel = np.nan_to_num(self.model_data_err / self.model_data)
+        return np.mean(rel, axis=0)
+
+    def _diag_pca_prep(self):
+        """Scaler/PCA prep shared by the diagnostics (host numpy, float64):
+        ``(scaler, pca, npc_used, z (nev, npc_used))``.  The PC count comes
+        from the ``_select_npc`` hook, so a BAND head's diagnostics cover
+        the PCs it emulates."""
+        data = np.asarray(
+            self._training_data(np.ones(len(self.model_data), dtype=bool)),
+            dtype=np.float64,
+        )
+        scaler = fit_standard_scaler(data)
+        pca = fit_pca(scaler_transform(scaler, data), whiten=True)
+        npc_used = self._select_npc(pca)
+        z = np.asarray(pca_transform(pca, scaler_transform(scaler, data), npc=npc_used))
+        return scaler, pca, npc_used, z
+
+    def outputPCAvsParam(self):
+        """Return (design_points, PC scores^T) for diagnostics."""
+        _, _, _, z = self._diag_pca_prep()
+        return self.design_points, z.T
+
+    def print_learning_curve(self, train_sizes=(0.2, 0.4, 0.6, 0.8, 0.9), n_folds=5):
+        """Learning curve per PC: mean train/test R^2 over CV folds at each
+        train fraction.
+
+        ``n_folds``-fold CV over a fixed seed-0 permutation; at each
+        fraction the GP is refit from scratch (this emulator's kernel,
+        alpha and ``gp_maxiter``, on its device) on the leading ``frac``
+        share of the fold's training split and scored with R^2 on both
+        splits.  Returns a list (one per PC) of arrays (len(train_sizes),
+        3) with columns (mean n_train, mean train R^2, mean test R^2).
+        """
+        _, _, npc_used, z = self._diag_pca_prep()
+        design = np.asarray(
+            self.PCA_new_design_points if self.parameterTrafoPCA_ else self.design_points,
+            dtype=np.float64,
+        )
+        ptp = (np.asarray(self.design_max) - np.asarray(self.design_min)).astype(self._np_dtype)
+        nev = design.shape[0]
+        folds = np.array_split(np.random.default_rng(0).permutation(nev), n_folds)
+        # before any training there is no gp_config: use the configured
+        # kernel family (a BAND head's kernel_kind_, else RBF)
+        cfg = getattr(self, "gp_config", None) or self._gp_config(
+            getattr(self, "kernel_kind_", "RBF"), self.gp_alpha,
+            getattr(self, "gp_grad_precision", "default"),
+            getattr(self, "gp_map_prior_strength", 0.0))
+
+        def r2(y_true, y_pred):
+            ss_tot = np.sum((y_true - np.mean(y_true)) ** 2)
+            if ss_tot == 0.0:  # single-element or constant fold: undefined
+                return np.nan
+            return 1.0 - np.sum((y_true - y_pred) ** 2) / ss_tot
+
+        train_status = [[] for _ in range(npc_used)]
+        for frac in train_sizes:
+            tr_scores = np.zeros((npc_used, n_folds))
+            te_scores = np.zeros((npc_used, n_folds))
+            n_used_folds = []
+            for f in range(n_folds):
+                test_idx = folds[f]
+                train_idx = np.concatenate([folds[g] for g in range(n_folds) if g != f])
+                n_used = max(int(np.ceil(frac * len(train_idx))), 2)
+                n_used_folds.append(n_used)
+                train_idx = train_idx[:n_used]
+                x_tr = self._tensor(design[train_idx])
+                state = gp_fit(x_tr, self._tensor(z[train_idx].T), ptp, config=cfg,
+                               maxiter=self.gp_maxiter)
+                with torch.no_grad():
+                    pred_tr = gp_predict(state, x_tr, config=cfg)[0].cpu().numpy()
+                    pred_te = gp_predict(state, self._tensor(design[test_idx]),
+                                         config=cfg)[0].cpu().numpy()
+                for i in range(npc_used):
+                    tr_scores[i, f] = r2(z[train_idx, i], pred_tr[i])
+                    te_scores[i, f] = r2(z[test_idx, i], pred_te[i])
+            # folds differ by one event when nev % n_folds != 0: report the
+            # mean train size the scores were averaged over
+            n_used_mean = float(np.mean(n_used_folds))
+            for i in range(npc_used):
+                tr, te = float(np.nanmean(tr_scores[i])), float(np.nanmean(te_scores[i]))
+                train_status[i].append([n_used_mean, tr, te])
+                logger.info("GP %d: %.1f samples, train R^2 %.2f, test R^2 %.2f",
+                            i, n_used_mean, tr, te)
+        return [np.asarray(s) for s in train_status]
+
     # ---------------------------------------------------- low-rank structure
 
     @property
@@ -442,6 +600,14 @@ class Emulator:
         return self._trans_matrix[: self._npc_used], self._cov_trunc
 
     # ---------------------------------------------------------- serialization
+
+    @classmethod
+    def from_reference(cls, source, *, device=None, dtype=None):
+        """Convert a reference dill-saved emulator (or the live object) into
+        a port emulator; see :func:`..models.migrate.from_reference`."""
+        from .migrate import from_reference
+
+        return from_reference(source, device=device, dtype=dtype)
 
     def save(self, path):
         """Write the trained emulator in the JAX package's save format."""
@@ -471,8 +637,10 @@ class Emulator:
             "model_data_err": self.model_data_err,
             "design_points": self.design_points,
             "design_points_org": self.design_points_org_,
-            "impute_mask": None,
-            "impute_col_var": None,
+            # a BAND impute head's state: without it a loaded PCGPwM head
+            # would retrain as plain PCGP
+            "impute_mask": getattr(self, "_impute_mask", None),
+            "impute_col_var": getattr(self, "_impute_col_var", None),
         }
         meta = {
             "npc": self.npc,
@@ -488,8 +656,9 @@ class Emulator:
             "param_pca_groups": [g._asdict() for g in self.param_pca_groups],
             "pardict": self.pardict,
             "gp_alpha": self.gp_alpha,
-            "method": None,
-            "pc_target_variance": None,
+            # the BAND fields, so that a loaded head retrains as itself
+            "method": getattr(self, "method_", None),
+            "pc_target_variance": getattr(self, "pc_target_variance", None),
             "map_prior_strength": self.gp_config.map_prior_strength,
             "grad_precision": self.gp_config.grad_precision,
         }
@@ -498,7 +667,8 @@ class Emulator:
     @classmethod
     def load(cls, path, *, device=None, dtype=None):
         """Reconstruct a trained emulator from an ``Emulator.save`` file of
-        either package (read without importing JAX)."""
+        either package (read without importing JAX).  A BAND save (one with
+        a ``method`` field) comes back as an ``EmulatorBAND``."""
         tree, meta = load_pytree(path)
         return cls.from_jax_arrays(tree, meta, device=device, dtype=dtype)
 
@@ -507,8 +677,16 @@ class Emulator:
         """Build the port's emulator from the numpy tree and metadata of a
         JAX package save, so both packages compute from the same GP
         factors."""
-        if meta.get("method") is not None:
-            raise _not_ported("EmulatorBAND (BAND save files)")
+        if meta.get("method") is not None and cls is Emulator:
+            from .emulator_band import EmulatorBAND
+
+            cls = EmulatorBAND
+        elif meta.get("method") is None and cls is not Emulator:
+            # a BAND shell without method_ would fail only at retrain time
+            raise ValueError(
+                "this is a plain Emulator save; load it with Emulator.load "
+                "(BAND saves carry a 'method' field)"
+            )
         if meta["kernel_kind"] not in ("RBF", "Matern", "MaternProd"):
             raise ValueError(f"Unknown kernel type: {meta['kernel_kind']}")
         self = cls.__new__(cls)
@@ -570,9 +748,13 @@ class Emulator:
             # legacy save files: the masked training design (best effort)
             self.PCA_new_design_points = np.asarray(
                 pnd if pnd is not None else tree["gp_x"])
+        self._load_subclass_fields(tree, meta)
         self._trained = True
         self._build_predict_state()
         return self
+
+    def _load_subclass_fields(self, tree: dict, meta: dict) -> None:
+        """Restore a subclass's own saved fields (the BAND head's)."""
 
 
 def _scaler_state(t) -> StandardScalerState:

@@ -79,12 +79,19 @@ def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
     var)``, A fixed) and ``mean(x) = gp_mean @ A + shift``, the likelihood
     collapses into PC space: expanding around ``p0``, the C0'^-1-metric
     projection of the data residual onto rowspace(A), with ``d = gp_mean -
-    p0`` and ``M = A C0'^-1 A^T``::
+    p0`` and ``M = A C0'^-1 A^T``, Woodbury and the matrix-determinant
+    lemma give::
 
-        y C0'^-1 y^T = d M d^T + const2,    u = y C0'^-1 A^T = d M
+        y cov^-1 y^T = d (M^-1 + diag(v))^-1 d^T + const2
+        log det cov  = log det C0' + log det M + log det(M^-1 + diag(v))
 
-    and Woodbury + the matrix-determinant lemma give the exact
-    log-likelihood from an (npc, npc) capacitance per walker.
+    so each walker factors one (npc, npc) matrix ``B = M^-1 + diag(v)``.
+    The JAX package factors ``I + V^1/2 M V^1/2`` and subtracts its
+    correction from ``d M d^T`` instead: the same value, but in float32
+    the two terms cancel as M grows with the kept PCs (0.025 log-units
+    off float64 with the BAND heads' 11 to 70 PCs, against 7.5e-5 in this
+    form); B is well conditioned (v >= 0 on SPD M^-1), needs no square
+    root of v, and M^-1, log det M come from the host in float64.
 
     Returns ``(block_ll(bs, x_safe) -> (m,), bs)``.
     """
@@ -96,32 +103,27 @@ def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
     c0_inv = np.linalg.inv(c0)
     g = a64 @ c0_inv                     # (npc, n)
     m_mat = g @ a64.T                    # (npc, npc)
-    npc = a64.shape[0]
     shift = np.asarray(e.scaler.mean, dtype=np.float64)
     r0 = shift - exp_mean.astype(np.float64)
     p0 = -np.linalg.solve(m_mat, g @ r0)
     r_perp = r0 + p0 @ a64
     const2 = float(r_perp @ c0_inv @ r_perp)
+    m_chol = np.linalg.cholesky(m_mat)
+    m_inv = np.linalg.inv(m_mat)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     bs = {
-        "p0": t(p0), "m": t(m_mat), "const2": t(const2),
-        "logdet_c0": t(logdet_c0), "eye_npc": t(np.eye(npc)),
+        "p0": t(p0), "m_inv": t(0.5 * (m_inv + m_inv.T)), "const2": t(const2),
+        "logdet_c0_m": t(logdet_c0 + 2.0 * np.sum(np.log(np.diag(m_chol)))),
     }
 
     def block_ll(bs, x_safe):
         gp_mean, v = e.predict_pc_raw_fastgrad(x_safe)     # (m, npc) x2
         d = gp_mean - bs["p0"]
-        u = d @ bs["m"]
-        q0 = (d * u).sum(1) + bs["const2"]
-        # floor strictly above 0: d/dv sqrt(v) at the clamp is +inf, so an
-        # f32 PC variance that cancels to <= 0 would put NaN in gradients
-        sv = torch.sqrt(torch.clamp(v, min=1e-22))
-        s = bs["eye_npc"] + sv[:, :, None] * bs["m"] * sv[:, None, :]
-        corr, logdet_s = spd_qform_logdet(s, sv * u)
-        lp = -0.5 * (q0 - corr) - 0.5 * (bs["logdet_c0"] + logdet_s)
+        quad, logdet_b = spd_qform_logdet(bs["m_inv"] + torch.diag_embed(v), d)
+        lp = -0.5 * (quad + bs["const2"]) - 0.5 * (bs["logdet_c0_m"] + logdet_b)
         return torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -torch.inf))
 
     return block_ll, bs

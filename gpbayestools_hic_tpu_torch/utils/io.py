@@ -156,9 +156,10 @@ class _PortUnpickler(pickle.Unpickler):
             try:
                 return getattr(importlib.import_module(port_module), name)
             except (ImportError, AttributeError):
-                raise NotImplementedError(
+                raise pickle.UnpicklingError(
                     f"{module}.{name} has no counterpart in the PyTorch port "
-                    "yet (see ROADMAP.md, 'Modules to port')"
+                    "(a save file holds only the scaler, PCA and "
+                    "parameter-PCA state classes)"
                 ) from None
         return super().find_class(module, name)
 
@@ -169,3 +170,27 @@ def load_pytree(path):
     with open(path, "rb") as f:
         payload = _PortUnpickler(f).load()
     return payload["tree"], payload["meta"]
+
+
+def delete_parameters_from_pickle(in_path, out_path, param_indices) -> int:
+    """Remove parameter columns from a training pickle, write a new file.
+
+    For dropping parameters that were pinned in the simulations (a
+    zero-width range cannot be trained on).  Returns the number of events
+    written.
+    """
+    with open(in_path, "rb") as f:
+        data = pickle.load(f)
+    keep = None
+    for entry in data.values():
+        params = np.asarray(entry["parameter"])
+        if keep is None:
+            keep = np.delete(np.arange(params.shape[0]), list(param_indices))
+        entry["parameter"] = params[keep]
+    with open(out_path, "wb") as f:
+        pickle.dump(data, f)
+    logger.info(
+        "wrote %s with parameters %s removed (%d events)",
+        out_path, list(param_indices), len(data),
+    )
+    return len(data)

@@ -1,16 +1,80 @@
-"""MCMC convergence diagnostics (the port's own copy of the JAX package's
-``utils/metrics.py`` diagnostics; pure numpy/scipy).
+"""Validation metrics and MCMC convergence diagnostics (the port's own
+copy of the JAX package's ``utils/metrics.py``; pure numpy/scipy).
+
+Validation and closure:
+
+- :func:`rms_relative_error` -- "E": RMS relative prediction error per
+  observable;
+- :func:`honesty` -- "H": RMS of (prediction error / claimed sigma), the
+  calibration of the emulator's claimed uncertainty (H ~ 1 is honest);
+- :func:`delta_d` -- closure-test metric
+  ``Delta_d = E[sum((theta - theta_truth)^2 / width^2)] / ndim``;
+- :func:`coverage` -- fraction of truths inside the central credible
+  interval of each claimed Gaussian.
+
+Convergence:
 
 - :func:`integrated_autocorr_time` / :func:`effective_sample_size` --
   emcee-style windowed-FFT tau and the derived ESS;
 - :func:`split_rhat` -- rank-normalized + folded split-R-hat
   (Vehtari et al. 2021);
-- :func:`convergence_diagnostics` -- one-call report.
+- :func:`convergence_diagnostics` -- one-call report;
+- :func:`summary` -- posterior table (mean/sd/CI/R-hat/tau).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def rms_relative_error(pred: np.ndarray, truth: np.ndarray, axis=0) -> np.ndarray:
+    """E: RMS of (pred - truth)/truth over samples (per observable).
+
+    NaN truth entries are excluded (validation arrays mark imputed, never
+    observed, entries as NaN; see ``Emulator._validation_arrays``)."""
+    rel = (np.asarray(pred) - np.asarray(truth)) / np.asarray(truth)
+    return np.sqrt(np.nanmean(rel**2, axis=axis))
+
+
+def honesty(pred: np.ndarray, pred_err: np.ndarray, truth: np.ndarray, axis=0) -> np.ndarray:
+    """H: RMS of (pred - truth)/sigma_pred.  H >> 1: overconfident;
+    H << 1: underconfident; H ~ 1: honest uncertainties.  NaN truth
+    entries (imputed, not observed) are excluded."""
+    z = (np.asarray(pred) - np.asarray(truth)) / np.asarray(pred_err)
+    return np.sqrt(np.nanmean(z**2, axis=axis))
+
+
+def mean_log_honesty(pred, pred_err, truth) -> float:
+    """<log H> averaged over observables."""
+    h = honesty(pred, pred_err, truth)
+    return float(np.nanmean(np.log(h)))
+
+
+def delta_d(chain: np.ndarray, truth: np.ndarray, prior_min: np.ndarray,
+            prior_max: np.ndarray, weights: np.ndarray | None = None) -> float:
+    """Closure metric Delta_d.
+
+    ``chain``: posterior samples (..., ndim) (any leading shape).
+    ``weights``: optional per-sample importance weights (the SMC sampler's
+    persistent-sampling posterior is weighted).
+    Returns ``E_samples[ sum_d ((theta_d - truth_d)/width_d)^2 ] / ndim``.
+    """
+    samples = np.asarray(chain).reshape(-1, len(truth))
+    width = np.asarray(prior_max) - np.asarray(prior_min)
+    z2 = ((samples - np.asarray(truth)) / width) ** 2
+    if weights is not None:
+        weights = np.asarray(weights).reshape(-1)
+    return float(np.average(np.sum(z2, axis=1), weights=weights) / len(truth))
+
+
+def coverage(pred, pred_err, truth, n_sigma: float = 1.0) -> float:
+    """Fraction of truths within +- n_sigma of the claimed Gaussian.
+
+    NaN truth entries (imputed, never observed) are excluded as in the
+    other validation metrics."""
+    z = np.abs((np.asarray(pred) - np.asarray(truth)) / np.asarray(pred_err))
+    z = z[~np.isnan(z)]
+    return float(np.mean(z < n_sigma))
 
 
 def integrated_autocorr_time(
@@ -187,3 +251,37 @@ def convergence_diagnostics(chain: np.ndarray, rhat_threshold: float = 1.01) -> 
         "ess": float(ess),
         "converged": bool((rhat <= rhat_threshold).all() and convs.all()),
     }
+
+
+def summary(
+    chain: np.ndarray,
+    names: list[str] | None = None,
+    ci: float = 0.9,
+) -> str:
+    """Plain-text posterior summary table for a (nwalkers, nsteps, ndim)
+    chain: mean, sd, median, central ``ci`` interval, rank-normalized
+    split-R-hat, and integrated autocorrelation time per parameter."""
+    x = np.asarray(chain, dtype=np.float64)
+    if x.ndim != 3:
+        raise ValueError(f"expected (nwalkers, nsteps, ndim), got {x.shape}")
+    ndim = x.shape[-1]
+    if names is None:
+        names = [f"p{d}" for d in range(ndim)]
+    if len(names) != ndim:
+        raise ValueError(f"{len(names)} names for {ndim} parameters")
+    rep = convergence_diagnostics(x)
+    rhat, taus = rep["rhat"], rep["tau"]
+    lo_q, hi_q = 100 * (1 - ci) / 2, 100 * (1 + ci) / 2
+    flat = x.reshape(-1, ndim)
+    w = max(len("param"), *(len(n) for n in names))
+    head = (f"{'param':<{w}}  {'mean':>10}  {'sd':>10}  {'median':>10}  "
+            f"{f'{lo_q:g}%':>10}  {f'{hi_q:g}%':>10}  {'rhat':>6}  {'tau':>7}")
+    lines = [head, "-" * len(head)]
+    for d in range(ndim):
+        col = flat[:, d]
+        lines.append(
+            f"{names[d]:<{w}}  {col.mean():>10.4g}  {col.std():>10.4g}  "
+            f"{np.median(col):>10.4g}  {np.percentile(col, lo_q):>10.4g}  "
+            f"{np.percentile(col, hi_q):>10.4g}  {rhat[d]:>6.3f}  {taus[d]:>7.1f}"
+        )
+    return "\n".join(lines)

@@ -65,14 +65,16 @@ def _f64(fs, *ts):
     return (fp.FusedState(*(t.double() for t in fs)),) + tuple(t.double() for t in ts)
 
 
+@pytest.mark.parametrize("b", [4, 23, 70])
 @pytest.mark.parametrize("n", [1, 40, 257, 1000])
 @pytest.mark.parametrize("m", [1, 37, 200, 1024])
-def test_cuda_kernels_match_plain(cuda_device, n, m):
+def test_cuda_kernels_match_plain(cuda_device, b, n, m):
     """Kernel 1 (mean, qf, saved v) against the plain forward in float32
     and in float64, kernel 2 (per-GP query cotangent) against the plain
     backward in float64, at ragged n and m (16-byte and 4-byte copy routes,
-    partial tiles, odd row-tile pairs); each call launches once."""
-    fs, xq, ctm, ctq = _problem(cuda_device, n=n, m=m)
+    partial tiles, odd row-tile pairs) and at the flagship's 4 GPs per call
+    and the BAND heads' 11 to 70; each call launches once."""
+    fs, xq, ctm, ctq = _problem(cuda_device, b=b, n=n, m=m)
     before = dict(LAUNCH_COUNTS)
     mk, qk, vk = fp.fused_fwd(fs, xq, save_v=True)
     gk = fp.fused_bwd(fs, xq, vk, ctm, ctq)

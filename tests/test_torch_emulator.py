@@ -157,14 +157,21 @@ def test_unpickler_maps_jax_state_classes(jax_saves):
 
 
 def test_unpickler_rejects_unported_classes(tmp_path):
-    """A pickled JAX-package class the port lacks (the BAND head) raises
-    NotImplementedError naming it, instead of importing the JAX package."""
+    """A pickled JAX-package class the port has (the BAND head, since it was
+    ported) maps to the port's; one it lacks (the multi-device mesh
+    helpers) raises UnpicklingError naming it, instead of importing the
+    JAX package."""
     from gpbayestools_hic_tpu.models.emulator_band import EmulatorBAND
+    from gpbayestools_hic_tpu.parallel.mesh import make_mesh
+    from gpbayestools_hic_tpu_torch.models.emulator_band import EmulatorBAND as PortBAND
 
     path = tmp_path / "band.pkl"
     with open(path, "wb") as f:
         pickle.dump({"tree": {"cls": EmulatorBAND}, "meta": {}}, f)
-    with pytest.raises(NotImplementedError, match="EmulatorBAND"):
+    assert io.load_pytree(str(path))[0]["cls"] is PortBAND
+    with open(path, "wb") as f:
+        pickle.dump({"tree": {"fn": make_mesh}, "meta": {}}, f)
+    with pytest.raises(pickle.UnpicklingError, match="make_mesh"):
         io.load_pytree(str(path))
 
 
@@ -234,6 +241,36 @@ def test_isolation_subprocess_loads_jax_save_without_jax(jax_saves, jax_pca_save
     assert "isolated" in out.stdout
 
 
+def test_every_port_module_imports_without_optional_packages():
+    """A fresh process with sklearn, matplotlib and dill blocked (the GPU
+    machine has none of them) imports every module of the port: they load
+    lazily, inside the functions that need them."""
+    modules = sorted(
+        ".".join(("gpbayestools_hic_tpu_torch",) + p.relative_to(PORT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('sklearn', 'matplotlib', 'dill'):\n"
+        "            raise ModuleNotFoundError(f'No module named {name!r}', name=name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('sklearn', 'matplotlib', 'dill', 'jax', 'gpbayestools_hic_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('imported', len(sys.argv), flush=True)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "imported" in out.stdout
+    assert len(modules) > 35
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
@@ -243,11 +280,12 @@ def _imports(path: Path):
 
 
 def test_isolation_ast_scan():
-    """No port file (nor chip_smoke.py, nor the port's tools/torch_*.py)
-    imports jax or the JAX package."""
+    """No port file (nor chip_smoke.py, nor the port's tools/torch_*.py, nor
+    examples_torch/) imports jax or the JAX package."""
     files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-             + sorted((REPO / "tools").glob("torch_*.py")))
-    assert len(files) > 10
+             + sorted((REPO / "tools").glob("torch_*.py"))
+             + sorted((REPO / "examples_torch").glob("*.py")))
+    assert len(files) > 40
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

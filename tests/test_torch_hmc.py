@@ -119,14 +119,23 @@ def test_linalg_matches_jax():
     jq, jld = jl.spd_qform_logdet(jnp.asarray(s), jnp.asarray(z))
     np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=1e-12)
     np.testing.assert_allclose(ld.numpy(), np.asarray(jld), rtol=1e-12)
-    q40, ld40 = pl.spd_qform_logdet(torch.tensor(s), torch.tensor(z), max_unroll=2)
-    np.testing.assert_allclose(q40.numpy(), np.asarray(jq), rtol=1e-10)
-    np.testing.assert_allclose(ld40.numpy(), np.asarray(jld), rtol=1e-10)
-    # non-PD input: NaN, never an exception
-    bad = s.copy()
-    bad[0] = -np.eye(4)
-    qb, _ = pl.spd_qform_logdet(torch.tensor(bad), torch.tensor(z))
-    assert np.isnan(qb[0].item()) and np.isfinite(qb[1:].numpy()).all()
+    # non-PD input: NaN in both outputs, never an exception, the other
+    # matrices of the batch untouched; at the flagship's 4 PCs and at the
+    # BAND heads' 11 to 70
+    for k in (4, 40):
+        a = rng.normal(size=(6, k, k))
+        sk = a @ np.swapaxes(a, 1, 2) + np.eye(k)
+        zk = rng.normal(size=(6, k))
+        bad = sk.copy()
+        bad[0] = -np.eye(k)
+        bad[3] = np.eye(k)
+        bad[3, k - 1, k - 1] = -1e-3       # fails at the last pivot only
+        qb, ldb = pl.spd_qform_logdet(torch.tensor(bad), torch.tensor(zk))
+        good = [1, 2, 4, 5]
+        assert np.isnan(qb[[0, 3]].numpy()).all() and np.isnan(ldb[[0, 3]].numpy()).all()
+        jqk, jldk = jl.spd_qform_logdet(jnp.asarray(sk[good]), jnp.asarray(zk[good]))
+        np.testing.assert_allclose(qb[good].numpy(), np.asarray(jqk), rtol=1e-10)
+        np.testing.assert_allclose(ldb[good].numpy(), np.asarray(jldk), rtol=1e-10)
     # jitter rescue per matrix (a singular PSD matrix gets the bump)
     sing = np.stack([s[0], np.ones((4, 4))])
     c = pl.cholesky_jittered(torch.tensor(sing)).numpy()

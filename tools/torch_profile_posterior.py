@@ -15,7 +15,11 @@ measures at 1024 walkers
 - a ``torch.profiler`` trace of a few value-and-gradient calls: device
   busy time per call, the device's idle share of the wall time, the number
   of device kernels per call and the top kernels by device time;
-- wall time of one windowed-HMC production step (L = 8).
+- wall time of one windowed-HMC production step (L = 8);
+- the same value-and-gradient and HMC-step walls, device busy time and
+  device kernels with the Woodbury block's (4, 4) factorization unrolled
+  per entry (the JAX package's TPU form, copied here) in place of the
+  library factorization the port uses, in turns in one process.
 
 With ``--mode generic`` (dense per-block likelihood) or ``--mode stitched``
 (one 544 x 544 matrix per walker), the posterior the ensemble sampler
@@ -47,6 +51,64 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 BLOCKS = (28, 28, 12, 170, 14, 21, 28, 73, 170)
 NWALKERS = 1024
+
+
+def unrolled_qform_logdet(s, z):
+    """``(z^T S^-1 z, log det S)`` with the Cholesky-Crout recurrence written
+    out per entry (the JAX package's form for the TPU): the arm that the
+    port's library factorization is timed against."""
+    import torch
+
+    k = s.shape[-1]
+    lo = [[None] * k for _ in range(k)]
+    w = [None] * k
+    logdet_half = None
+    for j in range(k):
+        d = s[..., j, j]
+        for p in range(j):
+            d = d - lo[j][p] * lo[j][p]
+        dj = torch.sqrt(d)
+        wj = z[..., j]
+        for p in range(j):
+            wj = wj - lo[j][p] * w[p]
+        w[j] = wj / dj
+        lg = torch.log(dj)
+        logdet_half = lg if logdet_half is None else logdet_half + lg
+        for i in range(j + 1, k):
+            off = s[..., i, j]
+            for p in range(j):
+                off = off - lo[i][p] * lo[j][p]
+            lo[i][j] = off / dj
+    q = w[0] * w[0]
+    for j in range(1, k):
+        q = q + w[j] * w[j]
+    return q, 2.0 * logdet_half
+
+
+def profile_calls(f, n_prof=5):
+    """Device busy ms, wall ms and device kernels per call of ``f``, with
+    the top kernels by device time, from a ``torch.profiler`` trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            f()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = {}
+    n_kernels = 0
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev_us[e.name] = dev_us.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_kernels += 1
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": 1e3 * wall / n_prof, "busy_ms": sum(dev_us.values()) / 1e3 / n_prof,
+            "kernels": n_kernels / n_prof,
+            "top": {k[:80]: v / 1e3 / n_prof for k, v in top}}
 
 
 def main() -> int:
@@ -117,33 +179,17 @@ def main() -> int:
         profiled = value if dense else value_and_grad
         out["profiled_call"] = profiled.__name__
 
-        from torch.profiler import ProfilerActivity, profile
-
         n_prof = 5
-        profiled()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_prof):
-                profiled()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev_us = {}
-        n_kernels = 0
-        for e in prof.events():
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
-                dev_us[e.name] = dev_us.get(e.name, 0.0) + e.time_range.elapsed_us()
-                n_kernels += 1
-        busy_ms = sum(dev_us.values()) / 1e3 / n_prof
+        prof = profile_calls(profiled, n_prof)
+        busy_ms = prof["busy_ms"]
         out["profile_calls"] = n_prof
-        out["profile_wall_ms_per_call"] = 1e3 * wall / n_prof
+        out["profile_wall_ms_per_call"] = prof["wall_ms"]
         out["device_busy_ms_per_call"] = busy_ms
-        out["device_idle_share"] = 1.0 - busy_ms / (1e3 * wall / n_prof)
+        out["device_idle_share"] = 1.0 - busy_ms / prof["wall_ms"]
         unprofiled = out["value_wall_ms" if dense else "value_and_grad_wall_ms"]
         out["device_idle_share_of_unprofiled_wall"] = 1.0 - busy_ms / unprofiled
-        out["device_kernels_per_call"] = n_kernels / n_prof
-        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-        out["top_device_ms_per_call"] = {k[:80]: v / 1e3 / n_prof for k, v in top}
+        out["device_kernels_per_call"] = prof["kernels"]
+        out["top_device_ms_per_call"] = prof["top"]
 
         if dense:
             # one stretch-move step = two half-ensemble posterior calls
@@ -173,6 +219,31 @@ def main() -> int:
                                              n_leapfrog=8, window=2, persist=0.7)
 
         out["hmc_windowed_step_wall_ms"] = wall_ms(step, reps=5)
+
+        # the Woodbury block's factorization: library (the port) against
+        # unrolled per entry, in turns (library, unrolled, unrolled, library)
+        from gpbayestools_hic_tpu_torch.samplers import chain as chain_mod
+
+        routes = {"library": chain_mod.spd_qform_logdet, "unrolled": unrolled_qform_logdet}
+        ab = {r: {"value_ms": [], "value_and_grad_ms": [], "hmc_step_ms": []} for r in routes}
+        for r in ("library", "unrolled", "unrolled", "library"):
+            chain_mod.spd_qform_logdet = routes[r]
+            ab[r]["value_ms"].append(wall_ms(value))
+            ab[r]["value_and_grad_ms"].append(wall_ms(value_and_grad))
+            ab[r]["hmc_step_ms"].append(wall_ms(step, reps=5))
+        for r in routes:
+            chain_mod.spd_qform_logdet = routes[r]
+            prof = profile_calls(value_and_grad, n_prof)
+            ab[r].update(busy_ms_per_value_and_grad=prof["busy_ms"],
+                         kernels_per_value_and_grad=prof["kernels"])
+        chain_mod.spd_qform_logdet = routes["library"]
+        lp_lib, g_lib = value_and_grad()
+        chain_mod.spd_qform_logdet = routes["unrolled"]
+        lp_unr, g_unr = value_and_grad()
+        chain_mod.spd_qform_logdet = routes["library"]
+        ab["max_abs_lp_diff"] = float((lp_lib - lp_unr).abs().max())
+        ab["max_abs_grad_diff_rel"] = float((g_lib - g_unr).abs().max() / g_lib.abs().max())
+        out["woodbury_factorization"] = ab
     print(json.dumps(out))
     return 0
 
