@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU, at the flagship width.
+"""Smoke run of the PyTorch/CUDA port on one GPU (path j takes every card
+the machine has, up to four), at the flagship width.
 
 Run from the repository root on a machine with an NVIDIA H100 (no
 arguments):
@@ -87,7 +88,27 @@ It imports nothing of JAX or the JAX package.  In order it
    synthetic 20-parameter design in the flagship's layout, 500 events),
    holds its predict, predict_pc_raw and predict_pc_raw_fastgrad on 64
    points against its save loaded on the CPU in float64, and draws
-   ``sample_y`` on the card;
+   ``sample_y`` on the card; and a tenth path on the same chain,
+   j. ``sharded``: the walker mesh (``parallel/mesh.py``), ``make_mesh``
+      over up to 4 cards where the machine has two or more, else 4 logical
+      shards of cuda:0 (printed); ``devices=`` one past the card count must
+      raise; then each step sharded and unsharded at the same seed, the
+      counts reset before and read after each, and the forward, the fast
+      backward and the shared-memory MVN must launch on every device of
+      the mesh (counted per device): (a) the auto value and gradient at
+      1024 walkers (``SH_VALUE_RTOL``, ``SH_GRAD_TOL``); (b) the generic
+      posterior at 512; (c) ``run_MCMC_HMC(mesh=)``, 1024 walkers,
+      windowed with ``persist=0.7``, 4 warmup steps per phase and 8
+      steps; (d) ``run_mcmc(mesh=)`` in generic mode from a resumed chain,
+      4 steps; (e) ``run_MCMC_PTLMC`` with gradients, 66 chains over 2
+      shards, 8 steps (also held as path g holds it); for c, d and e the
+      walkers bit-equal to, apart from and apart by more than
+      ``SH_RUN_ATOL`` from the unsharded run's are counted and printed,
+      and none (c, e) or at most ``SH_MAX_APART_GENERIC`` (d) may be that
+      far apart; (f) ``run_pocoMC`` at 1024 / 256 / 512 particles, 2
+      iterations (``logz`` within 3 combined errors + 0.5 of the unsharded
+      run's, the JAX test's rule); each step's sharded and unsharded wall
+      time is printed;
 5. frees the flagship chain and builds a second, synthetic one of twice its
    observables: the flagship's blocks twice (1088 observables, 18
    emulators x 4 PCs = 72 RBF GPs on 1000 design points, d = 17), standing
@@ -137,7 +158,7 @@ It imports nothing of JAX or the JAX package.  In order it
    above, and the posterior's gradient through them at 64 points against
    a CPU float64 chain over the heads' copies (``AN_GRAD_TOL``);
 7. prints the kernel table as one JSON line (launches summed over the
-   nine paths; path i's per-head errors under ``band_heads``), the card's
+   ten paths; path i's per-head errors under ``band_heads``), the card's
    name and power limit, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -331,6 +352,53 @@ AN_GRAD_TOL = TOL_GRAD
 # k-means on the card (float32) against the CPU float64 run from the same
 # k-means++ starts: centers and inertia, relative
 AN_CLUSTER_RTOL = 1e-4
+# path j, "sharded": the walker mesh (parallel/mesh.py) on the fitted
+# flagship chain, at its widths, cut in depth only.  With two or more cards
+# make_mesh over up to SH_SHARDS of them, else SH_SHARDS logical shards of
+# cuda:0 (a check of the sharded path, not a speed-up)
+SH_SHARDS = 4
+SH_WALKERS = 1024      # (a) value and gradient, (c) HMC, (d) run_mcmc
+SH_GENERIC = 512       # (b): 128 walkers a shard, the shared-memory MVN route
+SH_REPS = 3            # (a), (b): calls of each side, in turns
+SH_HMC_BURN = 4        # (c): warmup steps per phase (on 256 walkers, "auto")
+SH_HMC_STEPS = 8
+SH_ENS_STEPS = 4       # (d): from a resumed chain
+# (e): PTLMC with gradients, 16 cold + 50 tempered chains (66, over 2 shards:
+# 4 do not divide 66), 16 tuning + 8 production steps, 1000 start points
+SH_PT_SHARDS = 2
+SH_PT = dict(nsteps=8, nwalkers=16, ntemps=50, maxtemp=100.0, nstartparameters=1000,
+             use_gradients=True)
+# (f): run_pocoMC at 1024 prior / 256 active / 512 effective particles, 2
+# iterations, the flow fit cut to 50 cold and 25 warm AdamW steps (each
+# costs 20-30 ms of host dispatch on an H100)
+SH_SMC = dict(n_prior=1024, n_active=256, n_effective=512, n_total=1024, n_evidence=1024,
+              max_iterations=2, flow_fit_steps=50, flow_fit_steps_warm=25)
+# (a), (b): sharded against unsharded, values as max |lp_s - lp_u| /
+# max(|lp_u|, 1) and gradients normwise.  Both sides run the same kernels
+# with the same per-walker arithmetic; what may differ is the library's
+# choice of algorithm for another batch size (cuBLAS products, the batched
+# Cholesky of the Woodbury block), which reorders float32 sums: O(1e-7)
+# relative.  2e-5 is a hundred times that and 25 times inside the JAX dry
+# run's 5e-4 (__graft_entry__.py:119-133); 1e-4 for the gradient is 20
+# times inside the fast backward's own TOL_GRAD.  A shard gathered out of
+# order or evaluated on the wrong replica is off by O(1).
+SH_VALUE_RTOL = 2e-5
+SH_GRAD_TOL = 1e-4
+# (c), (d), (e): per walker, the largest |x_sharded - x_unsharded| over its
+# chain (unit box).  Only the posterior evaluations are sharded: every draw,
+# the u -> x transform of HMC and the chain rule back, the adaptation and the
+# swaps run on cuda:0 over the whole batch in both runs.  (c) and (e) use the
+# auto posterior, whose values and gradients (a) finds bit-equal sharded and
+# unsharded, so no walker may be apart by more than SH_RUN_ATOL.  (d) uses
+# the generic one, whose values (b) finds up to ~4e-7 relative apart
+# (~3e-4 log-units at the flagship's |lp| ~ 750): a stretch-move decision
+# turns where its log-ratio lies that close to its uniform's log, about 3e-4
+# of the 4096 decisions, and the positions are drawn from positions alone,
+# so a walker is apart only after such a turn, its own or a partner's.  At
+# most SH_MAX_APART_GENERIC of the walkers may be: a fault in one shard moves
+# all its walkers, a quarter of them.
+SH_RUN_ATOL = 1e-3
+SH_MAX_APART_GENERIC = 0.01
 
 
 def log(*a):
@@ -1183,6 +1251,253 @@ def drive_wide_path(chain, tmp):
     return {name: counts}
 
 
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _timed(fn):
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, time.perf_counter() - t0
+
+
+def _ms(walls):
+    return ", ".join(f"{1e3 * w:.1f}" for w in walls)
+
+
+def shard_meshes():
+    """Path j's meshes: ``make_mesh`` over up to SH_SHARDS real cards where
+    the machine has two or more, else SH_SHARDS logical shards of cuda:0;
+    the PTLMC step's SH_PT_SHARDS-shard mesh likewise."""
+    import torch
+
+    from gpbayestools_hic_tpu_torch.parallel import WalkerMesh, make_mesh
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return make_mesh(min(SH_SHARDS, n)), make_mesh(SH_PT_SHARDS), "real cards"
+    cuda0 = torch.device("cuda", 0)
+    return (WalkerMesh([cuda0] * SH_SHARDS), WalkerMesh([cuda0] * SH_PT_SHARDS),
+            "logical shards of one card")
+
+
+def _device_launches(mesh, kernels, label):
+    """Every device of ``mesh`` launched each of ``kernels`` in the step just
+    run (the registry counts per device)."""
+    from gpbayestools_hic_tpu_torch.ops import registry
+
+    per = {k: dict(registry.LAUNCHES_BY_DEVICE.get(k, {})) for k in kernels}
+    log(f"sharded {label}: launches per device {per}")
+    for k in kernels:
+        for d in dict.fromkeys(mesh.devices):
+            if per[k].get(str(d), 0) == 0:
+                raise SystemExit(f"sharded {label}: {d} never launched {k}")
+
+
+def _walkers_apart(xs, xu, label, max_apart):
+    """Walker by walker, the largest |x_sharded - x_unsharded| over the
+    chain: the walkers bit-equal, apart and apart by more than SH_RUN_ATOL
+    are counted; at most ``max_apart`` of them may be that far apart."""
+    d = np.abs(np.asarray(xs, np.float64) - np.asarray(xu, np.float64))
+    d = d.reshape(len(d), -1).max(1)
+    far = int((d > SH_RUN_ATOL).sum())
+    q = np.quantile(d, [0.5, 0.9, 0.99, 1.0])
+    log(f"sharded {label}: of {len(d)} walkers {int((d == 0).sum())} bit-equal to the "
+        f"unsharded run's, {int((d > 0).sum())} apart, {far} apart by more than "
+        f"{SH_RUN_ATOL} (at most {int(max_apart * len(d))} may be); per-walker largest "
+        f"difference: median {q[0]:.2e}, 90% {q[1]:.2e}, 99% {q[2]:.2e}, max {q[3]:.2e}")
+    if far > max_apart * len(d):
+        raise SystemExit(f"sharded {label}: {far} of {len(d)} walkers apart from the "
+                         f"unsharded run by more than {SH_RUN_ATOL}")
+
+
+def sharded_path(chain, tmp, mesh, pt_mesh):
+    """Path j, "sharded": the walker mesh on the fitted flagship chain, each
+    step sharded and unsharded at the same seed (sharded first), the
+    launch counts set to 0 before each step and read after it; the
+    forward, the fast backward and the shared-memory MVN must launch on
+    every device of the sharded runs' mesh.  Returns ``{kernel: launches}``
+    summed over the steps."""
+    import pickle
+
+    import torch
+
+    from gpbayestools_hic_tpu_torch.ops import registry
+    from gpbayestools_hic_tpu_torch.parallel import sharded_log_prob
+    from gpbayestools_hic_tpu_torch.utils.tensors import value_and_grad
+
+    fwd, bwd, smem = "fused_predict_fwd", "fused_predict_bwd", "fused_mvn_loglike"
+    total = {}
+    ndim = chain.ndim
+
+    def step(label, kernels, fn, used_mesh=mesh):
+        registry.reset_launch_counts()
+        out = fn()
+        counts = dict(registry.LAUNCH_COUNTS)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log(f"sharded {label}: kernel launches {counts}")
+        if kernels:
+            _device_launches(used_mesh, kernels, label)
+        return out
+
+    def chain_file(name):
+        chain.mcmc_path = Path(tmp) / "sharded" / name / "chain.pkl"
+        chain.mcmc_path.parent.mkdir(parents=True, exist_ok=True)
+        return chain.mcmc_path
+
+    # more devices than the machine has: make_mesh refuses before any work
+    n_cards = torch.cuda.device_count()
+    try:
+        chain.run_MCMC_HMC(nsteps=1, nwalkers=SH_WALKERS, devices=max(n_cards, 1) + 1)
+    except ValueError as e:
+        log(f"sharded: devices={max(n_cards, 1) + 1} on a machine with {n_cards} card(s) "
+            f"refused: {e}")
+    else:
+        raise SystemExit(f"sharded: devices={max(n_cards, 1) + 1} ran on {n_cards} card(s)")
+
+    # (a) the auto value and gradient
+    x = torch.as_tensor(chain.random_pos(SH_WALKERS, seed=11), dtype=chain._dtype,
+                        device=chain.device)
+    log_post, state = chain.posterior_with_state()
+    sharded = sharded_log_prob(log_post, mesh, state)
+
+    unsharded = value_and_grad(lambda q: log_post(state, q))
+
+    def value_and_grad_turns():
+        walls = {"sharded": [], "unsharded": []}
+        for _ in range(SH_REPS):
+            (vs, gs), t_s = _timed(lambda: sharded.value_and_grad(x))
+            (vu, gu), t_u = _timed(lambda: unsharded(x))
+            walls["sharded"].append(t_s)
+            walls["unsharded"].append(t_u)
+        return vs, gs, vu, gu, walls
+
+    vs, gs, vu, gu, walls = step("(a) value+gradient", (fwd, bwd), value_and_grad_turns)
+    vs, gs, vu, gu = (t.double().cpu().numpy() for t in (vs, gs, vu, gu))
+    dv = float(np.abs(vs - vu).max() / max(np.abs(vu).max(), 1.0))
+    dg = float(np.abs(gs - gu).max() / max(np.abs(gu).max(), 1e-30))
+    log(f"sharded (a) auto value+gradient, {SH_WALKERS} walkers over {mesh.size} shards: "
+        f"values {dv:.3e} relative (tolerance {SH_VALUE_RTOL}), gradients {dg:.3e} normwise "
+        f"(tolerance {SH_GRAD_TOL}), values bit-equal {bool(np.array_equal(vs, vu))}, "
+        f"gradients bit-equal {bool(np.array_equal(gs, gu))}; wall in turns (ms, the first "
+        f"call of each included) sharded {_ms(walls['sharded'])}, unsharded "
+        f"{_ms(walls['unsharded'])}")
+    if not (np.isfinite(vs).all() and dv <= SH_VALUE_RTOL and dg <= SH_GRAD_TOL):
+        raise SystemExit("sharded (a): the sharded value and gradient differ from the unsharded")
+
+    chain.likelihood_mode = "generic"
+    try:
+        # (b) the generic posterior: the shared-memory MVN route on every shard
+        gen_post, gen_state = chain.posterior_with_state()
+        gen_sharded = sharded_log_prob(gen_post, mesh, gen_state)
+        xg = x[:SH_GENERIC]
+
+        def values_turns():
+            walls = {"sharded": [], "unsharded": []}
+            with torch.no_grad():
+                for _ in range(SH_REPS):
+                    ls, t_s = _timed(lambda: gen_sharded(xg))
+                    lu, t_u = _timed(lambda: gen_post(gen_state, xg))
+                    walls["sharded"].append(t_s)
+                    walls["unsharded"].append(t_u)
+            return ls, lu, walls
+
+        ls, lu, walls = step("(b) generic posterior", (smem,), values_turns)
+        ls, lu = ls.double().cpu().numpy(), lu.double().cpu().numpy()
+        dv = float(np.abs(ls - lu).max() / max(np.abs(lu).max(), 1.0))
+        log(f"sharded (b) generic posterior, {SH_GENERIC} walkers over {mesh.size} shards: "
+            f"values {dv:.3e} relative (tolerance {SH_VALUE_RTOL}), bit-equal "
+            f"{bool(np.array_equal(ls, lu))}; wall in turns (ms) sharded "
+            f"{_ms(walls['sharded'])}, unsharded {_ms(walls['unsharded'])}")
+        if not (np.isfinite(ls).all() and dv <= SH_VALUE_RTOL):
+            raise SystemExit("sharded (b): the sharded generic posterior differs")
+
+        # (d) run_mcmc in generic mode from a resumed chain
+        x0 = chain.random_pos(SH_WALKERS, seed=12)
+        runs = {}
+        for tag, knobs in (("sharded", {"mesh": mesh}), ("unsharded", {})):
+            with open(chain_file(f"ensemble_{tag}"), "wb") as f:
+                pickle.dump({"chain": x0[:, None, :]}, f)
+            res, wall = step(f"(d) run_mcmc {tag}", (smem,) if knobs else (), lambda: _timed(
+                lambda: chain.run_mcmc(nsteps=SH_ENS_STEPS, nburnsteps=0, nwalkers=SH_WALKERS,
+                                       nthin=1, seed=5, **knobs)))
+            runs[tag] = res
+            log(f"sharded (d) run_mcmc (generic, resumed) {tag}: {SH_WALKERS} walkers, "
+                f"{SH_ENS_STEPS} steps: wall {wall:.2f} s, mean acceptance "
+                f"{float(np.mean(res.acceptance)):.4f}")
+        if (runs["sharded"].chain.shape != (SH_WALKERS, SH_ENS_STEPS, ndim)
+                or not np.isfinite(runs["sharded"].log_prob).all()):
+            raise SystemExit("sharded (d): malformed chain or non-finite log-probs")
+        _walkers_apart(runs["sharded"].chain, runs["unsharded"].chain, "(d) run_mcmc",
+                       SH_MAX_APART_GENERIC)
+    finally:
+        chain.likelihood_mode = "auto"
+
+    # (c) windowed HMC with persistent momentum
+    runs = {}
+    for tag, knobs in (("sharded", {"mesh": mesh}), ("unsharded", {})):
+        chain_file(f"hmc_{tag}")
+        res, wall = step(f"(c) HMC {tag}", (fwd, bwd) if knobs else (), lambda: _timed(
+            lambda: chain.run_MCMC_HMC(nsteps=SH_HMC_STEPS, nwalkers=SH_WALKERS,
+                                       nburnsteps=SH_HMC_BURN, scheme="windowed",
+                                       persist=0.7, seed=7, **knobs)))
+        runs[tag] = res
+        log(f"sharded (c) HMC {tag}: {SH_WALKERS} walkers, warmup {SH_HMC_BURN}/phase, "
+            f"{SH_HMC_STEPS} windowed steps (persist 0.7): wall {wall:.2f} s, step size "
+            f"{res.step_size:.6f}, mean acceptance {float(np.mean(res.acceptance)):.4f}")
+    if (runs["sharded"].chain.shape != (SH_WALKERS, SH_HMC_STEPS, ndim)
+            or not np.isfinite(runs["sharded"].log_prob).all()):
+        raise SystemExit("sharded (c): malformed chain or non-finite log-probs")
+    _walkers_apart(runs["sharded"].chain, runs["unsharded"].chain, "(c) HMC", 0)
+
+    # (e) PTLMC with gradients, its chains over SH_PT_SHARDS shards
+    runs = {}
+    for tag, knobs in (("sharded", {"mesh": pt_mesh}), ("unsharded", {})):
+        chain_file(f"ptlmc_{tag}")
+        stats = {}
+        _, wall = step(f"(e) PTLMC {tag}", (fwd, bwd) if knobs else (), lambda: _timed(
+            lambda: chain.run_MCMC_PTLMC(**SH_PT, stats=stats, **knobs)), used_mesh=pt_mesh)
+        c = runs[tag] = np.asarray(chain.chain)
+        pre = stats["preopt"]
+        drop = float(np.max(pre["lp_before"] - pre["lp_after"]))
+        log(f"sharded (e) PTLMC {tag}: {SH_PT['ntemps'] + SH_PT['nwalkers']} chains, "
+            f"{2 * SH_PT['nsteps']} + {SH_PT['nsteps']} steps: wall {wall:.2f} s, "
+            f"pre-optimization {pre['iterations']} iterations, {pre['trials']} trials, "
+            f"largest fall {max(drop, 0.0):.2e}; {stats['ms_per_step']:.2f} ms per step")
+        if (c.shape != (SH_PT["nwalkers"], SH_PT["nsteps"], ndim) or not np.isfinite(c).all()
+                or not np.all((c > chain.min) & (c < chain.max)) or drop > PREOPT_TOL):
+            raise SystemExit(f"sharded (e) {tag}: malformed chain or a falling "
+                             "pre-optimization")
+    _walkers_apart(runs["sharded"], runs["unsharded"], "(e) PTLMC cold chains", 0)
+
+    # (f) SMC as run_pocoMC drives it
+    out = {}
+    for tag, knobs in (("sharded", {"mesh": mesh}), ("unsharded", {})):
+        chain_file(f"smc_{tag}")
+        its = []
+        res, wall = step(f"(f) pocoMC {tag}", (fwd,) if knobs else (), lambda: _timed(
+            lambda: chain.run_pocoMC(random_state=3, checkpoint=False, stats=its, **SH_SMC,
+                                     **knobs)))
+        out[tag] = res
+        split = "; ".join(f"flow fit {it['fit_s']:.2f} s, MCMC {it['mcmc_s']:.2f} s "
+                          f"({it['steps']} steps), host {it['host_s']:.2f} s" for it in its)
+        log(f"sharded (f) run_pocoMC {tag}: {SH_SMC}: wall {wall:.2f} s, logz "
+            f"{res['logz']:.4f} +- {res['logz_err']:.4f}; per iteration: {split}")
+    s, u = out["sharded"], out["unsharded"]
+    err = float(np.hypot(s["logz_err"], u["logz_err"]))
+    if (not np.isfinite(s["chain"]).all() or abs(s["weights"].sum() - 1.0) > 1e-6
+            or not abs(s["logz"] - u["logz"]) < 3.0 * err + 0.5):
+        raise SystemExit("sharded (f): non-finite samples, or logz beyond 3 combined errors "
+                         "+ 0.5 of the unsharded run")
+    return total
+
+
 def _lanes(chain):
     """The chain's GPs as one batch: (x (n, d), y (36, n), fitted params,
     config) on the card."""
@@ -1758,6 +2073,12 @@ def main() -> int:
         t0 = time.perf_counter()
         param_pca_check(tmp, device)
         log(f"phase parameter PCA + sample_y: {time.perf_counter() - t0:.1f} s")
+        mesh, pt_mesh, kind = shard_meshes()
+        log(f"path sharded: mesh {mesh} ({kind}), PTLMC mesh {pt_mesh}; card(s) {smi!r}")
+        t0 = time.perf_counter()
+        counts["sharded"] = sharded_path(chain, tmp, mesh, pt_mesh)
+        log(f"path sharded: {time.perf_counter() - t0:.1f} s, kernel launches "
+            f"{counts['sharded']}")
         # the flagship chain's device memory goes before the wide chain comes
         del chain
         gc.collect()
@@ -1786,7 +2107,7 @@ def main() -> int:
             stats[k]["band_heads"] = heads[k]
         stats["fused_predict_bwd"]["band_posterior_gradient"] = heads["posterior_gradient"]
     launches = {k: sum(c[k] for c in counts.values()) for k in registry.KERNELS}
-    log(f"kernel launches over the nine paths: {launches}")
+    log(f"kernel launches over the ten paths: {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build included")
     missing = [k for k in on_paths if launches[k] == 0]
     if missing:

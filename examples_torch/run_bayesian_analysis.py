@@ -1,4 +1,4 @@
-"""Full-pipeline Bayesian calibration on one GPU.
+"""Full-pipeline Bayesian calibration.
 
 Loads the per-group emulators, builds the Chain on ``device`` (default
 CUDA) and runs flow-preconditioned SMC (pocoMC semantics), the ensemble
@@ -7,13 +7,16 @@ sampler, PTLMC or HMC.  Run ``make_synthetic_dataset.py`` and
 
     python run_bayesian_analysis.py [pocoMC|emcee|PTLMC|HMC] [devices] [device]
 
-``devices`` above 1 is refused: the port samples on one card (multi-GPU
-walker sharding is not ported yet).
+``devices=N`` shards the walkers (chains, particles) over the first N
+GPUs (``-1``: all of them); asking for more than the machine has raises
+before anything is loaded.  A ``mesh=`` keyword (a
+``gpbayestools_hic_tpu_torch.parallel.WalkerMesh``) takes its place.
 """
 
 import sys
 from pathlib import Path
 
+from gpbayestools_hic_tpu_torch.parallel import resolve_mesh
 from gpbayestools_hic_tpu_torch.samplers import Chain
 
 DATA = Path("synthetic_data")
@@ -33,12 +36,9 @@ def build_chain(mcmc_name: str, device=None) -> Chain:
 
 def main(sampler: str = "pocoMC", devices: int | None = None, device=None, **overrides):
     # keyword overrides go to the sampler call (e.g. smaller sizes for a
-    # smoke run)
-    if devices is not None and devices > 1:
-        raise SystemExit(
-            f"devices={devices}: the PyTorch port samples on one GPU; multi-GPU "
-            "walker sharding is not ported yet"
-        )
+    # smoke run); the mesh is resolved first, so a bad device count
+    # raises before any loading
+    overrides["mesh"] = resolve_mesh(devices, overrides.get("mesh"))
     if sampler == "pocoMC":  # recommended
         chain = build_chain("chain_smc.pkl", device)
         kwargs = dict(n_effective=1000, n_active=500, n_prior=2000, sample="tpcn",

@@ -25,6 +25,7 @@ the emulator's device; ``predict_device`` returns device tensors.
 
 from __future__ import annotations
 
+import copy
 import logging
 from typing import Sequence
 
@@ -46,6 +47,7 @@ from ..ops.scalers import (
 )
 from ..runtime import parse_model_parameter_file
 from ..utils.io import load_pytree, load_training_pickle, save_pytree
+from ..utils.tensors import to_device
 from .gp import GPConfig, GPState, gp_fit, gp_predict, gp_sample
 from .param_pca import (
     ParamPCAGroup,
@@ -598,6 +600,20 @@ class Emulator:
     def lowrank_parts(self):
         """Host arrays (A (npc, nobs), cov_trunc (nobs, nobs))."""
         return self._trans_matrix[: self._npc_used], self._cov_trunc
+
+    def to(self, device) -> "Emulator":
+        """A new emulator whose tensors (GP factors, fused-kernel state,
+        predict tensors) live on ``device``: copies, or this emulator's own
+        where they are already there; host arrays and settings are shared.
+        A walker mesh's posterior replica on another card predicts through
+        such a copy.  Unlike ``torch.nn.Module.to`` this never moves
+        ``self``."""
+        new = copy.copy(self)
+        device = torch.device(device)
+        for name, value in vars(self).items():
+            setattr(new, name, to_device(value, device))
+        new.device = device
+        return new
 
     # ---------------------------------------------------------- serialization
 

@@ -308,7 +308,7 @@ def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> t
     with torch.cuda.device(y.device):
         err = getattr(lib, entry)(*ptrs, out.data_ptr(), b, n, stream)
     raise_on(err, f"{name} launch")
-    count_launch(name)
+    count_launch(name, y.device)
     return out
 
 

@@ -217,7 +217,7 @@ def _fwd_cuda(fs: FusedState, xq: torch.Tensor, save_v: bool):
             scratch.data_ptr(), b, n, m, d, stream,
         )
     raise_on(err, "fused_predict_fwd launch")
-    count_launch("fused_predict_fwd")
+    count_launch("fused_predict_fwd", xq.device)
     return mean, qf, v
 
 
@@ -241,7 +241,7 @@ def _bwd_cuda(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
             ct_part.data_ptr(), ct_q.data_ptr(), b, n, m, d, stream,
         )
     raise_on(err, f"{kernel} launch")
-    count_launch(kernel)
+    count_launch(kernel, xq.device)
     return ct_q
 
 

@@ -22,14 +22,19 @@ PyTorch port of the JAX package's ``samplers/chain.py``:
 - ``run_MCMC_HMC`` (with ``n_leapfrog="auto"``, ``warm_start`` and
   ``resume``), ``run_MCMC_PTLMC`` (parallel-tempered Langevin MC) and
   ``run_pocoMC`` (flow-preconditioned SMC with its evidence);
-- chain pickle contract ``{"chain": (nwalkers, nsteps, ndim)}``.
-
-Device meshes (``devices=``/``mesh=``) are not ported: every sampler
-raises ``NotImplementedError`` on them (see ROADMAP.md).
+- chain pickle contract ``{"chain": (nwalkers, nsteps, ndim)}``;
+- ``devices=``/``mesh=`` on every sampler shard the walker (chain,
+  particle) axis over a :class:`..parallel.mesh.WalkerMesh`, with the JAX
+  package's semantics (divisibility, ``-1``, ``pool``): each device
+  evaluates its shard of the posterior against a replica built from
+  copies of the emulators (:meth:`Chain._posterior_fns_on`), and every
+  random draw stays on the chain's device, so a seed gives the same draws
+  sharded and unsharded.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import pickle
 import zlib
@@ -48,13 +53,6 @@ logger = logging.getLogger(__name__)
 
 # 2*log(1e-16): the constant the reference's zeroed extra_std prior adds.
 _EXTRA_STD_CONST = 2.0 * np.log(1e-16)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (see ROADMAP.md); "
-        "the JAX package gpbayestools_hic_tpu has it"
-    )
 
 
 def warm_fallback_seed(seed: int, final_state) -> int:
@@ -269,14 +267,46 @@ class Chain:
     # ------------------------------------------------------------ device path
 
     def _build_device_fns(self):
-        """Assemble the log-likelihood / log-posterior functions."""
+        """Assemble the log-likelihood / log-posterior functions on the
+        chain's device.  The two posterior functions carry ``replica(device)``
+        (:meth:`_posterior_fns_on`) for a walker mesh."""
         if not self.emuList:
             raise RuntimeError("loadEmulator before evaluating the posterior")
+        fns, self._like_state = self._assemble(self.emuList, self.device)
+        for name in ("log_likelihood", "log_posterior"):
+            fns[name].replica = functools.partial(self._replica, name)
+        self._device_fns = fns
+        return fns
+
+    def _posterior_fns_on(self, device) -> dict:
+        """The posterior functions of :meth:`_build_device_fns` assembled on
+        ``device`` from copies of the emulators (:meth:`..models.emulator.
+        Emulator.to`); they take the chain's state moved there
+        (:func:`..parallel.mesh.replicate`)."""
+        if not self.emuList:
+            raise RuntimeError("loadEmulator before evaluating the posterior")
+        fns, _ = self._assemble([e.to(device) for e in self.emuList], torch.device(device))
+        return fns
+
+    def _replica(self, name: str, device):
+        """``device_fns[name]`` for ``device``: the chain's own function on
+        its device, else one over emulator copies there."""
+        if torch.device(device) == self.device:
+            return self.device_fns[name]
+        return self._posterior_fns_on(device)[name]
+
+    def _assemble(self, emus, device):
+        """``(functions, state)`` of the likelihood over ``emus`` (which live
+        on ``device``), with the state's tensors on ``device``."""
         dtype = self._dtype
         expdata_np = np.asarray(self.expdata, dtype=np.float64).flatten()
         expcov_np = np.asarray(self.expdata_cov, dtype=np.float64)
         nobs = self.nobs
-        emus = list(self.emuList)
+        emus = list(emus)
+
+        def tensor(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
         offsets = np.cumsum([0] + [e.nobs for e in emus])
         if offsets[-1] != nobs:
             raise ValueError(
@@ -296,15 +326,15 @@ class Chain:
         if not use_stitched:
             maker = pick_block if mode == "auto" else make_cholesky_block
             for e, i0, i1 in zip(emus, offsets[:-1], offsets[1:]):
-                fn, bs = maker(e, expdata_np[i0:i1], exp_var_np[i0:i1], dtype, self.device)
+                fn, bs = maker(e, expdata_np[i0:i1], exp_var_np[i0:i1], dtype, device)
                 block_fns.append(fn)
                 block_states.append(bs)
 
-        self._like_state = {
-            "lo": self._tensor(self.min),
-            "hi": self._tensor(self.max),
-            "expdata": self._tensor(expdata_np),
-            "expcov": self._tensor(expcov_np),
+        like_state = {
+            "lo": tensor(self.min),
+            "hi": tensor(self.max),
+            "expdata": tensor(expdata_np),
+            "expcov": tensor(expcov_np),
             "blocks": tuple(block_states),
         }
 
@@ -360,12 +390,12 @@ class Chain:
             ll = loglike_core(state, x)
             return torch.where(inside_box(state, x), ll, torch.full_like(ll, -torch.inf))
 
-        self._device_fns = {
+        fns = {
             "log_likelihood": log_likelihood,
             "log_posterior": log_posterior,
             "model_predict": model_predict,
         }
-        return self._device_fns
+        return fns, like_state
 
     @property
     def device_fns(self):
@@ -471,11 +501,17 @@ class Chain:
         posterior is the one ``likelihood_mode`` selects.  Returns an
         :class:`.ensemble.EnsembleResult` of numpy arrays for the
         production phase and writes its thinned chain to ``mcmc_path``.
+
+        ``devices``/``mesh``: the walkers' posterior evaluations are
+        sharded over a device mesh (:mod:`..parallel.mesh`; ``devices=N``
+        the first N cards, ``-1`` all of them); ``nwalkers``, or the
+        resumed chain's walker count, must divide over it.  The results
+        equal the unsharded run's up to float reassociation.
         """
+        from ..parallel.mesh import check_divisible, resolve_mesh, sharded_log_prob
         from .ensemble import derive_seed
 
-        if devices is not None or mesh is not None:
-            raise _not_ported("multi-device ensemble sampling (devices=/mesh=)")
+        mesh = resolve_mesh(devices, mesh)
         chain_data = {}
         try:
             with open(self.mcmc_path, "rb") as f:
@@ -489,7 +525,12 @@ class Chain:
             logger.error("must specify nburnsteps and nwalkers to start chain")
             return
 
+        if mesh is not None:
+            check_divisible(mesh, nwalkers if burn_flag else chain_data["chain"].shape[0])
         log_post, like_state = self.posterior_with_state()
+        # what the segments evaluate: the replicas are built once per run
+        run_fn, run_state = ((sharded_log_prob(log_post, mesh, like_state), None)
+                             if mesh is not None else (log_post, like_state))
         logger.info("Starting MCMC ...")
 
         if burn_flag:
@@ -500,7 +541,7 @@ class Chain:
             if not skip_initial_state_check:
                 self._check_initial_state(like_state, x0)
             logger.info("running %d walkers for %d steps", nwalkers, nburn0)
-            res = self._run_segments(log_post, like_state, x0, nburn0, k1, status, move)
+            res = self._run_segments(run_fn, run_state, x0, nburn0, k1, status, move)
 
             logger.info("resampling walker positions")
             flat = res.chain.reshape(-1, self.ndim)
@@ -514,7 +555,7 @@ class Chain:
 
             nburn1 = nburnsteps - nburn0
             logger.info("running %d walkers for %d steps", nwalkers, nburn1)
-            res = self._run_segments(log_post, like_state, x0, nburn1, k2, status, move)
+            res = self._run_segments(run_fn, run_state, x0, nburn1, k2, status, move)
             x0 = res.final_state
             logger.info("burn-in complete, starting production")
             prod_seed = k3
@@ -529,7 +570,7 @@ class Chain:
             prod_seed = derive_seed(seed, (1 << 20) + chain_data["chain"].shape[1])
 
         logger.info("running %d walkers for %d steps", x0.shape[0], nsteps)
-        res = self._run_segments(log_post, like_state, x0, nsteps, prod_seed, status, move)
+        res = self._run_segments(run_fn, run_state, x0, nsteps, prod_seed, status, move)
         self._append_and_write_chain(chain_data, res.chain, nthin)
         return res
 
@@ -709,12 +750,17 @@ class Chain:
         phase; with no chain pickle the walkers start from its final state
         (logged as a warning when ``resume=True``).  Writes ``{"chain":
         (nwalkers, ceil(nsteps/nthin), ndim)}`` to ``mcmc_path``.
+
+        ``devices``/``mesh``: the walkers' value-and-gradient evaluations
+        are sharded over a device mesh (as for :meth:`run_mcmc`); the
+        walker count must divide over it, and ``warmup_walkers="auto"``
+        falls back to the full batch where 256 does not.
         """
+        from ..parallel.mesh import check_divisible, resolve_mesh
         from .ensemble import derive_seed
         from .hmc import run_hmc
 
-        if devices is not None or mesh is not None:
-            raise _not_ported("multi-device HMC (devices=/mesh=)")
+        mesh = resolve_mesh(devices, mesh)
         if n_leapfrog is None:
             n_leapfrog = "auto" if warm_start is not None else 8
         logger.info("Starting HMC ...")
@@ -754,6 +800,8 @@ class Chain:
         else:
             x0 = self.random_pos(nwalkers, seed=seed)
             run_seed = seed
+        if mesh is not None:
+            check_divisible(mesh, nwalkers)
         if isinstance(warmup_walkers, str):
             if warmup_walkers != "auto":
                 raise ValueError(
@@ -761,13 +809,16 @@ class Chain:
                     f"got {warmup_walkers!r}"
                 )
             warmup_walkers = min(256, nwalkers)
+            if mesh is not None and warmup_walkers % mesh.size:
+                warmup_walkers = None  # the full batch divides
         res = run_hmc(
             log_post, x0, nsteps, run_seed,
             state=like_state, lo=self.min, hi=self.max,
             n_leapfrog=n_leapfrog, warmup=nburnsteps,
             target_accept=target_accept, traj_jitter=traj_jitter,
             warm_start=warm_start, scheme=scheme, window=window, persist=persist,
-            warmup_walkers=warmup_walkers, device=self.device, dtype=self._dtype,
+            warmup_walkers=warmup_walkers, mesh=mesh, device=self.device,
+            dtype=self._dtype,
         )
         logger.info(
             "HMC: step size %.4f, n_leapfrog %d, mean accept %.3f",
@@ -795,11 +846,15 @@ class Chain:
         JAX package's knobs.  ``use_gradients=True`` turns on the Langevin
         drift.  Writes ``{"chain": (nwalkers, nsteps, ndim)}`` (the
         ``T = 1`` chains) to ``mcmc_path``.  ``stats``, when given,
-        receives the run's counts and timings."""
+        receives the run's counts and timings.  ``devices``/``mesh``: the
+        (ntemps + nwalkers) chains' posterior evaluations are sharded over
+        a device mesh, over which that count must divide."""
+        from ..parallel.mesh import check_divisible, resolve_mesh
         from .ptlmc import run_ptlmc
 
-        if devices is not None or mesh is not None:
-            raise _not_ported("multi-device PTLMC (devices=/mesh=)")
+        mesh = resolve_mesh(devices, mesh)
+        if mesh is not None:
+            check_divisible(mesh, ntemps + nwalkers, "chains (ntemps + nwalkers)")
         logger.info("Starting MCMC ...")
         log_post, like_state = self.posterior_with_state()
         theta = run_ptlmc(
@@ -813,6 +868,7 @@ class Chain:
             seed=seed,
             state=like_state,
             use_gradients=use_gradients,
+            mesh=mesh,
             device=self.device,
             dtype=self._dtype,
             stats=stats,
@@ -853,8 +909,14 @@ class Chain:
         ``prior``: ``None`` (the uniform box), a list of frozen scipy
         distributions (or an object with ``dists``), converted to a
         :class:`..utils.priors.ScipyPrior`, or an object with
-        ``log_prior_torch``; anything else is refused.  An integer ``pool``
-        is logged and ignored (one card).  ``checkpoint`` writes the
+        ``log_prior_torch``; anything else is refused.  ``devices``/``mesh``
+        shard the particles' likelihood evaluations over a device mesh
+        (``n_prior``, ``n_active`` and ``n_evidence`` must divide over it).
+        ``pool`` (the reference's process count) maps onto the same knob:
+        an integer ``pool`` with no ``devices``/``mesh`` asks for
+        ``min(pool, torch.cuda.device_count())`` cards when the particle
+        counts divide over them, and is logged and ignored otherwise.
+        ``checkpoint`` writes the
         sampler state after every iteration to
         :meth:`smc_checkpoint_path`; ``resume=True`` continues from it,
         bit for bit the uninterrupted run.  Further keyword arguments go
@@ -863,6 +925,7 @@ class Chain:
         logl, logp, logz, logz_err`` and every evidence estimate) to
         ``mcmc_path`` and returns it.
         """
+        from ..parallel.mesh import resolve_mesh
         from ..utils.priors import ScipyPrior
         from .smc import run_smc
 
@@ -871,10 +934,17 @@ class Chain:
                 "resume=True requires checkpoint=True (the resume state "
                 "is the checkpoint file)"
             )
-        if devices is not None or mesh is not None:
-            raise _not_ported("multi-device SMC (devices=/mesh=)")
-        if isinstance(pool, int) and pool > 1:
-            logger.info("pool=%d ignored: the port runs the particles on one device", pool)
+        if devices is None and mesh is None and isinstance(pool, int) and pool > 1:
+            n_dev = min(pool, torch.cuda.device_count())
+            if n_dev > 1 and all(n % n_dev == 0 for n in (n_prior, n_active, n_evidence or n_dev)):
+                devices = n_dev
+                logger.info("pool=%d mapped to %d-device particle sharding", pool, n_dev)
+            elif n_dev > 1:
+                logger.info(
+                    "pool=%d ignored: particle counts not divisible by %d devices "
+                    "(pass devices=/mesh= explicitly to force)", pool, n_dev,
+                )
+        mesh = resolve_mesh(devices, mesh)
         if prior is not None and not hasattr(prior, "log_prior_torch"):
             if isinstance(prior, (list, tuple)):
                 prior = ScipyPrior(prior)
@@ -898,6 +968,7 @@ class Chain:
             n_evidence=n_evidence,
             seed=random_state,
             custom_prior=prior,
+            mesh=mesh,
             checkpoint_path=self.smc_checkpoint_path() if checkpoint else None,
             resume=resume,
             device=self.device,

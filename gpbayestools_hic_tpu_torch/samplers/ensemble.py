@@ -24,7 +24,10 @@ from ``(seed, absolute step index)``.  A run split into segments with the
 same seed and the right ``step_offset`` therefore draws the numbers of the
 unsegmented run and reproduces it bit for bit.  Every draw is made on the
 device and nothing is read back inside a step.  Each proposal takes its
-random numbers as arguments, so tests can inject them.
+random numbers as arguments, so tests can inject them.  With a ``mesh``
+the two half-ensemble calls are sharded over its devices
+(:func:`..parallel.mesh.sharded_log_prob`); the draws stay where the
+walkers are, so a seed gives the same chain sharded and unsharded.
 """
 
 from __future__ import annotations
@@ -174,6 +177,7 @@ def run_ensemble(
     move: str = "stretch",
     state=None,
     step_offset: int = 0,
+    mesh=None,
 ) -> EnsembleResult:
     """Run ``nsteps`` ensemble updates from walker positions ``x0``.
 
@@ -186,7 +190,15 @@ def run_ensemble(
     step_offset + i)``: a run split into segments with the same ``seed``
     reproduces the unsegmented run exactly, so a status-log cadence cannot
     change the samples.
+
+    ``mesh``: a :class:`..parallel.mesh.WalkerMesh`; each half-ensemble
+    call is split over its devices (the halves need not divide), against
+    replicas of ``state`` built once for this run.
     """
+    if mesh is not None:
+        from ..parallel.mesh import sharded_log_prob
+
+        log_prob_fn, state = sharded_log_prob(log_prob_fn, mesh, state), None
     if state is not None:
         base_fn = log_prob_fn
 

@@ -30,7 +30,10 @@ The JAX sampler is one compiled ``lax.scan``; here each phase is a Python
 loop over steps, with every random draw taken from one explicitly seeded
 ``torch.Generator``.  The transition functions take their random inputs
 as arguments, so a single step can be checked against a transcription.
-Device meshes are not ported (``Chain`` raises on ``devices=``/``mesh=``).
+With a ``mesh`` the posterior's value-and-gradient evaluations are
+sharded over its devices (:func:`make_sharded_value_and_grad`); every
+draw, the positions, the u -> x transform and the adaptation stay on the
+run's device.
 """
 
 from __future__ import annotations
@@ -111,6 +114,27 @@ def make_value_and_grad(log_prob_fn, state, tf, bounded):
         lp_u = total.detach()
         g = torch.where(torch.isfinite(lp_u)[:, None], g, torch.zeros_like(g))
         return lp_u, lp_x.detach(), g
+
+    return value_and_grad_u
+
+
+def make_sharded_value_and_grad(x_value_and_grad, tf, bounded):
+    """:func:`make_value_and_grad` over a sharded posterior:
+    ``x_value_and_grad`` maps x (m, ndim) to ``(lp_x, grad_x lp_x)`` shard
+    by shard (a ``sharded_log_prob``'s ``value_and_grad``).  The u -> x
+    transform, its logit Jacobian and the chain rule back to u run here,
+    over the whole batch, so only the posterior is split: a matrix product
+    over a shard's rows may round otherwise than over the whole batch."""
+
+    def value_and_grad_u(u):
+        with torch.enable_grad():
+            uu = u.detach().requires_grad_(True)
+            x, logjac = _u_to_x(uu, tf, bounded)
+            lp_x, g_x = x_value_and_grad(x.detach())
+            (g,) = torch.autograd.grad((x * g_x).sum() + logjac.sum(), uu)
+        lp_u = lp_x + logjac.detach()
+        g = torch.where(torch.isfinite(lp_u)[:, None], g, torch.zeros_like(g))
+        return lp_u, lp_x, g
 
     return value_and_grad_u
 
@@ -441,6 +465,7 @@ def run_hmc(
     scheme: str = "mh",
     window: int | None = None,
     persist: float = 0.0,
+    mesh=None,
     device=None,
     dtype=None,
 ) -> HMCResult:
@@ -472,6 +497,12 @@ def run_hmc(
 
     All randomness comes from one generator seeded with ``seed`` on
     ``device`` (default CUDA).
+
+    ``mesh``: a :class:`..parallel.mesh.WalkerMesh` over which the walkers'
+    posterior value-and-gradient evaluations are sharded (replicas of the
+    posterior built once per run); the walker count and ``warmup_walkers`` must
+    divide over it.  The warmed subset is tiled up to the full batch as
+    without a mesh.
     """
     if scheme not in ("mh", "multinomial", "windowed", "auto"):
         raise ValueError(
@@ -532,6 +563,13 @@ def run_hmc(
         raise ValueError(
             f"warmup_walkers must be in [1, nwalkers={nwalkers}], got {warmup_walkers}"
         )
+    if mesh is not None:
+        from ..parallel.mesh import check_divisible, sharded_log_prob
+
+        check_divisible(mesh, nwalkers, "walkers")
+        if warmup_walkers is not None:
+            check_divisible(mesh, n_warm_walk, "warmup_walkers")
+        sharded = sharded_log_prob(log_prob_fn, mesh, state)
     bounded = lo is not None
     lo_np = np.asarray(lo, np.float64) if bounded else None
     width_np = np.asarray(hi, np.float64) - lo_np if bounded else None
@@ -547,6 +585,8 @@ def run_hmc(
         return tf
 
     def vg_of(tf):
+        if mesh is not None:
+            return make_sharded_value_and_grad(sharded.value_and_grad, tf, bounded)
         return make_value_and_grad(log_prob_fn, state, tf, bounded)
 
     if warm_start is not None:

@@ -23,7 +23,10 @@ step is a host iteration: the proposal and the posterior run on the
 device, the swap pass runs in numpy on the host over the ladder (one copy
 of the untempered log-posteriors and the draws to the host, one copy of
 the permutation back), and :func:`ptlmc_step` takes its random draws as
-arguments so that a step can be held against the JAX scan's.
+arguments so that a step can be held against the JAX scan's.  With a
+``mesh`` the chains' posterior evaluations (the pre-optimization's trials,
+the jitter, every step) are sharded over its devices; the draws, the swap
+pass and the adaptation stay as they are.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from ..config import new_generator, resolve_device, resolve_dtype
 from ..ops.lbfgsb import lbfgsb_minimize
+from ..utils.tensors import value_and_grad
 from .ensemble import derive_seed
 
 logger = logging.getLogger(__name__)
@@ -123,11 +127,10 @@ class PTLMCState(NamedTuple):
 
 
 def _value_and_grad(lp_fn, x):
-    with torch.enable_grad():
-        xr = x.detach().requires_grad_(True)
-        f = lp_fn(xr)
-        (g,) = torch.autograd.grad(f.sum(), xr)
-    return f.detach(), torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
+    # a sharded posterior brings its twin: each shard's gradient on its device
+    vg = getattr(lp_fn, "value_and_grad", None) or value_and_grad(lp_fn)
+    f, g = vg(x)
+    return f, torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
 
 
 def ptlmc_step(lp_fn, carry: PTLMCState, k: int, rvalo, log_u, rtv, log_u_swap, *,
@@ -203,6 +206,7 @@ def run_ptlmc(
     taracc: float | None = None,
     use_gradients: bool = False,
     preopt_maxiter: int = 100,
+    mesh=None,
     device=None,
     dtype=None,
     stats: dict | None = None,
@@ -222,6 +226,10 @@ def run_ptlmc(
     trials, converged lanes, host syncs, seconds, each lane's log
     posterior before and after), the jitter's accepted lanes, the swap
     acceptance and the milliseconds per step.
+
+    ``mesh``: a :class:`..parallel.mesh.WalkerMesh` over which every
+    posterior evaluation of the (numtemps + numchain) chains is sharded
+    (replicas built once per run); that count must divide over it.
     """
     if taracc is None:
         taracc = 0.60 if use_gradients else 0.25
@@ -231,11 +239,19 @@ def run_ptlmc(
         def logpost_fn(_s, x):
             return base(x)
 
+        state = ()  # a placeholder, so a mesh binds it like a real state
+
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
 
-    def lp_fn(x):
-        return logpost_fn(state, x)
+    if mesh is not None:
+        from ..parallel.mesh import check_divisible, sharded_log_prob
+
+        check_divisible(mesh, numtemps + numchain, "chains (numtemps + numchain)")
+        lp_fn = sharded_log_prob(logpost_fn, mesh, state)
+    else:
+        def lp_fn(x):
+            return logpost_fn(state, x)
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)

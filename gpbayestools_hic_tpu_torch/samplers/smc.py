@@ -769,6 +769,7 @@ def run_smc(
     evidence_base_dof: float = 5.0,
     checkpoint_path=None,
     resume: bool = False,
+    mesh=None,
     device=None,
     dtype=None,
     stats: list | None = None,
@@ -792,6 +793,12 @@ def run_smc(
     receives one dict per iteration (beta, MCMC steps, flow-fit steps, and
     the seconds of the flow fit, the MCMC phase and the host).
 
+    ``mesh``: a :class:`..parallel.mesh.WalkerMesh` over which every
+    likelihood evaluation of the particles (the prior draws, each MCMC
+    step, the evidence draws) is sharded, against replicas built once per
+    run; ``n_prior``, ``n_active`` and ``n_evidence`` must divide over it.
+    The draws, the flow and the host history stay as they are.
+
     Runs on ``device`` (default CUDA) in ``dtype`` (default float32).
     Returns the weighted posterior (every particle; use ``weights``), its
     log-likelihoods and log-priors and the evidence estimates, with the
@@ -807,6 +814,17 @@ def run_smc(
     dtype = resolve_dtype(dtype)
     state = likelihood_state if likelihood_state is not None else ()
     ll_fn = log_likelihood
+    if mesh is not None:
+        from ..parallel.mesh import check_divisible, sharded_log_prob
+
+        check_divisible(mesh, n_prior, "n_prior particles")
+        check_divisible(mesh, n_active, "n_active particles")
+        if n_evidence:
+            check_divisible(mesh, n_evidence, "n_evidence draws")
+        sharded = sharded_log_prob(log_likelihood, mesh, state)
+
+        def ll_fn(_state, x, finite):
+            return sharded(x, finite)
     lo_np = np.asarray(prior_lo.cpu() if torch.is_tensor(prior_lo) else prior_lo, np.float64)
     hi_np = np.asarray(prior_hi.cpu() if torch.is_tensor(prior_hi) else prior_hi, np.float64)
     ndim = lo_np.shape[0]

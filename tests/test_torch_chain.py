@@ -480,8 +480,11 @@ def test_run_mcmc_status_chunks_do_not_change_the_chain(chains):
 
 def test_run_mcmc_refuses_bad_resume_and_bad_starts(fresh_chain, monkeypatch):
     c = fresh_chain
-    with pytest.raises(NotImplementedError, match="devices"):
+    # no card here: devices=2 asks for more devices than exist, and raises
+    # before any work (nothing falls back to the CPU)
+    with pytest.raises(ValueError, match="requested 2 devices but only 0 available"):
         c.run_mcmc(nsteps=2, nburnsteps=2, nwalkers=8, devices=2)
+    assert not c.mcmc_path.exists()
     with open(c.mcmc_path, "wb") as f:
         pickle.dump({"chain": np.zeros((40, 3))}, f)
     with pytest.raises(ValueError, match="flat 2-D chain"):

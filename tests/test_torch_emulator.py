@@ -157,21 +157,24 @@ def test_unpickler_maps_jax_state_classes(jax_saves):
 
 
 def test_unpickler_rejects_unported_classes(tmp_path):
-    """A pickled JAX-package class the port has (the BAND head, since it was
-    ported) maps to the port's; one it lacks (the multi-device mesh
-    helpers) raises UnpicklingError naming it, instead of importing the
-    JAX package."""
+    """A pickled JAX-package name the port has (the BAND head, and the mesh
+    helpers, since they were ported) maps to the port's; one it lacks (the
+    XLA compilation cache switch) raises UnpicklingError naming it,
+    instead of importing the JAX package."""
+    from gpbayestools_hic_tpu.config import enable_compilation_cache
     from gpbayestools_hic_tpu.models.emulator_band import EmulatorBAND
     from gpbayestools_hic_tpu.parallel.mesh import make_mesh
     from gpbayestools_hic_tpu_torch.models.emulator_band import EmulatorBAND as PortBAND
+    from gpbayestools_hic_tpu_torch.parallel.mesh import make_mesh as port_make_mesh
 
     path = tmp_path / "band.pkl"
     with open(path, "wb") as f:
-        pickle.dump({"tree": {"cls": EmulatorBAND}, "meta": {}}, f)
-    assert io.load_pytree(str(path))[0]["cls"] is PortBAND
+        pickle.dump({"tree": {"cls": EmulatorBAND, "fn": make_mesh}, "meta": {}}, f)
+    tree = io.load_pytree(str(path))[0]
+    assert tree["cls"] is PortBAND and tree["fn"] is port_make_mesh
     with open(path, "wb") as f:
-        pickle.dump({"tree": {"fn": make_mesh}, "meta": {}}, f)
-    with pytest.raises(pickle.UnpicklingError, match="make_mesh"):
+        pickle.dump({"tree": {"fn": enable_compilation_cache}, "meta": {}}, f)
+    with pytest.raises(pickle.UnpicklingError, match="enable_compilation_cache"):
         io.load_pytree(str(path))
 
 
@@ -211,9 +214,10 @@ def test_host_helpers_match_jax(toy_files, tmp_path):
 
 
 def test_isolation_subprocess_loads_jax_save_without_jax(jax_saves, jax_pca_save):
-    """A fresh process imports the port (the samplers included) and loads
-    JAX-saved emulators, one with a ParamPCAState: neither jax nor any
-    gpbayestools_hic_tpu module gets imported."""
+    """A fresh process imports the port (the samplers and the walker mesh
+    included), loads JAX-saved emulators, one with a ParamPCAState, and
+    evaluates one over a mesh: neither jax nor any gpbayestools_hic_tpu
+    module gets imported."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -221,9 +225,13 @@ def test_isolation_subprocess_loads_jax_save_without_jax(jax_saves, jax_pca_save
         "from gpbayestools_hic_tpu_torch.samplers import Chain\n"
         "from gpbayestools_hic_tpu_torch.samplers import flows, ptlmc, smc\n"
         "from gpbayestools_hic_tpu_torch.utils import priors\n"
+        "from gpbayestools_hic_tpu_torch.parallel import WalkerMesh, sharded_log_prob\n"
         f"e = Emulator.load({jax_saves['rbf5'][1]!r}, device='cpu')\n"
         "m, c = e.predict([[0.5, 0.5, 0.5]])\n"
         "assert m.shape == (1, 6) and c.shape == (1, 6, 6)\n"
+        "f = sharded_log_prob(lambda x: e.predict_pc_raw(x)[0].sum(1), WalkerMesh(['cpu'] * 2))\n"
+        "import torch\n"
+        "assert f(torch.full((3, 3), 0.5)).shape == (3,)\n"
         f"p = Emulator.load({jax_pca_save[1]!r}, device='cpu')\n"
         "assert p.parameterTrafoPCA_ and len(p.param_pca_state.npcs) == 3\n"
         f"m = p.predict(np.full((2, 20), 0.2), return_cov=False)\n"

@@ -78,7 +78,9 @@ def test_validation(in_workdir):
 
 
 def test_analysis_refuses_several_devices(in_workdir):
-    with pytest.raises(SystemExit, match="one GPU"):
+    """More devices than the machine has (none here) raise before the
+    emulators are loaded."""
+    with pytest.raises(ValueError, match="requested 2 devices but only 0 available"):
         _load("run_bayesian_analysis").main("HMC", devices=2, device="cpu")
 
 
@@ -109,3 +111,19 @@ def test_sampling_plots_closure_sensitivity_clusters(in_workdir):
     assert np.loadtxt(in_workdir / "cluster_centers.txt").shape == (6, 3)
     obs = np.loadtxt(in_workdir / "cluster_observables.txt")
     assert obs.shape == (24, 3) and np.isfinite(obs).all()
+
+
+def test_analysis_on_a_cpu_mesh_of_two(in_workdir):
+    """The analysis script with a mesh (two shards on the CPU) passed
+    through to the sampler: the ensemble sampler's chain file has the
+    contract's shape and finite samples."""
+    import pickle
+
+    from gpbayestools_hic_tpu_torch.parallel import WalkerMesh
+
+    _load("run_bayesian_analysis").main(
+        "emcee", device="cpu", mesh=WalkerMesh(["cpu"] * 2), nsteps=8, nburnsteps=8,
+        nwalkers=16, nthin=1)
+    with open(in_workdir / "mcmc" / "chain_ensemble.pkl", "rb") as f:
+        chain = pickle.load(f)["chain"]
+    assert chain.shape == (16, 8, 6) and np.isfinite(chain).all()

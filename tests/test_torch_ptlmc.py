@@ -213,7 +213,7 @@ def test_chain_run_ptlmc_matches_jax(tmp_path):
     pc, _ = build_synthetic_chain(tmpdir=str(tmp_path / "p"), **kw, **CPU64)
     run = dict(nsteps=200, nwalkers=8, ntemps=10, maxtemp=50.0, nstartparameters=300)
     jc.run_MCMC_PTLMC(**run, seed=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requested 2 devices but only 0 available"):
         pc.run_MCMC_PTLMC(**run, devices=2)
     means = []
     for seed in range(1, 5):

@@ -313,12 +313,13 @@ def test_chain_run_pocomc_matches_jax(chains):
 def test_chain_run_pocomc_priors_and_refusals(chains, tmp_path):
     """run_pocoMC turns a list of frozen scipy distributions into a
     ScipyPrior, refuses a prior without log_prior_torch, resume without
-    checkpoint, and devices=; an integer pool is ignored."""
+    checkpoint, and devices= past the card count (none here); an integer
+    pool with no second card leaves the run unsharded."""
     _, pc = chains
     pc.mcmc_path = tmp_path / "chain.pkl"
     with pytest.raises(ValueError, match="checkpoint"):
         pc.run_pocoMC(resume=True, checkpoint=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requested 2 devices but only 0 available"):
         pc.run_pocoMC(devices=2)
 
     class NumpyPrior:
