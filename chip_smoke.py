@@ -22,14 +22,19 @@ It imports nothing of JAX or the JAX package.  In order it
    L-BFGS-B optimum within 0.2 and its float32 fit lands where the JAX
    package's float32 fit does (``JAX_F32_LML``; the float32 fits' distance
    to scipy's optimum is printed);
-3. checks each kernel against its plain PyTorch version (on the fitted
+3. prints, from ``cuobjdump -sass`` of the built predict library where
+   the toolkit has it, the HGMMA (wgmma), UTMALDG (TMA) and HMMA
+   (mma.sync) instructions of each kernel (evidence, not a gate); checks
+   each kernel against its plain PyTorch version (on the fitted
    chain, as everything up to 5) at the shapes its
    path gives it and times kernel, plain version, library yardsticks and
    the bound: the fused predict forward and both backwards at one
    emulator's shape (b = 4, n = 1000, d = 17, m = 1024; the forward
    against its plain version in float32 and in float64, both backwards
    against the plain backward in float64, and the fast backward must not
-   equal the full-precision one), the MVN elimination on the path's own
+   equal the full-precision one; the forward and the fast backward also
+   by CUDA-graph replay there, at m = 256 and with the nine emulators'
+   36 GPs in one call), the MVN elimination on the path's own
    covariances at (b, n) = (1024, 170), (1024, 73), (1024, 12) (the
    shared-memory route), stitched (512, 544) (the cluster route, with its
    cluster size, panel width and the clusters the card places) and, for
@@ -171,6 +176,8 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -537,7 +544,9 @@ def hold_fused(fs, xq, ct_mean, ct_qf, label, high):
     against the plain backward in float64 (TOL_GRAD, TOL_GRAD_HIGH).  Exits
     on a miss.  Returns the forward's max abs error (mean and qf), the
     normwise errors ``{"fwd": .., "fwd64": .., "bwd": ..}``, and the
-    backwards' max abs errors (the high one None without ``high``)."""
+    backwards' max abs errors (the high one None without ``high``).  The
+    kernel's v is the (b, n, m) view of the v^T it saves, so it compares
+    with the plain v element by element as it is."""
     import torch
     from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
 
@@ -598,6 +607,32 @@ def hold_fused(fs, xq, ct_mean, ct_qf, label, high):
                              f"backward {at}")
     errs = {"fwd": max(r_mean, r_qf, r_v), "fwd64": max(r_mean64, r_qf64), "bwd": r_g}
     return max(e_mean, e_qf), errs, e_g, e_h
+
+
+def sass_evidence() -> str:
+    """Hopper instructions in the built predict library's SASS, per kernel
+    (``cuobjdump -sass``, where the toolkit has it): the forward's and the
+    fast backward's kernels should hold HGMMA (wgmma) and UTMALDG (TMA
+    loads), the three-pass backward HMMA (mma.sync).  Evidence printed, not
+    a gate."""
+    from gpbayestools_hic_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return "SASS: cuobjdump not found; not read"
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path("fused_predict"))],
+                          capture_output=True, text=True).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = re.search(r"(kstar_kernel|fwd_wgmma_kernel|bwd_wgmma_kernel|bwd_high_kernel|"
+                         r"rowsum_kernel)(I[^E]*E)?", chunk.split("\n", 1)[0])
+        if name is None:
+            continue
+        counts[name.group(0)] = {op: len(re.findall(rf"\b{op}[.\s]", chunk))
+                                 for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return f"SASS of fused_predict ({tool} -sass), instructions per kernel: {counts}"
 
 
 def kernel_phase(chain, device):
@@ -667,6 +702,34 @@ def kernel_phase(chain, device):
         stats[name] = dict(max_abs_err=err, ms=t, plain_ms=tp, bound_ms=bd, bound_by=why,
                            library_ms=tl, library_tf32_ms=tl32, precision=precision,
                            timing="CUDA events around 9 rotations over the 9 emulators")
+
+    # the forward and the fast backward by CUDA-graph replay (the host's
+    # enqueue outside the time): at this shape, at a quarter of the walkers
+    # (m = 256: HMC's second run, PTLMC, each shard of path j) and with the
+    # nine emulators' GPs in one call (b = 36)
+    merged = fp.FusedState(*(torch.cat([getattr(s, f) for s in states]).contiguous()
+                             for f in fp.FusedState._fields))
+    ct36 = [torch.tensor(rng.normal(size=(merged.xs.shape[0], m)), dtype=torch.float32,
+                         device=device) for _ in range(2)]
+    for group, mm, ctm, ctq in (
+            (states, m, ct_mean, ct_qf),
+            (states, 256, ct_mean[:, :256].contiguous(), ct_qf[:, :256].contiguous()),
+            ([merged], m, *ct36)):
+        xq_c = xq[:mm].contiguous()
+        vs_c = [fp.fused_fwd(s, xq_c, save_v=True)[2] for s in group]
+        t_f = graph_ms(lambda: [fp.fused_fwd(s, xq_c, save_v=True) for s in group],
+                       reps=2) / len(group)
+        t_b = graph_ms(lambda: [fp.fused_bwd(s, xq_c, vs_c[i], ctm, ctq)
+                                for i, s in enumerate(group)], reps=2) / len(group)
+        bb = group[0].xs.shape[0]
+        for name, t, (tc, fl, nbytes) in (
+                ("fused_predict_fwd", t_f, fwd_work(bb, n, mm, d, save_v=True)),
+                ("fused_predict_bwd", t_b, bwd_work(bb, n, mm, d, passes=1))):
+            bd, why = bound_ms(fl, nbytes, tc)
+            log(f"timing {name} by CUDA-graph replay at b={bb}, n={n}, d={d}, m={mm}: "
+                f"{t:.4f} ms, bound {bd:.4f} ms ({why})")
+            stats[name].setdefault("graph_replay", []).append(
+                dict(b=bb, n=n, d=d, m=mm, ms=t, bound_ms=bd, bound_by=why))
     return stats
 
 
@@ -2060,6 +2123,7 @@ def main() -> int:
     log(f"kernel build: {secs} ({time.perf_counter() - t0:.1f} s wall)")
     for name, text in _build.BUILD_LOGS.items():
         log(f"--- nvcc {name} ---\n{text.strip()}")
+    log(sass_evidence())
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()

@@ -65,15 +65,17 @@ def _f64(fs, *ts):
     return (fp.FusedState(*(t.double() for t in fs)),) + tuple(t.double() for t in ts)
 
 
-@pytest.mark.parametrize("b", [4, 23, 70])
+@pytest.mark.parametrize("b", [4, 23, 36, 70])
 @pytest.mark.parametrize("n", [1, 40, 257, 1000])
-@pytest.mark.parametrize("m", [1, 37, 200, 1024])
+@pytest.mark.parametrize("m", [1, 37, 200, 256, 1024])
 def test_cuda_kernels_match_plain(cuda_device, b, n, m):
     """Kernel 1 (mean, qf, saved v) against the plain forward in float32
     and in float64, kernel 2 (per-GP query cotangent) against the plain
-    backward in float64, at ragged n and m (16-byte and 4-byte copy routes,
-    partial tiles, odd row-tile pairs) and at the flagship's 4 GPs per call
-    and the BAND heads' 11 to 70; each call launches once."""
+    backward in float64, at ragged n and m (padded rows, partial tiles,
+    odd row-tile pairs, one and two consumer warpgroups), at the
+    flagship's 4 GPs per call, at 36 (its GPs in one call), at the BAND
+    heads' 11 to 70, and at m = 256 (a quarter of the flagship's walkers);
+    each call launches once."""
     fs, xq, ctm, ctq = _problem(cuda_device, b=b, n=n, m=m)
     before = dict(LAUNCH_COUNTS)
     mk, qk, vk = fp.fused_fwd(fs, xq, save_v=True)
@@ -106,11 +108,63 @@ def test_cuda_autograd_function_matches_plain_autograd(cuda_device):
 
 
 def test_cuda_rejects_wrong_inputs(cuda_device):
-    fs, xq, _, _ = _problem(cuda_device, n=40, m=8)
+    fs, xq, ctm, ctq = _problem(cuda_device, n=40, m=8)
     with pytest.raises(ValueError, match="float32"):
         fp.fused_fwd(fs, xq.double())
     with pytest.raises(ValueError, match="shape"):
         fp.fused_fwd(fs, xq[:, :5].contiguous())
+    with pytest.raises(ValueError, match="kernel factor"):
+        fp.fused_fwd(fs._replace(kf=None), xq)
+    # a backward takes v in the forward kernel's layout, never a plain one
+    _, _, v = fp.fused_fwd_plain(fs, xq, save_v=True)
+    for prec in ("default", "high"):
+        with pytest.raises(ValueError, match="saved v"):
+            fp.fused_bwd(fs, xq, v, ctm, ctq, prec)
+    g = fp.fused_bwd(fs, xq, fp.kernel_layout_v(fs, xq, v), ctm, ctq)
+    assert torch.isfinite(g).all()
+
+
+def test_cuda_layout_helpers_match_the_library(cuda_device):
+    """The Python mirrors of the library's sizes (scratch floats, the padded
+    row stride, the k* planes) agree with the built library, and the saved
+    v is the (b, n, m) view of plane 0 of a (1 + KST_PLANES, b, m, ld)
+    buffer with zeros in the padding and the plain k* (to rounding) in the
+    next plane."""
+    lib = fp._lib()
+    assert lib.fused_predict_kst_planes() == fp.KST_PLANES
+    for b, n, m, d in ((1, 1, 1, 1), (4, 1000, 1024, 17), (23, 257, 37, 5), (70, 999, 200, 32)):
+        assert lib.fused_predict_ld(n) == fp.factor_ld(n)
+        for entry in (0, 1, 2):
+            assert lib.fused_predict_scratch(entry, b, n, m, d) == fp.scratch_floats(
+                entry, b, n, m, d)
+    fs, xq, _, _ = _problem(cuda_device, n=257, m=37)
+    _, _, v = fp.fused_fwd(fs, xq, save_v=True)
+    ld = fp.factor_ld(257)
+    assert v.shape == (4, 257, 37) and v.stride() == (37 * ld, 1, ld)
+    pad = torch.as_strided(v, (4, 37, ld - 257), (37 * ld, ld, 1), v.storage_offset() + 257)
+    assert torch.count_nonzero(pad) == 0
+    kst = torch.as_strided(v, (4, 37, 257), (37 * ld, ld, 1), 4 * 37 * ld)
+    assert _rel(kst, fp._kstar_plain(fs, xq)[2].mT) <= 1e-6
+
+
+@pytest.mark.parametrize("n", [257, 1000])
+def test_cuda_walkers_do_not_depend_on_the_batch(cuda_device, n):
+    """A walker's mean, qf, v and query cotangent are the same bit for bit
+    whether it shares the call with 1023 other walkers or with 255 (the
+    two batches take different block shapes: one consumer warpgroup per
+    block at 256, two at 1024), as the sharded path j of chip_smoke.py
+    requires."""
+    fs, xq, ctm, ctq = _problem(cuda_device, n=n, m=1024, seed=11)
+    full = fp.fused_fwd(fs, xq, save_v=True)
+    g_full = fp.fused_bwd(fs, xq, full[2], ctm, ctq)
+    for lo in (0, 256, 768):
+        sl = slice(lo, lo + 256)
+        part = fp.fused_fwd(fs, xq[sl].contiguous(), save_v=True)
+        assert torch.equal(part[0], full[0][:, sl]) and torch.equal(part[1], full[1][:, sl])
+        assert torch.equal(part[2], full[2][:, :, sl])
+        g = fp.fused_bwd(fs, xq[sl].contiguous(), part[2], ctm[:, sl].contiguous(),
+                         ctq[:, sl].contiguous())
+        assert torch.equal(g, g_full[:, sl])
 
 
 @pytest.mark.parametrize("n", [40, 257, 1000])

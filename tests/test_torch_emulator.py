@@ -26,6 +26,18 @@ from gpbayestools_hic_tpu_torch.ops import scalers
 from gpbayestools_hic_tpu_torch.runtime import parse_model_parameter_file
 from gpbayestools_hic_tpu_torch.utils import io
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "gpbayestools_hic_tpu_torch"
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -242,7 +254,7 @@ def test_isolation_subprocess_loads_jax_save_without_jax(jax_saves, jax_pca_save
         "assert not bad, bad\n"
         "print('isolated')\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -271,7 +283,7 @@ def test_every_port_module_imports_without_optional_packages():
         "assert not bad, bad\n"
         "print('imported', len(sys.argv), flush=True)\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -569,7 +581,7 @@ def test_port_save_loads_in_jax_without_the_port(pca_files, tmp_path):
         "assert not bad, bad\n"
         "print('jax-loaded')\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]

@@ -17,6 +17,18 @@ import torch
 from gpbayestools_hic_tpu.samplers.ensemble import run_ensemble as j_run_ensemble
 from gpbayestools_hic_tpu_torch.samplers import ensemble as pe
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MOVES = ("stretch", "de", "snooker", "de-snooker")
 
 

@@ -21,6 +21,17 @@ from gpbayestools_hic_tpu_torch.ops import registry
 from gpbayestools_hic_tpu_torch.ops.linalg import mvn_loglike_batch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def interpret_mode(monkeypatch):
     monkeypatch.setattr(pm, "INTERPRET", True)

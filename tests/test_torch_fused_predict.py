@@ -23,6 +23,17 @@ from gpbayestools_hic_tpu_torch.ops import registry
 from gpbayestools_hic_tpu_torch.models.gp import GPConfig, GPState, gp_predict
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gp_problem(seed, b=3, n=50, d=5, m=37):
     """A real GP batch (JAX finalize_gp_state) + queries, all numpy f64."""
     rng = np.random.default_rng(seed)
@@ -385,9 +396,9 @@ def test_grad_precision_selects_the_backward_kernel():
     with pytest.raises(ValueError, match="grad_precision"):
         fp.fused_bwd(fs, torch.tensor(xq), None, None, None, "bf16")
     src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
-    assert "int fused_predict_bwd_high(" in src and "launch_bwd<3>(" in src
-    assert "int fused_predict_bwd(" in src and "launch_bwd<1>(" in src
-    assert "bwd_tc_kernel<true, kPasses>" in src and "bwd_fp32_kernel" not in src
+    assert "int fused_predict_bwd_high(" in src and "bwd_high_kernel<true>" in src
+    assert "int fused_predict_bwd(" in src and "bwd_wgmma_kernel<2>" in src
+    assert "bwd_wgmma_kernel<1>" in src and "bwd_fp32_kernel" not in src
 
 
 def test_high_precision_gradient_matches_jax_pallas(interpret_force):
@@ -427,8 +438,10 @@ def test_high_precision_gradient_matches_jax_pallas(interpret_force):
 
 def test_predict_variant_edits_apply_to_the_source():
     """tools/torch_predict_variants.py times design alternatives of the
-    forward kernel as text edits of csrc/fused_predict.cu; every edit must
-    still apply exactly once, and the kept variant is the source itself."""
+    kernels as text edits of csrc/fused_predict.cu's knobs (ring depths,
+    promotion interval, where k* is split, tile widths, warpgroups per
+    block); every edit must still apply exactly once, and the kept variant
+    is the source itself."""
     import importlib.util
 
     path = _build._PKG_DIR.parent / "tools" / "torch_predict_variants.py"
@@ -436,9 +449,215 @@ def test_predict_variant_edits_apply_to_the_source():
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
-    assert set(tool.VARIANTS) == {"kept", "g_split_in_memory", "cvt_rounding", "no_promotion",
-                                  "rows_1_at_a_time", "rows_16_at_a_time", "no_copies",
-                                  "no_products", "high_one_block_per_sm"}
+    assert set(tool.VARIANTS) == {
+        "kept", "fwd_stages_3", "bwd_stages_3", "promote_2", "promote_4", "promote_never",
+        "split_in_memory",
+        "tn_64", "kstar_128x64", "kstar_64x128", "kstar_32x64", "one_consumer",
+        "two_consumers", "fwd_no_products", "bwd_no_products", "bwd_no_round",
+        "bwd_no_contraction"}
     assert tool.variant_source(src, tool.VARIANTS["kept"]) == src
     for name, edits in tool.VARIANTS.items():
         assert tool.variant_source(src, edits) != src or name == "kept"
+
+
+# -------------------- the Hopper kernels' layouts and arithmetic (emulated)
+
+
+def test_kernel_factor_layout_and_sizes():
+    """build_fused_state's kernel factor, (b, 3, n + 1, ld) with ld = n
+    rounded up to 4 (the 16-byte row stride TMA needs): planes 0 + 1 are
+    [G; alpha] split into two TF32 values (to 2^-22 of the largest), plane
+    2 is G^T rounded to nearest TF32 with a zero row n, and every padding
+    column is zero.  The Python mirrors of the library's sizes agree with
+    the source's constants and count what the kernels take."""
+    for n in (1, 5, 50, 257):
+        x, params, st, _, _ = _gp_problem(7, b=2, n=n, d=3, m=4)
+        t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
+        fs = fp.build_fused_state({k: t(v) for k, v in params.items()}, t(x),
+                                  t(st.linv), t(st.alpha_vec))
+        ld = fp.factor_ld(n)
+        assert ld % 4 == 0 and n <= ld < n + 4
+        assert fs.kf.shape == (2, 3, n + 1, ld) and fs.kf.is_contiguous()
+        ga = torch.cat([fs.G, fs.alpha[:, None, :]], 1)
+        hi, lo = fs.kf[:, 0, :, :n], fs.kf[:, 1, :, :n]
+        for half in (hi, lo):
+            assert torch.equal(_round_tf32(half), half)
+        assert torch.equal(hi, _round_tf32(ga))
+        assert float(((hi.double() + lo.double()) - ga.double()).abs().max()) <= (
+            2.0 ** -21 * float(ga.abs().max()))
+        assert torch.equal(fs.kf[:, 2, :n, :n], _round_tf32(fs.G.transpose(1, 2)))
+        assert torch.count_nonzero(fs.kf[:, 2, n]) == 0
+        assert torch.count_nonzero(fs.kf[..., n:]) == 0
+        assert torch.equal(fp.round_tf32(ga), _round_tf32(ga))
+    src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
+    for tile in ("TN", "TM"):
+        assert f"constexpr int {tile} = {fp.TILE_ROWS};" in src
+    assert "constexpr bool SPLIT_IN_SMEM = true;" in src and fp.KST_PLANES == 1  # raw k*
+    assert [fp.tile_pairs(r) for r in (1, 128, 129, 257, 1000, 1001)] == [1, 1, 1, 2, 4, 4]
+    b, n, m, d = 4, 1000, 1024, 17
+    assert fp.scratch_floats(0, b, n, m, d) == b * 4 * m
+    assert fp.scratch_floats(1, b, n, m, d) == fp.scratch_floats(2, b, n, m, d) == b * 4 * m * d
+    assert fp.scratch_floats(0, 1, 1, 1, 1) == 1
+
+
+def test_kernel_layout_v_is_a_padded_view():
+    """The forward kernel saves v as v^T in plane 0 of a (2, b, m, ld)
+    buffer whose plane 1 holds the call's k*^T (the fast backward's k*),
+    and hands out the (b, n, m) view of plane 0; kernel_layout_v makes that
+    layout from a plain v (equal values, zeros in the padding, the plain
+    k*), which the plain backward reads as it is."""
+    x, params, st, xq, w = _gp_problem(8, b=2, n=30, d=3, m=7)
+    fs = _port_state_f64(x, params, st)
+    xq = torch.tensor(xq)
+    _, _, v = fp.fused_fwd_plain(fs, xq, save_v=True)
+    kv = fp.kernel_layout_v(fs, xq, v)
+    ld = fp.factor_ld(30)
+    assert kv.shape == v.shape and kv.stride() == (7 * ld, 1, ld) and torch.equal(kv, v)
+    assert kv.untyped_storage().nbytes() == 2 * 2 * 7 * ld * 8
+    buf = torch.as_strided(kv, (2, 2, 7, ld), (2 * 7 * ld, 7 * ld, ld, 1))
+    assert torch.count_nonzero(buf[..., 30:]) == 0
+    assert torch.equal(buf[1, :, :, :30], fp._kstar_plain(fs, xq)[2].mT)
+    ctm, ctq = torch.tensor(w[0]), torch.tensor(w[1])
+    assert torch.equal(fp.fused_bwd_plain(fs, xq, kv, ctm, ctq),
+                       fp.fused_bwd_plain(fs, xq, v, ctm, ctq))
+
+
+def _rz_f32(x64: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero."""
+    y = x64.to(torch.float32)
+    return torch.where(y.double().abs() > x64.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _wgmma_product(a_hi, a_lo, b_hi, b_lo, promote_steps):
+    """(b, M, K) x (b, N, K)^T as the forward kernel runs it, both operands
+    K-major: each 8-deep step's three TF32 products (lo*hi + hi*lo +
+    hi*hi; products of TF32 values are exact in float64) chained into a
+    float32 sum that is truncated toward zero (a model of the tensor cores'
+    accumulation, which is not rounded to nearest), promoted into the FP32
+    running sum every promote_steps steps."""
+    k = a_hi.shape[-1]
+    acc = torch.zeros(a_hi.shape[0], a_hi.shape[1], b_hi.shape[1], dtype=torch.float32)
+    part = torch.zeros_like(acc)
+    steps = -(-k // 8)
+    for s in range(steps):
+        sl = slice(8 * s, 8 * s + 8)
+
+        def f64(x):
+            return x[..., sl].double()
+
+        step = (f64(a_lo) @ f64(b_hi).mT + f64(a_hi) @ f64(b_lo).mT) + f64(a_hi) @ f64(b_hi).mT
+        part = _rz_f32(part.double() + step)
+        if (s + 1) % promote_steps == 0 or s == steps - 1:
+            acc, part = acc + part, torch.zeros_like(acc)
+    return acc
+
+
+#: 8-deep steps of the forward's promotion interval: one ring stage of 32
+#: contraction steps (PROMOTE = 1)
+PROMOTE_STEPS = 4
+
+
+def _wgmma_forward(fs, xq, promote_steps=PROMOTE_STEPS):
+    """mean, qf of the forward kernel's arithmetic in its layouts: k*^T
+    (walkers x training rows) split into TF32 halves as the kernel splits a
+    landed stage, [G; alpha] halves from the kernel factor, v^T = k*^T
+    [G; alpha]^T."""
+    n = fs.G.shape[1]
+    _, _, kstar = fp._kstar_plain(fs, xq)
+    kt = kstar.transpose(1, 2).contiguous()
+    kh = fp.round_tf32(kt)
+    vt = _wgmma_product(kh, fp.round_tf32(kt - kh), fs.kf[:, 0, :, :n], fs.kf[:, 1, :, :n],
+                        promote_steps)
+    return vt[..., n], (vt[..., :n] ** 2).sum(-1)
+
+
+def test_wgmma_forward_arithmetic_on_real_factors(interpret_force):
+    """The forward kernel's arithmetic in its new layouts (walkers on the M
+    side, both operands K-major and split into TF32 halves, each stage's
+    products promoted to FP32) on the real GP factor stays within 1e-4
+    normwise of a float64 evaluation in mean and qf (chip_smoke.py's check
+    on the card), and its mean is closer than the JAX Pallas kernel's bf16
+    3-pass mean."""
+    fs, fs64, jfs, xq32, _ = _real_factor_problem()
+    xq = torch.tensor(xq32)
+    m64, q64, _ = fp.fused_fwd_plain(fs64, xq.double())
+    mean, qf = _wgmma_forward(fs, xq)
+    jmean, _ = pp.fused_pc_predict(jfs, jnp.asarray(xq32))
+    e_mean, e_qf = _normwise(mean, m64), _normwise(qf, q64)
+    jax_err = _normwise(torch.tensor(np.asarray(jmean)).T, m64)
+    assert max(e_mean, e_qf) <= 1e-4 and e_mean < jax_err, (e_mean, e_qf, jax_err)
+
+
+def test_promotion_interval_of_one_stage():
+    """The promotion interval the forward kernel takes (one ring stage, 32
+    contraction steps, into a fresh sum) keeps a GP of n = 1000 with a
+    large alpha (noise 1e-3) within 1e-4 normwise of float64 in the mean,
+    under a model of the tensor cores' accumulation that truncates (4.0e-5;
+    two stages 4.8e-5, eight 1.05e-4); the same products chained over the
+    whole contraction miss 1e-4 (on the H100: 7.2e-5 against 4.6e-6 at the
+    flagship, PERF.md), so the interval is what holds the tolerance."""
+    rng = np.random.default_rng(3)
+    b, n, d, m = 2, 1000, 5, 64
+    x = torch.tensor(rng.uniform(0, 1, (n, d)))
+    params = {"log_ls": torch.tensor(np.log(rng.uniform(0.3, 1.0, (b, d)))),
+              "log_amp": torch.tensor(np.log(rng.uniform(0.5, 2.0, b))),
+              "log_noise": torch.tensor(np.log(np.full(b, 1e-3)))}
+    st = _port_finalize(params, x, torch.tensor(rng.normal(size=(b, n))))
+    fs = fp.build_fused_state(params, x, st.linv, st.alpha_vec)
+    xq = torch.tensor(rng.uniform(0, 1, (m, d)), dtype=torch.float32)
+    m64, q64, _ = fp.fused_fwd_plain(fp.FusedState(*(t.double() for t in fs)), xq.double())
+    err = {}
+    for name, steps in (("kernel", PROMOTE_STEPS), ("never", 10**9)):
+        mean, qf = _wgmma_forward(fs, xq, steps)
+        err[name] = (_normwise(mean, m64), _normwise(qf, q64))
+    assert max(err["kernel"]) <= 1e-4 and err["never"][0] > 1e-4, err
+
+
+def _port_finalize(params, x, y):
+    from gpbayestools_hic_tpu_torch.models.gp import finalize_gp_state
+
+    return finalize_gp_state(params, x, y, GPConfig())
+
+
+def _truncate_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by dropping the low 13 bits, as the tensor cores read
+    a float32 operand that was not rounded."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("v_rounding", ["nearest", "truncated"])
+def test_wgmma_backward_operands_on_real_factors(interpret_force, v_rounding):
+    """The fast backward kernel's product in its new layouts, (G^T v)^T =
+    v^T (G^T)^T with both operands K-major: G^T from the kernel factor
+    (rounded to nearest TF32 once, in memory) and v^T as the forward saves
+    it, rounded to nearest in shared memory ("nearest", what the kernel
+    does) or left for the tensor cores to truncate ("truncated", the
+    kernel without its rounding pass); one TF32 pass, the rest of the
+    backward in FP32 (the 2 ct_qf scale a row scale of the walkers).
+    Either way it is closer to the float64 gradient than the JAX fast
+    backward's one bf16 pass and inside chip_smoke.py's 2e-3; the rounded
+    operands are exactly those of test_tf32_backward_arithmetic_beats_jax_bf16."""
+    fs, fs64, jfs, xq32, w32 = _real_factor_problem()
+    xq = torch.tensor(xq32)
+    ctm, ctq = torch.tensor(w32[0]), torch.tensor(w32[1])
+    _, _, v64 = fp.fused_fwd_plain(fs64, xq.double(), save_v=True)
+    g64 = fp.fused_bwd_plain(fs64, xq.double(), v64, ctm.double(), ctq.double()).sum(0)
+    n = fs.G.shape[1]
+    _, _, v = fp.fused_fwd_plain(fs, xq, save_v=True)
+    kv = fp.kernel_layout_v(fs, xq, v)
+    vt = kv.transpose(1, 2)                    # (b, m, n): the rows of the saved v^T
+    vt = _round_tf32(vt) if v_rounding == "nearest" else _truncate_tf32(vt)
+    gt = fs.kf[:, 2, :n, :n]                  # G^T, rounded to nearest TF32
+    if v_rounding == "nearest":
+        assert torch.equal(vt, _round_tf32(v).transpose(1, 2))
+        assert torch.equal(gt, _round_tf32(fs.G).transpose(1, 2))
+    prod_t = torch.bmm(vt.double(), gt.double().mT).float()   # (G^T v)^T, (b, m, n)
+    g = _backward_with_product(fs, xq, ctm, ctq, prod_t.transpose(1, 2))
+
+    def jloss(q):
+        mn, qq = pp.fused_pc_predict_fastbwd(jfs, q)
+        return jnp.sum(mn * w32[0].T) + jnp.sum(qq * w32[1].T)
+
+    g_jax = torch.tensor(np.asarray(jax.grad(jloss)(jnp.asarray(xq32))))
+    e, e_jax = _normwise(g, g64), _normwise(g_jax, g64)
+    assert e < e_jax and e < 2e-3, (e, e_jax)

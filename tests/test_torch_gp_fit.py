@@ -23,6 +23,18 @@ from gpbayestools_hic_tpu.ops import kernels as jkern
 from gpbayestools_hic_tpu_torch.models import gp
 from gpbayestools_hic_tpu_torch.ops import kernels as kern
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KINDS = ("RBF", "Matern", "MaternProd")
 MAXITER = 30
 JAX_KEY = 7

@@ -14,6 +14,18 @@ from gpbayestools_hic_tpu_torch.ops import linalg as pl
 from gpbayestools_hic_tpu_torch.samplers.hmc import run_hmc
 from gpbayestools_hic_tpu_torch.utils import metrics as pm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU64 = dict(device="cpu", dtype=torch.float64)
 MEAN = np.array([1.0, -2.0])
 STD = np.array([0.5, 2.0])

@@ -16,6 +16,18 @@ import torch
 from gpbayestools_hic_tpu.ops.lbfgsb import lbfgsb_minimize as j_minimize
 from gpbayestools_hic_tpu_torch.ops.lbfgsb import lbfgsb_minimize
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C = np.array([0.3, -1.7, 2.5, 0.9])
 SCALE = np.array([1.0, 10.0, 0.5, 3.0])
 

@@ -17,6 +17,17 @@ from gpbayestools_hic_tpu.ops import linalg as jl
 from gpbayestools_hic_tpu_torch.ops import linalg as pl
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spd(rng, n, shift=None):
     a = rng.normal(size=(n, n))
     return a @ a.T + (n if shift is None else shift) * np.eye(n)

@@ -11,6 +11,17 @@ from gpbayestools_hic_tpu.models import param_pca as jpp
 from gpbayestools_hic_tpu_torch.models import param_pca as pp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tensors are tiny, and the suite runs in
+    parallel worker processes, where multi-threaded torch ops on every
+    worker oversubscribe the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _design(nev=30, seed=42):
     """20-parameter design in the flagship layout (physical-ish ranges for
     the three viscosity groups)."""

@@ -1,43 +1,53 @@
 """Design checks of the fused predict kernels on one GPU: variants of
 ``gpbayestools_hic_tpu_torch/csrc/fused_predict.cu`` built side by side and
-timed at the flagship shape.
+timed at the flagship's shapes.
 
 Run from the repository root on a CUDA machine:
 
-    python3 tools/torch_predict_variants.py [--parent DIR]
+    python3 tools/torch_predict_variants.py [--parent DIR] [--walkers 1024,256]
 
 ``--parent DIR`` adds the ``fused_predict.cu`` of another checkout (e.g. the
 parent commit unpacked with ``git archive``) as the variant ``parent``, so
-that the two are timed in one process on one card.
+that the two are timed in one process on one card.  The parent may be of
+the sm_80 design (``mma.sync``, v saved as (b, n, m), no kernel factor) or
+of this one; the script calls each library by the interface it exports.
 
-Each variant is the committed source with a few text edits (the script
-fails if an edit no longer applies to the source):
+Each variant is the committed source with a few text edits of its design
+knobs (the script fails if an edit no longer applies to the source):
 
-- ``kept``: the source as committed (G split into TF32 halves as its
-  fragments are read, integer TF32 rounding, each step's products added to
-  the accumulator in FP32, the backward's xs rows loaded four at a time);
-- ``g_split_in_memory``: G and alpha split into TF32 halves once, in device
-  memory (what the TPU package's ``attach_fused_factors`` does for bf16),
-  two A tiles per ring stage and no split in the kernel; two ring stages so
-  that two blocks still fit on an SM;
-- ``cvt_rounding``: TF32 rounding by ``cvt.rna.tf32.f32``;
-- ``no_promotion``: the forward's products accumulate straight into the
-  accumulator;
-- ``high_one_block_per_sm``: the three-pass backward (kernel 3) given one
-  block per SM, and so up to 255 registers, on its 16-byte route too;
-- ``rows_1_at_a_time`` / ``rows_16_at_a_time``: the backward's xs rows
-  loaded one / sixteen per thread at a time;
-- ``no_copies`` / ``no_products``: the ring's copies / the tensor-core
-  products switched off in both kernels (wrong results; what is left of
-  the time is the other part plus the epilogue).
+- ``kept``: the source as committed;
+- ``fwd_stages_3`` / ``bwd_stages_3``: the forward's / the fast backward's
+  ring one stage shallower;
+- ``promote_2`` / ``promote_4``: the forward's products promoted to the
+  FP32 sum every two / four ring stages (64 / 128 contraction steps; a
+  stage's products then stay in flight while the next stage is split),
+  instead of every stage (each stage waits for its products);
+- ``promote_never``: one sum over the whole contraction, promoted once
+  (what the accuracy without promotion is);
+- ``split_in_memory``: k* split into its TF32 halves by ``kstar_kernel``,
+  two planes in device memory (instead of written raw, one plane, and
+  split in shared memory by the warpgroup that reads the stage), with the
+  3-stage ring its larger stages leave room for;
+- ``tn_64``: tiles of 64 rows (``wgmma`` m64n64k8) instead of 128;
+- ``kstar_128x64`` / ``kstar_64x128`` / ``kstar_32x64``: the k* pre-pass's
+  tile (training rows x walkers per block; 64 x 64 kept);
+- ``one_consumer`` / ``two_consumers``: every block with one (64 walkers) /
+  two (128) consumer warpgroups, whatever the grid;
+- diagnostics, wrong results: ``fwd_no_products`` / ``bwd_no_products``
+  (the ring's copies without the products), ``bwd_no_round`` (v^T not
+  rounded: the tensor cores drop its low bits), ``bwd_no_contraction``
+  (no query contraction, the FP32 part of the epilogue).
 
-For each it prints the ptxas registers and spills of the tensor-core
-kernels, the device time of the forward, the fast backward and the
-three-pass backward (CUDA events
-around a rotation over the 9 emulators' factors of the flagship chain,
-1024 walkers), their normwise errors against the plain forward and
-backward in float64 (the backwards are given the plain forward's v), then
-the card's name and power limit and one JSON line.  Imports nothing of JAX.
+For each it prints the ptxas registers and spills of the kernels, the
+device time of the forward, the fast backward and the three-pass backward
+(a CUDA graph of two rotations over the 9 emulators' factors of the
+flagship chain, replayed between CUDA events, so the host's enqueue stays
+out of the time) at each walker count and at b = 36 (the nine emulators'
+GPs in one call), in two rounds (the variants in order, then in reverse:
+the parent and the committed source are timed in turns), their normwise
+errors against the plain forward and
+backward in float64 (the backwards given that library's own v), then the
+card's name and power limit and one JSON line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -54,99 +64,42 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-_SPLIT_A = """          split_tf32(ar[0], ah[0], al[0]);
-          split_tf32(ar[8 * A_FWD_LD], ah[1], al[1]);
-          split_tf32(ar[4], ah[2], al[2]);
-          split_tf32(ar[8 * A_FWD_LD + 4], ah[3], al[3]);"""
 
-# the forward's ring with two stages (two blocks per SM with doubled A tiles)
-_RING2 = """template <int kStage, class Load, class Compute>
-__device__ __forceinline__ void run_ring2(float* ring, int ktiles, Load load, Compute compute) {
-  if (0 < ktiles) load(ring, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<0>();
-    __syncthreads();
-    if (kt + 1 < ktiles) load(ring + ((kt + 1) % 2) * kStage, kt + 1);
-    cp_async_commit();
-    compute(ring + (kt % 2) * kStage, kt);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
+def _knob(name: str, old: str, new: str):
+    return (f"constexpr {name} = {old};", f"constexpr {name} = {new};")
 
-"""
+
+_KSTAR_2_BLOCKS = ("__launch_bounds__(256, 4)\nkstar_kernel(",
+                   "__launch_bounds__(256, 2)\nkstar_kernel(")
+_CONSUMERS = "bool one_consumer(long long blocks128) { return 2 * blocks128 <= sm_count(); }"
 
 VARIANTS = {
     "kept": [],
-    "g_split_in_memory": [
-        ("constexpr int FWD_STAGE = TM * A_FWD_LD + TK * B_LD;",
-         "constexpr int FWD_STAGE = 2 * TM * A_FWD_LD + TK * B_LD;"),
-        ("constexpr int FWD_SMEM = STAGES * FWD_STAGE * 4;",
-         "constexpr int FWD_SMEM = 2 * FWD_STAGE * 4;"),
-        ("// Rows [l0, l0 + kRows) of xs_k", _RING2 + "// Rows [l0, l0 + kRows) of xs_k"),
-        ("run_ring<FWD_STAGE>(", "run_ring2<FWD_STAGE>("),
-        ("      float* Bs = st + TM * A_FWD_LD;", "      float* Bs = st + 2 * TM * A_FWD_LD;"),
-        ("      const float* Bs = st + TM * A_FWD_LD;",
-         "      const float* Bs = st + 2 * TM * A_FWD_LD;"),
-        ("              const float* __restrict__ kst,     // (b, n, mp)",
-         "              const float* __restrict__ kst,     // (b, n, mp)\n"
-         "              const float* __restrict__ G_lo, const float* __restrict__ alpha_lo,"),
-        ("  const float* kst_k = kst + (size_t)k * n * mp;",
-         "  const float* kst_k = kst + (size_t)k * n * mp;\n"
-         "  const float* gl_k = G_lo + (size_t)k * n * n;\n"
-         "  const float* al_k = alpha_lo + (size_t)k * n;"),
-        ("          cp_async16(As + row * A_FWD_LD + col, src, ok);",
-         "          cp_async16(As + row * A_FWD_LD + col, src, ok);\n"
-         "          cp_async16(As + TM * A_FWD_LD + row * A_FWD_LD + col,\n"
-         "                     !ok ? gl_k : (i < n ? gl_k + (size_t)i * n + l : al_k + l), ok);"),
-        ("          cp_async4(As + row * A_FWD_LD + col, src, ok);",
-         "          cp_async4(As + row * A_FWD_LD + col, src, ok);\n"
-         "          cp_async4(As + TM * A_FWD_LD + row * A_FWD_LD + col,\n"
-         "                    !ok ? gl_k : (i < n ? gl_k + (size_t)i * n + l : al_k + l), ok);"),
-        (_SPLIT_A,
-         "          const float* arl = ar + TM * A_FWD_LD;\n"
-         "          const int o[4] = {0, 8 * A_FWD_LD, 4, 8 * A_FWD_LD + 4};\n"
-         "#pragma unroll\n"
-         "          for (int q = 0; q < 4; ++q) {\n"
-         "            ah[q] = __float_as_uint(ar[o[q]]);\n"
-         "            al[q] = __float_as_uint(arl[o[q]]);\n"
-         "          }"),
-        ("                      float* mean, float* qf, float* v, float* scratch,\n"
-         "                      int b, int n, int m, int d, void* stream) {",
-         "                      float* mean, float* qf, float* v, float* scratch,\n"
-         "                      int b, int n, int m, int d, void* stream,\n"
-         "                      const float* G_lo, const float* alpha_lo) {"),
-        ("(G, alpha, kst, mean, qf_part, v, n, m, mp,",
-         "(G, alpha, kst, G_lo, alpha_lo, mean, qf_part, v, n, m, mp,"),
-    ],
-    "cvt_rounding": [
-        ("  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
-         "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(x));\n  return r;"),
-    ],
-    "rows_1_at_a_time": [("load_rows<TM, TC_NT, 4>", "load_rows<TM, TC_NT, 1>")],
-    "rows_16_at_a_time": [("load_rows<TM, TC_NT, 4>", "load_rows<TM, TC_NT, 16>")],
-    "no_copies": [
-        ("    if (s < ktiles) load(ring + s * kStage, s);", ""),
-        ("    if (nxt < ktiles) load(ring + (nxt % STAGES) * kStage, nxt);", ""),
-    ],
-    "no_products": [("    compute(ring + (kt % STAGES) * kStage, kt);", "")],
-    "high_one_block_per_sm": [
-        ("__global__ void __launch_bounds__(TC_NT, kVec ? 2 : 1)\nbwd_tc_kernel(",
-         "__global__ void __launch_bounds__(TC_NT, (kVec && kPasses == 1) ? 2 : 1)\n"
-         "bwd_tc_kernel("),
-    ],
-    "no_promotion": [
-        ("            float part[4] = {0.f, 0.f, 0.f, 0.f};\n"
-         "            mma_tf32(part, al, bh[ni]);   // small terms first\n"
-         "            mma_tf32(part, ah, bl[ni]);\n"
-         "            mma_tf32(part, ah, bh[ni]);\n"
-         "#pragma unroll\n"
-         "            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[e];",
-         "            mma_tf32(acc[mi][ni], al, bh[ni]);\n"
-         "            mma_tf32(acc[mi][ni], ah, bl[ni]);\n"
-         "            mma_tf32(acc[mi][ni], ah, bh[ni]);"),
-    ],
+    "fwd_stages_3": [_knob("int FWD_STAGES", "4", "3")],
+    "bwd_stages_3": [_knob("int BWD_STAGES", "4", "3")],
+    "promote_2": [_knob("int PROMOTE", "1", "2")],
+    "promote_4": [_knob("int PROMOTE", "1", "4")],
+    "promote_never": [_knob("int PROMOTE", "1", "1 << 20")],
+    "split_in_memory": [_knob("bool SPLIT_IN_SMEM", "true", "false"),
+                        _knob("int FWD_STAGES", "4", "3")],
+    "tn_64": [_knob("int TN", "128", "64")],
+    "kstar_128x64": [_knob("int KS_L", "64, KS_J = 64", "128, KS_J = 64"), _KSTAR_2_BLOCKS],
+    "kstar_64x128": [_knob("int KS_L", "64, KS_J = 64", "64, KS_J = 128"), _KSTAR_2_BLOCKS],
+    "kstar_32x64": [_knob("int KS_L", "64, KS_J = 64", "32, KS_J = 64")],
+    "one_consumer": [(_CONSUMERS, "bool one_consumer(long long) { return true; }")],
+    "two_consumers": [(_CONSUMERS, "bool one_consumer(long long) { return false; }")],
+    # diagnostics (wrong results): what is left of the time without a part
+    "fwd_no_products": [
+        ("        wgmma_tile(part, dal + 2 * kk, dbh + 2 * kk, (fresh && kk == 0) ? 0 : 1);\n"
+         "        wgmma_tile(part, dah + 2 * kk, dbl + 2 * kk, 1);\n"
+         "        wgmma_tile(part, dah + 2 * kk, dbh + 2 * kk, 1);\n", "")],
+    "bwd_no_products": [
+        ("for (int kk = 0; kk < BK / 8; ++kk) wgmma_tile(acc, da + 2 * kk, db + 2 * kk, 1);", "")],
+    "bwd_no_round": [
+        ("      for (int q = 0; q < 4; ++q) round4(reinterpret_cast<float4*>(a) + wtid + 128 * q);\n",
+         "")],
+    "bwd_no_contraction": [("    for (int d0 = 0; d0 < d; d0 += 4) {",
+                            "    for (int d0 = 0; d0 < 0; d0 += 4) {")],
 }
 
 
@@ -158,8 +111,8 @@ def variant_source(text: str, edits) -> str:
     return text
 
 
-def build(tmp: str, parent: str | None = None) -> dict:
-    """Compile every variant at once (one nvcc each); name -> CDLL."""
+def build(tmp: str, parent: str | None = None):
+    """Compile every variant at once (one nvcc each); name -> CDLL, ptxas."""
     from gpbayestools_hic_tpu_torch.ops import _build
 
     rel = os.path.join("gpbayestools_hic_tpu_torch", _build.SOURCES["fused_predict"])
@@ -181,33 +134,142 @@ def build(tmp: str, parent: str | None = None) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"variant {name} does not build:\n{out}")
         ptxas[name] = ptxas_report(out)
-        lib = ctypes.CDLL(so)
-        lib.fused_predict_scratch.restype = ctypes.c_longlong
-        lib.fused_predict_scratch.argtypes = [ctypes.c_int] * 5
-        lib.fused_predict_fwd.restype = ctypes.c_int
-        extra = 2 if name == "g_split_in_memory" else 0
-        lib.fused_predict_fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                                          + [ctypes.c_void_p] * (1 + extra))
-        for entry in ("fused_predict_bwd", "fused_predict_bwd_high"):
-            getattr(lib, entry).restype = ctypes.c_int
-            getattr(lib, entry).argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        libs[name] = lib
+        libs[name] = Library(ctypes.CDLL(so))
     return libs, ptxas
 
 
 def ptxas_report(log: str) -> dict:
-    """{kernel: "R registers, S bytes spilled"} for the tensor-core kernels
-    (the backward's instances by copy route and pass count)."""
+    """{kernel: "R registers, S bytes spilled"} for the product kernels, and
+    ptxas's notes where it serialized wgmma."""
     out, lines = {}, log.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"\d(fwd_tc_kernel|bwd_tc_kernel)ILb([01])E(?:Li(\d)E)?", line)
+        m = re.search(r"\d+(fwd_wgmma_kernel|bwd_wgmma_kernel|bwd_high_kernel|fwd_tc_kernel|"
+                      r"bwd_tc_kernel)I(L[ib]\d+E)+", line)
         if "Compiling entry" in line and m:
             spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
             regs = re.search(r"Used (\d+) registers", lines[i + 3])
-            route = "16-byte" if m.group(2) == "1" else "4-byte"
-            passes = f", {m.group(3)} pass{'es' if m.group(3) != '1' else ''}" if m.group(3) else ""
-            out[f"{m.group(1)} ({route}{passes})"] = (f"{regs.group(1)} registers, "
-                                                      f"{spill.group(1)} bytes spilled")
+            out[m.group(0)[len(re.match(r"\d+", m.group(0)).group(0)):]] = (
+                f"{regs.group(1)} registers, {spill.group(1)} bytes spilled")
+    # ptxas says where it serialized wgmma (waits of its own around the products)
+    serial = [line.strip() for line in lines if "serializ" in line]
+    if serial:
+        out["wgmma serialized"] = serial
+    return out
+
+
+class Library:
+    """One build of the source, called by the interface it exports: this
+    design's (kernel factor and its descriptor, v^T) or the sm_80 one's."""
+
+    def __init__(self, lib):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        self.lib = lib
+        self.hopper = hasattr(lib, "fused_predict_encode_factor")
+        lib.fused_predict_scratch.restype = ctypes.c_longlong
+        lib.fused_predict_scratch.argtypes = [I] * 5
+        lib.fused_predict_fwd.restype = I
+        lib.fused_predict_fwd.argtypes = [P] * (9 if self.hopper else 10) + [I] * 4 + [P]
+        for entry in ("fused_predict_bwd", "fused_predict_bwd_high"):
+            getattr(lib, entry).restype = I
+            getattr(lib, entry).argtypes = [P] * 11 + [I] * 4 + [P]
+        if self.hopper:
+            lib.fused_predict_encode_factor.restype = I
+            lib.fused_predict_encode_factor.argtypes = [P, I, I, P]
+            lib.fused_predict_kst_planes.restype = I
+            lib.fused_predict_kst_planes.argtypes = []
+            self.planes = lib.fused_predict_kst_planes()
+            lib.fused_predict_fwd.argtypes = [P] * 10 + [I] * 4 + [P]
+        self.descs = {}
+
+    def desc(self, s):
+        key = s.kf.data_ptr()
+        if key not in self.descs:
+            b, n = s.alpha.shape
+            buf = ctypes.create_string_buffer(128)
+            if self.lib.fused_predict_encode_factor(s.kf.data_ptr(), b, n, buf):
+                raise SystemExit("factor descriptor")
+            self.descs[key] = buf
+        return self.descs[key]
+
+    def fwd(self, s, xq):
+        import torch
+
+        from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
+
+        b, n, d = s.xs.shape
+        m = xq.shape[0]
+        f32 = dict(dtype=torch.float32, device=xq.device)
+        mean, qf = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
+        scratch = torch.empty(self.lib.fused_predict_scratch(0, b, n, m, d), **f32)
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.hopper:
+            # v^T and the call's k*^T side by side, as the wrapper saves them
+            buf = torch.empty((1 + self.planes, b, m, fp.factor_ld(n)), **f32)
+            err = self.lib.fused_predict_fwd(
+                s.xs.data_ptr(), xq.data_ptr(), s.inv_ls.data_ptr(), self.desc(s),
+                s.amp.data_ptr(), mean.data_ptr(), qf.data_ptr(), buf[0].data_ptr(),
+                buf[1].data_ptr(), scratch.data_ptr(), b, n, m, d, stream)
+            v = buf[0, :, :, :n].transpose(1, 2)
+        else:
+            v = torch.empty((b, n, m), **f32)
+            err = self.lib.fused_predict_fwd(
+                s.xs.data_ptr(), xq.data_ptr(), s.inv_ls.data_ptr(), s.G.data_ptr(),
+                s.alpha.data_ptr(), s.amp.data_ptr(), mean.data_ptr(), qf.data_ptr(),
+                v.data_ptr(), scratch.data_ptr(), b, n, m, d, stream)
+        if err:
+            raise SystemExit(f"forward: CUDA error {err}")
+        return mean, qf, v
+
+    def bwd(self, s, xq, v, ct_mean, ct_qf, entry="fused_predict_bwd"):
+        import torch
+
+        b, n, d = s.xs.shape
+        m = xq.shape[0]
+        f32 = dict(dtype=torch.float32, device=xq.device)
+        part = torch.empty(self.lib.fused_predict_scratch(
+            1 if entry == "fused_predict_bwd" else 2, b, n, m, d), **f32)
+        ct_q = torch.empty((b, m, d), **f32)
+        if self.hopper and entry == "fused_predict_bwd":
+            from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
+
+            operands = (self.desc(s), s.alpha.data_ptr(), v.data_ptr(),
+                        v.data_ptr() + 4 * b * m * fp.factor_ld(n))
+        else:
+            operands = (s.G.data_ptr(), s.alpha.data_ptr(), s.amp.data_ptr(), v.data_ptr())
+        err = getattr(self.lib, entry)(
+            s.xs.data_ptr(), xq.data_ptr(), s.inv_ls.data_ptr(), *operands, ct_mean.data_ptr(),
+            ct_qf.data_ptr(), part.data_ptr(), ct_q.data_ptr(), b, n, m, d,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{entry}: CUDA error {err}")
+        return ct_q
+
+
+def profile(lib, group, xq, ct_mean, ct_qf) -> dict:
+    """Device time per call of each kernel of the forward and the fast
+    backward (torch.profiler over two rotations of each)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    vs = [lib.fwd(s, xq)[2] for s in group]
+    torch.cuda.synchronize()
+    out = {}
+    for what, fn in (("forward", lambda: [lib.fwd(s, xq) for s in group]),
+                     ("fast backward", lambda: [lib.bwd(s, xq, v, ct_mean, ct_qf)
+                                                for s, v in zip(group, vs)])):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+        calls = 2 * len(group)
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+            kernels = ("kstar_kernel", "fwd_wgmma_kernel", "bwd_wgmma_kernel", "rowsum_kernel")
+            if any(k in ev.key for k in kernels) and dev_us > 0 and ev.count >= calls:
+                name = f"{what}: {ev.key[:60]}"
+                out[name] = dev_us / 1e3 / calls
+                print(f"profile {name}: {out[name]:.4f} ms per call ({ev.count} launches)",
+                      flush=True)
     return out
 
 
@@ -224,90 +286,85 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="root of another checkout to time beside this one")
-    parent = parser.parse_args().parent
+    parser.add_argument("--walkers", default="1024,256", help="walker counts to time")
+    args = parser.parse_args()
+    walkers = [int(w) for w in args.walkers.split(",")]
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="predict_variants_") as tmp:
-        libs, ptxas = build(tmp, parent)
+        libs, ptxas = build(tmp, args.parent)
         chain, _ = build_synthetic_chain(nev=cs.NEV, ndim=cs.NDIM, nobs_blocks=cs.BLOCKS,
                                          npc=cs.NPC, gp_maxiter=0, seed=0, tmpdir=tmp, device=dev)
         states = [e._fused for e in chain.emuList]
-
-        def tf32(x):
-            return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-        halves = [(tf32(s.G), tf32(s.alpha)) for s in states]
-        lows = [((s.G - gh).contiguous(), (s.alpha - ah).contiguous())
-                for s, (gh, ah) in zip(states, halves)]
+        # the nine emulators' GPs as one batch (b = 36)
+        merged = [fp.FusedState(*(torch.cat([getattr(s, f) for s in states]).contiguous()
+                                  for f in fp.FusedState._fields))]
         b, n, d = states[0].xs.shape
-        m = cs.NWALKERS
-        xq = torch.tensor(np.random.default_rng(1).uniform(0.0, 1.0, (m, d)),
-                          dtype=torch.float32, device=dev)
-        rng = np.random.default_rng(2)
-        ct_mean = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=dev)
-        ct_qf = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=dev)
-        vs = [fp.fused_fwd_plain(s, xq, save_v=True)[2] for s in states]
         fs64 = fp.FusedState(*(t.double() for t in states[0]))
-        mean64, qf64, _ = fp.fused_fwd_plain(fs64, xq.double())
-        g64 = fp.fused_bwd_plain(fs64, xq.double(), vs[0].double(), ct_mean.double(),
-                                 ct_qf.double())
-        stream = torch.cuda.current_stream().cuda_stream
-        results = {}
-        for name, lib in libs.items():
-            split = name == "g_split_in_memory"
-
-            def fwd(i, lib=lib, split=split):
-                s = states[i]
-                f32 = dict(dtype=torch.float32, device=dev)
-                mean, qf = torch.empty((b, m), **f32), torch.empty((b, m), **f32)
-                v = torch.empty((b, n, m), **f32)
-                scratch = torch.empty(lib.fused_predict_scratch(0, b, n, m, d), **f32)
-                g, a = halves[i] if split else (s.G, s.alpha)
-                extra = [lows[i][0].data_ptr(), lows[i][1].data_ptr()] if split else []
-                err = lib.fused_predict_fwd(
-                    s.xs.data_ptr(), xq.data_ptr(), s.inv_ls.data_ptr(), g.data_ptr(),
-                    a.data_ptr(), s.amp.data_ptr(), mean.data_ptr(), qf.data_ptr(),
-                    v.data_ptr(), scratch.data_ptr(), b, n, m, d, stream, *extra)
-                if err:
-                    raise SystemExit(f"variant {name}: CUDA error {err}")
-                return mean, qf
-
-            def bwd(i, lib=lib, entry="fused_predict_bwd"):
-                s = states[i]
-                f32 = dict(dtype=torch.float32, device=dev)
-                part = torch.empty(lib.fused_predict_scratch(1 if entry == "fused_predict_bwd"
-                                                             else 2, b, n, m, d), **f32)
-                ct_q = torch.empty((b, m, d), **f32)
-                err = getattr(lib, entry)(
-                    s.xs.data_ptr(), xq.data_ptr(), s.inv_ls.data_ptr(), s.G.data_ptr(),
-                    s.alpha.data_ptr(), s.amp.data_ptr(), vs[i].data_ptr(), ct_mean.data_ptr(),
-                    ct_qf.data_ptr(), part.data_ptr(), ct_q.data_ptr(), b, n, m, d, stream)
-                if err:
-                    raise SystemExit(f"variant {name}: CUDA error {err}")
-                return ct_q
-
-            mean, qf = fwd(0)
-            g = bwd(0)
-            g_high = bwd(0, entry="fused_predict_bwd_high")
+        cases = [(f"b{b} m{m}", states, m) for m in walkers] + [
+            (f"b{merged[0].xs.shape[0]} m{walkers[0]}", merged, walkers[0])]
+        results = {name: {"ptxas": ptxas[name]} for name in libs}
+        for label, group, m in cases:
+            rng = np.random.default_rng(1)
+            bb = group[0].xs.shape[0]
+            xq = torch.tensor(rng.uniform(0.0, 1.0, (m, d)), dtype=torch.float32, device=dev)
+            ct_mean = torch.tensor(rng.normal(size=(bb, m)), dtype=torch.float32, device=dev)
+            ct_qf = torch.tensor(rng.normal(size=(bb, m)), dtype=torch.float32, device=dev)
+            check = group is states
+            if check:
+                mean64, qf64, v64 = fp.fused_fwd_plain(fs64, xq.double(), save_v=True)
+            # warm the card up before the first timed call
+            lib0 = libs["kept"]
+            for _ in range(40):
+                for s in group:
+                    lib0.fwd(s, xq)
             torch.cuda.synchronize()
-            rot = range(len(states))
-            ms = cs.cuda_ms(lambda: [fwd(i) for i in rot]) / len(states)
-            ms_bwd = cs.cuda_ms(lambda: [bwd(i) for i in rot]) / len(states)
-            ms_high = cs.cuda_ms(lambda: [bwd(i, entry="fused_predict_bwd_high")
-                                          for i in rot]) / len(states)
-            err_mean, err_qf = cs.normwise(mean, mean64)[1], cs.normwise(qf, qf64)[1]
-            err_g, err_high = cs.normwise(g, g64)[1], cs.normwise(g_high, g64)[1]
-            results[name] = dict(ms=ms, mean_vs_f64=err_mean, qf_vs_f64=err_qf,
-                                 bwd_ms=ms_bwd, bwd_vs_f64=err_g, bwd_high_ms=ms_high,
-                                 bwd_high_vs_f64=err_high, ptxas=ptxas[name])
-            print(f"{name:21s} forward {ms:.4f} ms (mean {err_mean:.3e}, qf {err_qf:.3e} "
-                  f"normwise vs float64); fast backward {ms_bwd:.4f} ms ({err_g:.3e}); "
-                  f"three-pass backward {ms_high:.4f} ms ({err_high:.3e}); "
-                  f"ptxas {ptxas[name]}", flush=True)
+            order = list(libs)
+            for rnd, names in enumerate((order, order[::-1])):  # in turns: a b .. b a
+                for name in names:
+                    lib = libs[name]
+                    vs = [lib.fwd(s, xq)[2] for s in group]
+                    rot = range(len(group))
+                    ms = cs.graph_ms(lambda: [lib.fwd(group[i], xq) for i in rot],
+                                     reps=2) / len(group)
+                    ms_bwd = cs.graph_ms(lambda: [lib.bwd(group[i], xq, vs[i], ct_mean, ct_qf)
+                                                  for i in rot], reps=2) / len(group)
+                    ms_high = cs.graph_ms(lambda: [lib.bwd(group[i], xq, vs[i], ct_mean, ct_qf,
+                                                           "fused_predict_bwd_high")
+                                                   for i in rot], reps=2) / len(group)
+                    row = results[name].setdefault(label, dict(fwd_ms=[], bwd_ms=[],
+                                                               bwd_high_ms=[]))
+                    row["fwd_ms"].append(ms)
+                    row["bwd_ms"].append(ms_bwd)
+                    row["bwd_high_ms"].append(ms_high)
+                    errs = ""
+                    if check and rnd == 0:
+                        mean, qf, v = lib.fwd(states[0], xq)
+                        g = lib.bwd(states[0], xq, v, ct_mean, ct_qf)
+                        g_high = lib.bwd(states[0], xq, v, ct_mean, ct_qf,
+                                         "fused_predict_bwd_high")
+                        g64 = fp.fused_bwd_plain(fs64, xq.double(), v.double(),
+                                                 ct_mean.double(), ct_qf.double())
+                        row.update(mean_vs_f64=cs.normwise(mean, mean64)[1],
+                                   qf_vs_f64=cs.normwise(qf, qf64)[1],
+                                   v_vs_f64=cs.normwise(v, v64)[1],
+                                   bwd_vs_f64=cs.normwise(g, g64)[1],
+                                   bwd_high_vs_f64=cs.normwise(g_high, g64)[1])
+                        errs = (f"; vs float64: mean {row['mean_vs_f64']:.3e}, qf "
+                                f"{row['qf_vs_f64']:.3e}, fast backward {row['bwd_vs_f64']:.3e}, "
+                                f"three-pass {row['bwd_high_vs_f64']:.3e}")
+                    print(f"{label:11s} {name:14s} forward {ms:.4f} ms, fast backward "
+                          f"{ms_bwd:.4f} ms, three-pass backward {ms_high:.4f} ms{errs}",
+                          flush=True)
+            if label.startswith(f"b{b} "):
+                results["kept"][label]["kernels_ms"] = profile(libs["kept"], group, xq, ct_mean,
+                                                                ct_qf)
+        for name in libs:
+            print(f"ptxas {name}: {ptxas[name]}")
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-                      "shape": dict(b=b, n=n, d=d, m=m), "variants": results}))
+                      "shape": dict(b=b, n=n, d=d, walkers=walkers), "variants": results}))
     return 0
 
 
