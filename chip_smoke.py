@@ -22,9 +22,10 @@ It imports nothing of JAX or the JAX package.  In order it
    L-BFGS-B optimum within 0.2 and its float32 fit lands where the JAX
    package's float32 fit does (``JAX_F32_LML``; the float32 fits' distance
    to scipy's optimum is printed);
-3. prints, from ``cuobjdump -sass`` of the built predict library where
-   the toolkit has it, the HGMMA (wgmma), UTMALDG (TMA) and HMMA
-   (mma.sync) instructions of each kernel (evidence, not a gate); checks
+3. prints, from ``cuobjdump -sass`` of the built predict and MVN
+   libraries where the toolkit has it, the HGMMA (wgmma), UTMALDG (TMA)
+   and HMMA (mma.sync) instructions of each kernel (evidence, not a
+   gate); checks
    each kernel against its plain PyTorch version (on the fitted
    chain, as everything up to 5) at the shapes its
    path gives it and times kernel, plain version, library yardsticks and
@@ -32,11 +33,13 @@ It imports nothing of JAX or the JAX package.  In order it
    emulator's shape (b = 4, n = 1000, d = 17, m = 1024; the forward
    against its plain version in float32 and in float64, both backwards
    against the plain backward in float64, and the fast backward must not
-   equal the full-precision one; the forward and the fast backward also
-   by CUDA-graph replay there, at m = 256 and with the nine emulators'
-   36 GPs in one call), the MVN elimination on the path's own
-   covariances at (b, n) = (1024, 170), (1024, 73), (1024, 12) (the
-   shared-memory route), stitched (512, 544) (the cluster route, with its
+   equal the full-precision one; all three also by CUDA-graph replay
+   there, at m = 256 and with the nine emulators' 36 GPs in one call),
+   the MVN elimination on the path's own covariances at every flagship
+   block size, n = 170, 73, 12, 28, 21 and 14, at b = 1024 and at a
+   half-ensemble of 512 (the shared-memory route: its warp kernel to
+   n = 32, its block kernel past it), stitched (512, 544) (the cluster
+   route, with its
    cluster size, panel width and the clusters the card places) and, for
    the wide route ("panel"), 16 stitched matrices grown to the cluster
    route's largest n + 1, one non-PD matrix planted in each batch (the MVN
@@ -204,6 +207,7 @@ HIGH_WALKERS = 256     # HMC with grad_precision="high"
 HIGH_BURN = 8
 HIGH_STEPS = 16
 N_ORACLE = 64
+SMEM_SIZES = (170, 73, 12, 28, 21, 14)  # the shared-memory route's cases: every flagship block size
 FIT_MAXITER = 30       # the JAX bench's joint fit (bench.py:247)
 ALPHA = 0.1            # GPConfig.alpha, the sklearn head's
 SCIPY_EMULATORS = (0, 3, 8)
@@ -601,7 +605,7 @@ def hold_fused(fs, xq, ct_mean, ct_qf, label, high):
         e_h, r_h = normwise(g_high, g64)
         log(f"kernel fused_predict_bwd_high vs the plain backward in float64 {at}: max abs "
             f"{e_h:.3e} (normwise {r_h:.3e}); tolerance {TOL_GRAD_HIGH:g} normwise -- "
-            f"3xTF32 G^T v with FP32 promotion, two chained FP32 sums over n = {n}")
+            f"3xTF32 G^T v, FP32 promotion per ring stage (32 contraction steps) over n = {n}")
         if not r_h <= TOL_GRAD_HIGH:
             raise SystemExit(f"fused_predict_bwd_high disagrees with the float64 plain "
                              f"backward {at}")
@@ -610,11 +614,11 @@ def hold_fused(fs, xq, ct_mean, ct_qf, label, high):
 
 
 def sass_evidence() -> str:
-    """Hopper instructions in the built predict library's SASS, per kernel
-    (``cuobjdump -sass``, where the toolkit has it): the forward's and the
-    fast backward's kernels should hold HGMMA (wgmma) and UTMALDG (TMA
-    loads), the three-pass backward HMMA (mma.sync).  Evidence printed, not
-    a gate."""
+    """Hopper instructions in the built libraries' SASS, per kernel
+    (``cuobjdump -sass``, where the toolkit has it): the predict kernels'
+    products (the forward's and both backwards') should hold HGMMA (wgmma)
+    and UTMALDG (TMA loads) and no HMMA (mma.sync); the MVN route's two
+    kernels hold none of them (FP32 FMA).  Evidence printed, not a gate."""
     from gpbayestools_hic_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -622,17 +626,20 @@ def sass_evidence() -> str:
         tool = shutil.which("cuobjdump")
     if tool is None:
         return "SASS: cuobjdump not found; not read"
-    sass = subprocess.run([tool, "-sass", str(_build.lib_path("fused_predict"))],
-                          capture_output=True, text=True).stdout
     counts = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name = re.search(r"(kstar_kernel|fwd_wgmma_kernel|bwd_wgmma_kernel|bwd_high_kernel|"
-                         r"rowsum_kernel)(I[^E]*E)?", chunk.split("\n", 1)[0])
-        if name is None:
-            continue
-        counts[name.group(0)] = {op: len(re.findall(rf"\b{op}[.\s]", chunk))
-                                 for op in ("HGMMA", "UTMALDG", "HMMA")}
-    return f"SASS of fused_predict ({tool} -sass), instructions per kernel: {counts}"
+    for lib, kernels in (
+            ("fused_predict", r"(kstar_kernel|fwd_wgmma_kernel|bwd_wgmma_kernel|bwd_high_kernel|"
+                              r"rowsum_kernel)(I(?:L[ib]\d+E)+E)?"),
+            ("fused_mvn", r"(mvn_warp_kernel|mvn_smem_kernel)(I(?:L[ib]\d+E)+E)?")):
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
+                              capture_output=True, text=True).stdout
+        for chunk in sass.split("Function : ")[1:]:
+            name = re.search(kernels, chunk.split("\n", 1)[0])
+            if name is None:
+                continue
+            counts[name.group(0)] = {op: len(re.findall(rf"\b{op}[.\s]", chunk))
+                                     for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return f"SASS ({tool} -sass), instructions per kernel: {counts}"
 
 
 def kernel_phase(chain, device):
@@ -652,6 +659,12 @@ def kernel_phase(chain, device):
     ct_qf = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32, device=device)
 
     e_fwd, _, e_g, e_h = hold_fused(fs, xq, ct_mean, ct_qf, "", high=True)
+    # again at path d's walker count: there the kernels take one consumer
+    # warpgroup (64 walkers a block), another instance of each backward
+    m_d = HIGH_WALKERS
+    _, _, _, e_h_d = hold_fused(fs, xq[:m_d].contiguous(), ct_mean[:, :m_d].contiguous(),
+                                ct_qf[:, :m_d].contiguous(), f"m={m_d} ", high=True)
+    e_h = max(e_h, e_h_d)
 
     # timings, rotating over the emulators' states, after half a second of
     # the forward (the card idles through the CPU-bound checks before this
@@ -691,7 +704,8 @@ def kernel_phase(chain, device):
          "one TF32 pass (tensor cores) for G^T v, FP32 for the rest"),
         ("fused_predict_bwd_high", t_high, t_bwd_plain, t_bwd_lib, t_bwd_lib32,
          bwd_work(b, n, m, d, passes=3), e_h,
-         "3xTF32 tensor cores for G^T v (FP32 promotion per step), FP32 for the rest"),
+         "3xTF32 tensor cores for G^T v (FP32 promotion per ring stage of 32 "
+         "contraction steps), FP32 for the rest"),
     ):
         bd, why = bound_ms(fl, nbytes, tc)
         log(f"timing {name}: kernel {t:.4f} ms ({(tc + fl) / t / 1e9:.1f} TFLOP/s), "
@@ -703,10 +717,10 @@ def kernel_phase(chain, device):
                            library_ms=tl, library_tf32_ms=tl32, precision=precision,
                            timing="CUDA events around 9 rotations over the 9 emulators")
 
-    # the forward and the fast backward by CUDA-graph replay (the host's
+    # the forward and both backwards by CUDA-graph replay (the host's
     # enqueue outside the time): at this shape, at a quarter of the walkers
-    # (m = 256: HMC's second run, PTLMC, each shard of path j) and with the
-    # nine emulators' GPs in one call (b = 36)
+    # (m = 256: HMC's second run and path d, PTLMC, each shard of path j)
+    # and with the nine emulators' GPs in one call (b = 36)
     merged = fp.FusedState(*(torch.cat([getattr(s, f) for s in states]).contiguous()
                              for f in fp.FusedState._fields))
     ct36 = [torch.tensor(rng.normal(size=(merged.xs.shape[0], m)), dtype=torch.float32,
@@ -721,16 +735,48 @@ def kernel_phase(chain, device):
                        reps=2) / len(group)
         t_b = graph_ms(lambda: [fp.fused_bwd(s, xq_c, vs_c[i], ctm, ctq)
                                 for i, s in enumerate(group)], reps=2) / len(group)
+        t_h = graph_ms(lambda: [fp.fused_bwd(s, xq_c, vs_c[i], ctm, ctq, "high")
+                                for i, s in enumerate(group)], reps=2) / len(group)
+        # the library yardsticks at this shape: torch.bmm of the dominant
+        # product, FP32 and TF32, by graph replay too
+        ksts = [fp._kstar_plain(s, xq_c)[2] for s in group]
+        cts_c = [2.0 * v * ctq[:, None, :] for v in vs_c]
+        lib = {"fwd": graph_lib_ms(lambda: [torch.bmm(s.G, ksts[i])
+                                            for i, s in enumerate(group)]),
+               "bwd": graph_lib_ms(lambda: [torch.bmm(s.G.transpose(1, 2), cts_c[i])
+                                            for i, s in enumerate(group)])}
+        del ksts, cts_c
         bb = group[0].xs.shape[0]
-        for name, t, (tc, fl, nbytes) in (
-                ("fused_predict_fwd", t_f, fwd_work(bb, n, mm, d, save_v=True)),
-                ("fused_predict_bwd", t_b, bwd_work(bb, n, mm, d, passes=1))):
+        for name, t, (tc, fl, nbytes), (tl, tl32) in (
+                ("fused_predict_fwd", t_f, fwd_work(bb, n, mm, d, save_v=True), lib["fwd"]),
+                ("fused_predict_bwd", t_b, bwd_work(bb, n, mm, d, passes=1), lib["bwd"]),
+                ("fused_predict_bwd_high", t_h, bwd_work(bb, n, mm, d, passes=3), lib["bwd"])):
             bd, why = bound_ms(fl, nbytes, tc)
+            tl, tl32 = tl / len(group), tl32 / len(group)
             log(f"timing {name} by CUDA-graph replay at b={bb}, n={n}, d={d}, m={mm}: "
-                f"{t:.4f} ms, bound {bd:.4f} ms ({why})")
+                f"{t:.4f} ms, bound {bd:.4f} ms ({why}), library yardstick {tl:.4f} ms FP32, "
+                f"{tl32:.4f} ms TF32")
             stats[name].setdefault("graph_replay", []).append(
-                dict(b=bb, n=n, d=d, m=mm, ms=t, bound_ms=bd, bound_by=why))
+                dict(b=bb, n=n, d=d, m=mm, ms=t, bound_ms=bd, bound_by=why, library_ms=tl,
+                     library_tf32_ms=tl32))
     return stats
+
+
+def graph_lib_ms(fn):
+    """(FP32, TF32) graph_ms of a library call, TF32 matmuls allowed only
+    for the second (a yardstick; the port never allows them), the setting
+    restored afterwards."""
+    import torch
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        out = []
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            out.append(graph_ms(fn, reps=2))
+        return tuple(out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def mvn_inputs(chain, device, blocks=BLOCKS):
@@ -791,8 +837,9 @@ def grown_inputs(stitched, m, n):
 
 def mvn_phase(chain, device):
     """The MVN elimination against its plain version on the covariances the
-    dense paths hand it: the 170-, 73- and 12-observable blocks at 1024
-    walkers (shared-memory route), the stitched 544 x 544 matrix at a
+    dense paths hand it: every flagship block size (SMEM_SIZES) at 1024
+    walkers and at a half-ensemble of 512 (shared-memory route: its warp
+    kernel to n = 32, its block kernel past it), the stitched 544 x 544 matrix at a
     half-ensemble of 512 (cluster route) and, for the panel route, 16
     stitched matrices grown past the cluster route's largest n (each one
     block-diagonal with a leading block of itself), one matrix of each
@@ -806,10 +853,8 @@ def mvn_phase(chain, device):
 
     block_inputs = mvn_inputs(chain, device)
     stitched = stitched_inputs(chain, device, block_inputs)
-    cases = (
-        ("fused_mvn_loglike", block_inputs(BLOCKS.index(170), NWALKERS), 9),
-        ("fused_mvn_loglike", block_inputs(BLOCKS.index(73), NWALKERS), 9),
-        ("fused_mvn_loglike", block_inputs(BLOCKS.index(12), NWALKERS), 9),
+    cases = tuple(("fused_mvn_loglike", block_inputs(BLOCKS.index(n), b), 9)
+                  for b in (NWALKERS, NWALKERS // 2) for n in SMEM_SIZES) + (
         ("fused_mvn_loglike_cluster", stitched(NWALKERS // 2), 4),
         ("fused_mvn_loglike_panel",
          grown_inputs(stitched, 16, fm.route_max_n("cluster") + 1), 4),
@@ -892,9 +937,10 @@ def mvn_cases(cases, device, n_plain=None):
             f"float64 elimination on all {b}: max abs {e_64:.3e} (normwise {r_64:.3e}; "
             f"library call: {e_l64:.3e}); max |lp| {float(plain[keep[:bp]].abs().max()):.1f}")
         if name == "fused_mvn_loglike":
-            log(f"occupancy {name} (n={n}): {fm.smem_blocks_per_sm(n)} blocks per SM, "
-                f"panel width {fm.smem_panel()}")
-            blocked = f"blocked, {fm.smem_panel()}-column panels in shared memory"
+            log(f"occupancy {name} (n={n}): {fm.smem_matrices_per_sm(n)} matrices per SM, "
+                f"panel width {fm.smem_panel()}, warp kernel up to n = {fm.WARP_MAX_N}")
+            blocked = (f"one warp per matrix up to n = {fm.WARP_MAX_N}, past it blocked, "
+                       f"{fm.smem_panel()}-column panels in shared memory with look-ahead")
         elif name == "fused_mvn_loglike_cluster":
             info = fm.cluster_info(n)
             log(f"occupancy {name} (n={n}): clusters of C = {info['c']} CTAs, panel width "
@@ -919,8 +965,13 @@ def mvn_cases(cases, device, n_plain=None):
             f"all in FP32: {bd32:.4f} ms, {why32})")
         if not (r_p <= TOL_MVN and r_64 <= TOL_MVN):
             failed.append(f"{name} (b={b}, n={n})")
-        # the kernels line reports each route at its first case
-        if name not in stats:
+        # the kernels line reports each route at its first case, the others
+        # under "also"
+        if name in stats:
+            stats[name].setdefault("also", []).append(
+                dict(shape=[b, n], ms=t_k, plain_ms=t_p, bound_ms=bd, bound_by=why,
+                     library_ms=t_l, max_abs_err=e_p, max_abs_err_f64=e_64))
+        else:
             precision = ("3xTF32 tensor cores for the trailing updates (FP32 promotion per "
                          "step), FP32 FMA for the rest" if name == "fused_mvn_loglike_panel"
                          else "FP32 FMA")

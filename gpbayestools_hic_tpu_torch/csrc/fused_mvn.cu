@@ -18,7 +18,7 @@
 //
 // Nothing of the TPU layout is kept (no lane padding to 128, no identity
 // block, no (b, 128) output, no batch chunks sized for VMEM).  The work is
-// sequential in k, so one thread block (or one cluster) owns one matrix
+// sequential in k, so one warp, thread block or cluster owns one matrix
 // and the batch fills the card.  All routes are the reference's blocked
 // right-looking form
 // (pallas_mvn.py:_mvn_kernel, PANEL 32): factor a panel of columns, then
@@ -28,39 +28,60 @@
 // stale and are never read again: a later step only reads columns > k.
 // Three routes, picked by the wrapper from n:
 //
-// - mvn_smem_kernel, n <= fused_mvn_smem_max_n() (319): the lower triangle
-//   of the augmented matrix lives packed in the block's shared memory
-//   (A[i][j] at i(i+1)/2 + j), beside a copy of the current panel;
-//   n = 170 takes 73.9 KB, so three blocks share an SM's 227 KB and hide
-//   each other's barriers.  Only the lower triangle of cov is read from
-//   device memory, once, with several loads in flight per thread.  Bound
-//   on the H100 at n = 170: n^3/3 FP32 flops, 0.026 ms per 1024 matrices,
-//   against 0.018 ms for the bytes.  What held the rank-1 form back was
-//   shared-memory traffic (each trailing entry read and written once per
-//   pivot) and a block barrier per pivot.  Per panel of SMEM_PANEL columns
-//   the kernel
-//     1. factors the panel's diagonal block in one warp, right-looking:
-//        lane r holds row c0 + r in registers and takes the pivot and the
-//        other rows' column j by shuffle, so the chain per pivot is a
-//        shuffle, a reciprocal and two FMAs, with no shared memory and no
-//        barrier in it; the logarithms and 1 / sqrt(p) come after it, one
-//        lane per pivot;
-//     2. finishes the panel's rows below it, a thread per row, by the
-//        substitution x_j -= sum_{k<j} x_k D[j][k] / p_k against the
-//        factored block (read four entries at a time, a broadcast), and
-//        writes them as Cholesky entries L[i][k] = x_k / sqrt(p_k) into the
-//        panel copy, whose 16-byte rows make the trailing update one
-//        symmetric product L L^T with no scaling in its loop;
-//     3. applies the trailing update in 32 x 32 tiles, four tiles at a
-//        time, 4 x 4 outputs per thread in registers, both operands read
-//        four panel columns at a time (a warp's rows at a stride of
-//        SMEM_PANEL + 4 floats fall in distinct banks): each trailing entry
-//        is read and written once per panel, and there are three block
-//        barriers per panel instead of one per pivot.
-//   A bad pivot is found by the factoring warp, which raises a flag in
-//   shared memory; every thread reads it after the next barrier and leaves.
-//   FP32 FMA throughout (1.7 GFLOP per 1024 matrices at n = 170 does not
-//   need the tensor cores).
+// - the shared-memory route, n <= fused_mvn_smem_max_n() (319), the
+//   generic likelihood's nine blocks per posterior call (n = 12 to 170, at
+//   a half-ensemble of 512 walkers or 1024).  Measured on the H100
+//   (PERF.md, tools/torch_mvn_variants.py --route smem), the earlier
+//   design (a block per matrix, three block barriers per 16-column panel)
+//   lost its time to: the factoring warp's pivot chain, which nothing
+//   overlapped (27% of the time at n = 170, 45% at n = 73); at n <= 28 the
+//   fixed cost of a block per matrix (a launch that only loads took 2-3 us
+//   of 5-12); at n = 73, three blocks per SM where the matrix would let
+//   more in; and the triangle's load (18% at n = 170), each element's
+//   packed index computed with a square root.  Two kernels, by n:
+//   * mvn_warp_kernel, n <= WARP_MAX_N (32; every matrix that fits one
+//     warp's lanes, six of the flagship's nine blocks): one warp per
+//     matrix, four per block, no block barrier, no shared memory: lane r
+//     reads row r straight into registers and holds the y row as column n
+//     (the pivot chain per pivot is two shuffles, a reciprocal and two
+//     FMAs, one panel for the whole matrix).  Answers the fixed cost per
+//     matrix; the SM's other warps (20 to 36 matrices per SM) overlap each
+//     warp's loads with their chains.
+//   * mvn_smem_kernel, larger n: the lower triangle of the augmented
+//     matrix packed in the block's shared memory (A[i][j] at i(i+1)/2 +
+//     j), beside a copy of the current panel; n = 170 takes 73.9 KB, so
+//     three blocks share an SM (256 threads); below n = 128, 128 threads
+//     and up to six blocks per SM (answers the occupancy at n = 73).  Only
+//     the lower triangle of cov is read from device memory, once, by
+//     asynchronous copies (cp.async), a row per warp and an entry per
+//     lane, coalesced and without index arithmetic (answers the load);
+//     panel 0's diagonal block is factored from device memory while they
+//     land.  Per panel of SMEM_PANEL columns, two block barriers:
+//       1. the rows below the panel's diagonal block, a thread per row, by
+//          the substitution x_j -= sum_{k<j} x_k D[j][k] / p_k against the
+//          factored block, written as Cholesky entries L[i][k] = x_k /
+//          sqrt(p_k) into the panel copy (16-byte rows);
+//       2. the trailing update A -= L L^T in warp tiles of 16 x 32, 4 x 4
+//          outputs per thread, both operands read four panel columns at a
+//          time.  Its first tile is the next panel's diagonal block
+//          (warp 1's); as soon as it is written, warp 1 signals warp 0 by
+//          a named barrier, and warp 0 factors that block, right-looking,
+//          lane r holding row r, the chain per pivot a shuffle, a
+//          reciprocal and two FMAs, while the other warps apply the rest
+//          (look-ahead: the chain leaves the critical path, answers the
+//          factoring warp's chain).
+//     A bad pivot raises a flag in shared memory; every thread reads it
+//     after the next barrier and leaves.  FP32 FMA throughout.
+//   Each matrix's result depends on that matrix alone, at any b and any
+//   place in the batch.  Neither kernel uses a mechanism that is Hopper's
+//   own: those tried measured no faster (PERF.md) -- one matrix over a
+//   2-CTA cluster with DSMEM (the cluster route at n = 170 and 73, four to
+//   nine times slower) and the warp kernel's matrices brought by TMA
+//   (1-d tensor maps, a two-stage mbarrier ring per warp: equal at n = 28,
+//   4-6% slower at n = 12, also at b = 16384, where each warp takes
+//   several; a box must start 16-byte aligned, so n a multiple of 4 only).
+//   Nor did other panel widths, tile widths, thread counts or blocks per
+//   SM.
 // - mvn_cluster_kernel, n <= fused_mvn_cluster_max_n() (766; the stitched
 //   544 x 544 likelihood, 1.19 MB per matrix, 595 KB as a packed triangle):
 //   the matrix too large for one SM's shared memory is held in the shared
@@ -101,6 +122,7 @@
 namespace {
 
 constexpr int SMEM_PANEL = 16;     // panel width of the shared-memory route
+constexpr int SMEM_TILE_COLS = 4;  // its trailing update's columns per thread (4 rows each)
 constexpr int SMEM_LIMIT = 232448; // bytes of shared memory one block may use
 
 __device__ __forceinline__ bool bad_pivot(float p) {
@@ -126,19 +148,18 @@ __host__ __device__ constexpr long long smem_bytes(int n) {
 
 // Entries [e_begin, e_end) of the packed lower triangle of the augmented
 // matrix into dst: entry e of the triangle is A[i][e - tri(i)] and lands in
-// dst[e - e_begin].  Each thread keeps kLoads global loads in flight (one
-// latency per batch, not per row), neighbouring threads read neighbouring
-// entries of a row.
+// dst[e - e_begin].  Thread t of nt keeps kLoads global loads in flight
+// (one latency per batch, not per row), neighbouring threads read
+// neighbouring entries of a row.
 template <int kLoads = 8>
 __device__ __forceinline__ void load_packed_rows(float* dst, const float* __restrict__ cov_b,
                                                  const float* __restrict__ y_b, int n,
-                                                 int e_begin, int e_end) {
-  const int nthreads = blockDim.x;
-  for (int e0 = e_begin + threadIdx.x; e0 < e_end; e0 += kLoads * nthreads) {
+                                                 int e_begin, int e_end, int t, int nt) {
+  for (int e0 = e_begin + t; e0 < e_end; e0 += kLoads * nt) {
     float v[kLoads];
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * nthreads;
+      const int e = e0 + u * nt;
       v[u] = 0.f;
       if (e < e_end) {
         int i = (int)((sqrtf(8.f * e + 1.f) - 1.f) * 0.5f);  // row of e, then exact
@@ -150,89 +171,256 @@ __device__ __forceinline__ void load_packed_rows(float* dst, const float* __rest
     }
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * nthreads;
+      const int e = e0 + u * nt;
       if (e < e_end) dst[e - e_begin] = v[u];
     }
   }
 }
 
-// The whole packed lower triangle of the augmented matrix into a.
-__device__ __forceinline__ void load_triangle(float* a, const float* __restrict__ cov_b,
-                                              const float* __restrict__ y_b, int n) {
-  load_packed_rows(a, cov_b, y_b, n, 0, tri(n + 1));
+// ------------------------------------------------------------------ warp route
+//
+// n <= WARP_MAX_N: one warp per matrix, WARP_WARPS matrices per block, no
+// block barrier and no shared memory.  Lane r reads row r of C (its
+// entries up to the diagonal) and y_r straight into registers; the y
+// row's last entry A[n][n] is the same in every lane.  Pivot j: p and
+// column j by shuffle, then every row's columns right of j and the y row
+// by FMA (the y row's update is A[n][q] -= (y_j / p) A[q][j], the rank-1
+// update of the augmented matrix's row n, held as column n by the lanes).
+// The other warps of the SM (20 to 36 matrices per SM at the flagship's
+// sizes) overlap each warp's loads with their chains.
+constexpr int WARP_MAX_N = 32;  // largest n of the warp route
+constexpr int WARP_WARPS = 4;   // warps, one matrix each, per block
+
+// Diagnostic builds set kSmemPhaseClock: thread 0 of every block of the
+// shared-memory route (and thread 32, warp 1) then add the SM clock cycles
+// they spend in each phase to g_smem_phase (fused_mvn_smem_phase_cycles
+// reads and clears them).
+constexpr bool kSmemPhaseClock = false;
+// phases: load and panel 0's factoring, barrier A, substitution, barrier B,
+// trailing update (warp 1) or look-ahead factoring (warp 0), exit
+constexpr int kSmemPhases = 6;
+__device__ unsigned long long g_smem_phase[2 * kSmemPhases + 1];
+
+template <int kRows>
+__global__ void __launch_bounds__(32 * WARP_WARPS)
+mvn_warp_kernel(const float* __restrict__ y,    // (b, n)
+                const float* __restrict__ cov,  // (b, n, n)
+                float* __restrict__ out,        // (b,)
+                int b, int n) {
+  const int lane = threadIdx.x & 31;
+  const int mat = blockIdx.x * WARP_WARPS + (threadIdx.x >> 5);
+  if (mat >= b) return;  // the whole warp
+  float x[kRows];        // row r of C
+  const float* c = cov + ((size_t)mat * n + lane) * n;
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) x[q] = (q <= lane && lane < n) ? c[q] : 0.f;
+  float yr = (lane < n) ? y[(size_t)mat * n + lane] : 0.f;  // A[n][r]
+  float mine = 1.f, ynn = 0.f;  // lane r's pivot p_r; A[n][n]
+  bool failed = false;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    if (j >= n) break;
+    const float p = __shfl_sync(0xffffffffu, x[j], j);
+    const float yj = __shfl_sync(0xffffffffu, yr, j);
+    float colj[kRows];  // A[q][j] from lane q
+#pragma unroll
+    for (int q = j + 1; q < kRows; ++q) colj[q] = __shfl_sync(0xffffffffu, x[j], q);
+    if (bad_pivot(p)) {  // the same p in every lane: a uniform exit
+      failed = true;
+      break;
+    }
+    if (lane == j) mine = p;
+    const float rp = __frcp_rn(p);
+    const float sr = x[j] * rp;  // this row's multiplier A[r][j] / p_j
+    const float sn = yj * rp;    // the y row's, A[n][j] / p_j
+#pragma unroll
+    for (int q = j + 1; q < kRows; ++q) x[q] = fmaf(-sr, colj[q], x[q]);
+    if (lane > j) yr = fmaf(-sn, x[j], yr);
+    ynn = fmaf(-sn, yj, ynn);
+  }
+  float lg = (lane < n && !failed) ? 0.5f * logf(mine) : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) lg += __shfl_xor_sync(0xffffffffu, lg, o);
+  if (lane == 0) {
+    const float lp = 0.5f * ynn - lg;
+    out[mat] = (!failed && isfinite(lp)) ? lp : -CUDART_INF_F;
+  }
 }
 
-// Blocked elimination in shared memory (the route's header note above),
-// P = SMEM_PANEL columns per panel.  Shared memory, in floats: the packed triangle; the
-// panel's rows c1 .. n as Cholesky entries l[(i - c1) LD + q] =
-// A[i][c0 + q] / sqrt(p_q) (16-byte rows, zero past the panel's width); the
-// diagonal block's scaled rows dg[r LD + q] = A[c0 + r][c0 + q] / p_q,
-// q < r; the panel's 1 / sqrt(p); the bad-pivot flag.
-__global__ void __launch_bounds__(256, 3)
+// ------------------------------------------------------------ block route
+//
+// asynchronous global -> shared copies; ok == false zero-fills the target.
+// The 16-byte copy caches in L2 only (.cg), so it sees what other CTAs of
+// the cluster wrote; the 4-byte one (.ca) is used on read-only inputs only.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(s), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// bar.sync / bar.arrive on a named barrier of nthreads threads
+__device__ __forceinline__ void named_bar_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(nthreads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int nthreads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(nthreads) : "memory");
+}
+
+// The packed lower triangle of the augmented matrix into a by asynchronous
+// copies: warp w of nw takes rows w, w + nw, ..., a lane per entry
+// (coalesced, no index arithmetic, no registers held); A[n][n] = 0.
+__device__ __forceinline__ void copy_triangle(float* a, const float* __restrict__ cov_b,
+                                              const float* __restrict__ y_b, int n, int warp,
+                                              int nw, int lane) {
+  for (int i = warp; i <= n; i += nw) {
+    const float* src = i < n ? cov_b + (size_t)i * n : y_b;
+    float* dst = a + tri(i);
+    for (int j = lane; j <= i; j += 32) {
+      const bool ok = i < n || j < n;
+      cp_async4(dst + j, ok ? src + j : y_b, ok);
+    }
+  }
+}
+
+//
+// One panel's diagonal block, factored by warp 0, right-looking: lane r
+// holds row c0 + r of the block (rows = min(P, n + 1 - c0) rows, pw of them
+// pivots) and takes the pivot and the other rows' column j by shuffle, so
+// the chain per pivot is a shuffle, a reciprocal and two FMAs; the
+// logarithms and 1 / sqrt(p) come after it, one lane per pivot.  Writes the
+// block's scaled rows dg[r LD + q] = A[c0 + r][c0 + q] / p_q (q < r), isq =
+// 1 / sqrt(p) and the bad-pivot flag, and adds the logarithms to warp 0's
+// logdet_half.  Panel 0's block (c0 == 0) is read from device memory while
+// the triangle's copies land, a later one from shared memory once the
+// previous panel's update of it is written.  No early exit at a bad pivot
+// (the chain stays free of branches); whatever follows it is discarded.
+__device__ __forceinline__ void smem_factor_block(float* a, const float* __restrict__ cov_b,
+                                                  const float* __restrict__ y_b, float* dg,
+                                                  float* isq, int* bad, int c0, int n,
+                                                  float& logdet_half) {
+  constexpr int P = SMEM_PANEL, LD = P + 4;
+  const int lane = threadIdx.x & 31;
+  const int pw = min(P, n - c0), rows = min(P, n + 1 - c0);
+  const int i = c0 + lane;  // this lane's row
+  float x[P];
+  if (c0 == 0) {
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      x[q] = (q <= lane && lane < rows) ? (i < n ? cov_b[(size_t)i * n + q] : y_b[q]) : 0.f;
+  } else {
+    const float* row = a + tri(lane < rows ? i : c0) + c0;
+#pragma unroll
+    for (int q = 0; q < P; ++q) x[q] = (q <= lane && lane < rows) ? row[q] : 0.f;
+  }
+  float mine = 1.f;  // lane r's pivot p_r
+  bool failed = false;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (j >= pw) break;
+    const float p = __shfl_sync(0xffffffffu, x[j], j);
+    float colj[P];  // A[q][j] from lane q
+#pragma unroll
+    for (int q = j + 1; q < P; ++q) colj[q] = __shfl_sync(0xffffffffu, x[j], q);
+    failed |= bad_pivot(p);
+    if (lane == j) mine = p;
+    const float s = x[j] * __frcp_rn(p);  // this row's multiplier A[r][j] / p_j
+    if (lane > j && lane < pw) dg[lane * LD + j] = s;
+#pragma unroll
+    for (int q = j + 1; q < P; ++q) x[q] = fmaf(-s, colj[q], x[q]);
+  }
+  if (lane < pw) isq[lane] = 1.f / sqrtf(mine);
+  float lg = (lane < pw) ? 0.5f * logf(mine) : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) lg += __shfl_xor_sync(0xffffffffu, lg, o);
+  logdet_half += lg;  // a bad pivot's panel ends the matrix anyway
+  if (lane == 0) *bad = failed;
+}
+
+// Blocked elimination in shared memory, n > WARP_MAX_N (the route's header
+// note), P = SMEM_PANEL columns per panel, two block barriers per panel:
+//   -- barrier A: panel k's diagonal block is factored (dg, isq, the flag),
+//      and the previous panel's trailing update is written;
+//   1. every thread finishes a row below the block by substitution and
+//      writes its Cholesky entries into the panel copy l;
+//   -- barrier B: the whole panel is in l;
+//   2. warp 0 applies panel k's update to block k + 1 and factors it
+//      (look-ahead), while the other warps apply the trailing update to the
+//      rest, a warp per tile of P rows x TC columns, 4 x 4 outputs per
+//      thread, operands as float4 from l.
+// Panel 0's block is factored by warp 0 from device memory while the other
+// warps load the triangle.  Shared memory, in floats: the packed triangle
+// (A[i][j] at tri(i) + j); the panel's rows c1 .. n as Cholesky entries
+// l[(i - c1) LD + q] = A[i][c0 + q] / sqrt(p_q) (16-byte rows, zero past the
+// panel's width); the diagonal block's scaled rows dg; the panel's
+// 1 / sqrt(p); the bad-pivot flag.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, kThreads == 256 ? 3 : 6)
 mvn_smem_kernel(const float* __restrict__ y,    // (b, n)
                 const float* __restrict__ cov,  // (b, n, n)
                 float* __restrict__ out,        // (b,)
                 int n) {
   constexpr int P = SMEM_PANEL, LD = P + 4;
-  static_assert(P % 4 == 0 && P <= 32, "whole float4 columns, one warp's lanes");
+  constexpr int TY = P / 4, TX = 32 / TY;
+  // trailing columns per thread; a tile at least P wide, so that the next
+  // panel's diagonal block is one tile (tile 0)
+  constexpr int CW = SMEM_TILE_COLS * TX >= P ? SMEM_TILE_COLS : P / TX;
+  constexpr int TC = CW * TX;  // warp tile: P x TC
+  constexpr int NW = kThreads / 32;
+  static_assert(P % 4 == 0 && P <= 32 && 32 % P == 0 && TY * TX == 32,
+                "whole float4 columns, one warp's lanes");
   extern __shared__ __align__(16) float a[];  // rows 0 .. n of the lower triangle, packed
   const int n1 = n + 1;
   float* l = a + tri_aligned(n1);
   float* dg = l + (size_t)n1 * LD;
   float* isq = dg + P * LD;
   int* bad = reinterpret_cast<int*>(isq + P);
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* cov_b = cov + (size_t)blockIdx.x * n * n;
   const float* y_b = y + (size_t)blockIdx.x * n;
-
-  load_triangle(a, cov_b, y_b, n);
-  if (tid == 0) *bad = 0;
-
-  float logdet_half = 0.f;  // warp 0's sum
-  for (int c0 = 0; c0 < n; c0 += P) {
-    const int pw = min(P, n - c0), c1 = c0 + pw;
-    __syncthreads();  // the load or the previous trailing update is written
-
-    // 1. the diagonal block, one warp, right-looking: lane r holds row
-    // c0 + r in registers; at pivot j it takes p_j and the other rows'
-    // column j by shuffle and updates its columns right of j.  The chain
-    // per pivot is a shuffle, a reciprocal and two FMAs; the logarithms and
-    // 1 / sqrt(p) come after, a lane each.
-    if (warp == 0) {
-      float x[P];
-#pragma unroll
-      for (int q = 0; q < P; ++q) x[q] = (q <= lane && lane < pw) ? a[tri(c0 + lane) + c0 + q] : 0.f;
-      float mine = 1.f;  // lane r's pivot p_r
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        if (j >= pw) break;
-        const float p = __shfl_sync(0xffffffffu, x[j], j);  // lane j's diagonal
-        if (bad_pivot(p)) {  // the same p in every lane
-          if (lane == 0) *bad = 1;
-          break;
-        }
-        if (lane == j) mine = p;
-        const float s = x[j] * __frcp_rn(p);  // this row's multiplier A[r][j] / p_j
-        if (lane > j && lane < pw) dg[lane * LD + j] = s;
-        // A[r][q] -= A[r][j] A[q][j] / p_j with A[q][j] from lane q (past
-        // the row's end the entries are never read)
-#pragma unroll
-        for (int q = j + 1; q < P; ++q) x[q] = fmaf(-s, __shfl_sync(0xffffffffu, x[j], q), x[q]);
-      }
-      if (lane < pw) isq[lane] = 1.f / sqrtf(mine);
-      float lg = (lane < pw) ? 0.5f * logf(mine) : 0.f;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) lg += __shfl_xor_sync(0xffffffffu, lg, o);
-      logdet_half += lg;  // a bad pivot's panel ends the matrix anyway
+  long long clock_last = kSmemPhaseClock ? clock64() : 0, clock_acc[kSmemPhases] = {};
+  auto phase = [&](int i) {
+    if (kSmemPhaseClock && (tid == 0 || tid == 32)) {
+      const long long now = clock64();
+      clock_acc[i] += now - clock_last;
+      clock_last = now;
     }
-    __syncthreads();
+  };
+
+  copy_triangle(a, cov_b, y_b, n, warp, NW, lane);
+  float logdet_half = 0.f;  // warp 0's sum
+  if (warp == 0) smem_factor_block(a, cov_b, y_b, dg, isq, bad, 0, n, logdet_half);
+  cp_async_wait_all();
+  phase(0);
+  const int npan = (n + P - 1) / P, nblk = (n1 + P - 1) / P;
+  for (int k = 0; k < npan; ++k) {
+    const int c0 = k * P, pw = min(P, n - c0), c1 = c0 + pw;
+    __syncthreads();  // A
+    phase(1);
     if (*bad) break;  // every thread reads the same flag: a uniform exit
 
-    // 2. the panel's rows below it, a thread per row: the substitution
+    // 1. the panel's rows below it, a thread per row: the substitution
     // against the factored block (its scaled rows read four at a time, a
     // broadcast), then the row's Cholesky entries into l
-    for (int i = c1 + tid; i <= n; i += nthreads) {
+    for (int i = c1 + tid; i <= n; i += kThreads) {
       const float* row = a + tri(i) + c0;
       float x[P];
 #pragma unroll
@@ -258,83 +446,111 @@ mvn_smem_kernel(const float* __restrict__ y,    // (b, n)
                         q + 2 < pw ? x[q + 2] * s4.z : 0.f, q + 3 < pw ? x[q + 3] * s4.w : 0.f);
       }
     }
-    __syncthreads();
+    phase(2);
+    __syncthreads();  // B
+    phase(3);
 
-    // 3. trailing update of rows / columns [c1, n], A[i][j] -= sum_q
-    // L[i][q] L[j][q], in 32 x 32 tiles of the lower triangle, a group of
-    // 64 threads per tile, 4 x 4 outputs per thread (rows ty + 8 r, columns
-    // tx + 8 c), both operands read from l four columns at a time (a warp's
-    // 8 rows at a 16-byte stride of LD fall in distinct banks)
-    const int m = n1 - c1;
-    const int nt = (m + 31) / 32, ntile = tri(nt);
-    const int tx = tid & 7, ty = (tid >> 3) & 7;
-    for (int t = tid >> 6; t < ntile; t += nthreads >> 6) {
-      int ti = 0;
-      while (tri(ti + 1) <= t) ++ti;
-      const int r0 = ti * 32 + ty, s0 = (t - tri(ti)) * 32 + tx;
-      int lu[4], lv[4];  // rows of l
+    // 2. look-ahead: block k + 1 (rows [c1, c1 + P), a whole panel past
+    // this one) is the first trailing tile, warp 1's; warp 0 factors it as
+    // soon as warp 1 has written it, while the others apply the rest
+    const bool ahead = k + 1 < npan;
+    if (ahead && warp == 0) {
+      named_bar_sync(1, 64);
+      smem_factor_block(a, cov_b, y_b, dg, isq, bad, c1, n, logdet_half);
+    } else {
+      // trailing update of rows i >= c1, columns [c1, i]: A[i][j] -= sum_q
+      // L[i][q] L[j][q].  The tiles of the row blocks from the one that
+      // holds c1 on, counted block by block (a block's tiles: its columns
+      // [c1, its last row] in TC-wide pieces; block k + 1 has one, tile 0),
+      // a warp per tile (not warp 0 when it looks ahead)
+      const int tx = lane % TX, ty = lane / TX;
+      int tile = ahead ? warp - 1 : warp;
+      const int step = ahead ? NW - 1 : NW;
+      int t = c1 / P, before = 0;  // current row block, tiles before it
+      for (; tile >= 0; tile += step) {
+        for (; t < nblk; ++t) {
+          const int rmax = min((t + 1) * P, n1) - 1;
+          const int nct = (rmax >= c1) ? (rmax - c1) / TC + 1 : 0;
+          if (tile < before + nct) break;
+          before += nct;
+        }
+        if (t >= nblk) break;
+        const int rb = t * P, j0 = c1 + (tile - before) * TC;
+        int lu[4], lc[CW];  // rows of l
 #pragma unroll
-      for (int r = 0; r < 4; ++r) lu[r] = min(r0 + 8 * r, m - 1) * LD;
+        for (int q = 0; q < 4; ++q) lu[q] = (min(max(rb + ty + TY * q, c1), n) - c1) * LD;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) lv[c] = min(s0 + 8 * c, m - 1) * LD;
-      float acc[4][4];
+        for (int c = 0; c < CW; ++c) lc[c] = (min(j0 + tx + TX * c, n) - c1) * LD;
+        float acc[4][CW];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+          for (int c = 0; c < CW; ++c) acc[q][c] = 0.f;
 #pragma unroll
-      for (int q = 0; q < P; q += 4) {
-        if (q >= pw) break;
-        float4 u[4];
+        for (int q4 = 0; q4 < P; q4 += 4) {
+          if (q4 >= pw) break;
+          float4 u[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) u[r] = *reinterpret_cast<const float4*>(l + lu[r] + q);
+          for (int q = 0; q < 4; ++q) u[q] = *reinterpret_cast<const float4*>(l + lu[q] + q4);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float4 v = *reinterpret_cast<const float4*>(l + lv[c] + q);
+          for (int c = 0; c < CW; ++c) {
+            const float4 v = *reinterpret_cast<const float4*>(l + lc[c] + q4);
 #pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            acc[r][c] = fmaf(u[r].x, v.x, acc[r][c]);
-            acc[r][c] = fmaf(u[r].y, v.y, acc[r][c]);
-            acc[r][c] = fmaf(u[r].z, v.z, acc[r][c]);
-            acc[r][c] = fmaf(u[r].w, v.w, acc[r][c]);
+            for (int q = 0; q < 4; ++q) {
+              acc[q][c] = fmaf(u[q].x, v.x, acc[q][c]);
+              acc[q][c] = fmaf(u[q].y, v.y, acc[q][c]);
+              acc[q][c] = fmaf(u[q].z, v.z, acc[q][c]);
+              acc[q][c] = fmaf(u[q].w, v.w, acc[q][c]);
+            }
           }
         }
-      }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int ri = r0 + 8 * r;
-        if (ri >= m) break;
-        float* row = a + tri(c1 + ri) + c1;
+        for (int q = 0; q < 4; ++q) {
+          const int i = rb + ty + TY * q;
+          if (i < c1 || i > n) continue;
+          float* arow = a + tri(i);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int rj = s0 + 8 * c;
-          if (rj <= ri) row[rj] -= acc[r][c];
+          for (int c = 0; c < CW; ++c) {
+            const int j = j0 + tx + TX * c;
+            if (j <= i) arow[j] -= acc[q][c];
+          }
         }
+        if (ahead && tile == 0) named_bar_arrive(1, 64);  // block k + 1 is written
       }
     }
+    phase(4);
   }
   __syncthreads();
   if (tid == 0) {
     const float lp = 0.5f * a[tri(n) + n] - logdet_half;
     out[blockIdx.x] = (!*bad && isfinite(lp)) ? lp : -CUDART_INF_F;
   }
+  phase(5);
+  if (kSmemPhaseClock && (tid == 0 || tid == 32)) {
+    for (int i = 0; i < kSmemPhases; ++i)
+      atomicAdd(&g_smem_phase[(tid / 32) * kSmemPhases + i], (unsigned long long)clock_acc[i]);
+    if (tid == 0) atomicAdd(&g_smem_phase[2 * kSmemPhases], 1ull);
+  }
 }
 
-// threads per block: whole groups of 64 for the trailing tiles, at most
-// 256 (four tiles at a time); enough for the panel rows of a mid-size n
-constexpr int smem_threads(int n) {
-  return n < 32 ? 64 : n < 64 ? 128 : 256;
+// threads of the block route: 128 (6 blocks per SM) below n = 128, where
+// the trailing matrix gives four warps enough tiles, else 256 (3 per SM)
+constexpr int smem_threads(int n) { return n < 128 ? 128 : 256; }
+
+using SmemKernel = void (*)(const float*, const float*, float*, int);
+
+SmemKernel smem_kernel(int n) {
+  return smem_threads(n) == 256 ? mvn_smem_kernel<256> : mvn_smem_kernel<128>;
 }
 
 // Shared memory for one block, and the whole L1/shared array as shared
 // memory: without the carveout the runtime may size it for one block only.
-cudaError_t prepare_smem(int bytes) {
-  cudaError_t e = cudaFuncSetAttribute(
-      mvn_smem_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
+template <class K>
+cudaError_t prepare_smem(K kernel, int bytes) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       (int)cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && bytes > 48 * 1024)
-    e = cudaFuncSetAttribute(
-        mvn_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   return e;
 }
 
@@ -621,7 +837,7 @@ mvn_cluster_kernel(const float* __restrict__ y,    // (b, n)
     int base = 0;
     for (int t = 0; t < nlb; ++t) {
       const int i0 = (t * C + r) * P, e0 = tri(i0), e1 = tri(min(i0 + P, n1));
-      load_packed_rows<CLUSTER_LOADS>(a + base, cov_b, y_b, n, e0, e1);
+      load_packed_rows<CLUSTER_LOADS>(a + base, cov_b, y_b, n, e0, e1, tid, nthreads);
       base += e1 - e0;
     }
   }
@@ -836,30 +1052,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// asynchronous global -> shared copies; ok == false zero-fills the target.
-// The 16-byte copy caches in L2 only (.cg), so it sees what other CTAs of
-// the cluster wrote; the 4-byte one (.ca) is used on read-only inputs only.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ------------------------------------------------------------------ wide route
@@ -1443,6 +1635,10 @@ struct WideLaunch {
   }
 };
 
+using WarpKernel = void (*)(const float*, const float*, float*, int, int);
+
+WarpKernel warp_kernel(int n) { return n <= 16 ? mvn_warp_kernel<16> : mvn_warp_kernel<32>; }
+
 }  // namespace
 
 extern "C" {
@@ -1457,28 +1653,50 @@ int fused_mvn_smem_max_n() {
 // Panel width of the shared-memory route (where its panel boundaries fall).
 int fused_mvn_smem_panel() { return SMEM_PANEL; }
 
-
-// Blocks of the shared-memory route that one SM holds at this n (its
-// occupancy, for the measurement scripts); -1 if it cannot be asked.
-int fused_mvn_smem_blocks_per_sm(int n) {
+// Matrices of the shared-memory route that one SM holds at once at this n
+// (warps of the warp route, blocks of the block route: its occupancy, for
+// the measurement scripts); -1 if it cannot be asked.
+int fused_mvn_smem_matrices_per_sm(int n) {
   if (n < 1 || smem_bytes(n) > SMEM_LIMIT) return -1;
+  if (n <= WARP_MAX_N) {
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, warp_kernel(n), 32 * WARP_WARPS,
+                                                      0) != cudaSuccess)
+      return -1;
+    return blocks * WARP_WARPS;
+  }
   const int bytes = (int)smem_bytes(n);
   int blocks = 0;
-  if (prepare_smem(bytes) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, mvn_smem_kernel, smem_threads(n), bytes) != cudaSuccess)
+  if (prepare_smem(smem_kernel(n), bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, smem_kernel(n), smem_threads(n),
+                                                    bytes) != cudaSuccess)
     return -1;
   return blocks;
+}
+
+// Diagnostic builds (kSmemPhaseClock): g_smem_phase since the last call
+// (the cycles thread 0 and thread 32 of the block route's blocks spent in
+// each phase, summed over blocks, then the blocks counted); clears it.
+int fused_mvn_smem_phase_cycles(unsigned long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_smem_phase, sizeof(g_smem_phase));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[2 * kSmemPhases + 1] = {};
+  return (int)cudaMemcpyToSymbol(g_smem_phase, zero, sizeof(zero));
 }
 
 int fused_mvn_loglike_smem(const float* y, const float* cov, float* out,
                            int b, int n, void* stream) {
   if (b < 1 || n < 1 || smem_bytes(n) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= WARP_MAX_N) {
+    warp_kernel(n)<<<(b + WARP_WARPS - 1) / WARP_WARPS, 32 * WARP_WARPS, 0, s>>>(y, cov, out, b,
+                                                                               n);
+    return (int)cudaGetLastError();
+  }
   const int bytes = (int)smem_bytes(n);
-  const cudaError_t e = prepare_smem(bytes);
+  const cudaError_t e = prepare_smem(smem_kernel(n), bytes);
   if (e != cudaSuccess) return (int)e;
-  mvn_smem_kernel<<<b, smem_threads(n), bytes, static_cast<cudaStream_t>(stream)>>>(
-      y, cov, out, n);
+  smem_kernel(n)<<<b, smem_threads(n), bytes, s>>>(y, cov, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -47,30 +47,32 @@
 //   TF32 pass plus those FP32 parts, ~0.015 ms.
 // - fused_predict_bwd_high (bwd_high_kernel + rowsum_kernel):
 //   grad_precision="high" / "highest".  The same cotangent at FP32-class
-//   accuracy, for good: G^T v on the tensor cores in 3xTF32 (mma.sync), G
-//   and v split into TF32 halves as their fragments are read, each 8-deep
-//   step's hi*hi + hi*lo + lo*hi summed into a fresh fragment that is added
-//   to the accumulator in FP32; k* and its z < 0 mask recomputed, the rest
-//   FP32 FMA as in the fast backward.  The TPU kernel ran both cotangent
-//   products in 3-pass bf16 (_dot3), so this is stricter than the
-//   reference.  Bound: three TF32 passes plus the FP32 parts, ~0.031 ms.
+//   accuracy, for good: G^T v on the tensor cores in 3xTF32 (v^T split into
+//   TF32 halves in shared memory, G^T's halves in the kernel factor), each
+//   ring stage's products summed into a fresh accumulator that is added to
+//   the running sum in FP32; the rest FP32 FMA as in the fast backward,
+//   with the forward's k*.  The TPU kernel ran both cotangent products in
+//   3-pass bf16 (_dot3), so this is stricter than the reference.  Bound:
+//   three TF32 passes plus the FP32 parts, ~0.031 ms.
 //
-// The forward and the fast backward (fwd_wgmma_kernel, bwd_wgmma_kernel)
-// share one Hopper design:
+// All three product kernels (fwd_wgmma_kernel, bwd_wgmma_kernel,
+// bwd_high_kernel) share one Hopper design; the two backwards are one body
+// (bwd_body) that differs only in the product and its operands:
 // - walkers on the M side of the product, so that both operands of both
 //   products are K-major, the only layout wgmma takes for TF32:
 //     forward   v^T[j, i]       = sum_l k*^T[j, l] [G; alpha][i, l]
 //     backward  (G^T v)^T[j, l] = sum_i v^T[j, i] G^T[l, i]
 //   kstar_kernel writes k*^T (walkers x training rows), the forward writes
 //   its saved v as v^T, and build_fused_state keeps the kernels' copy of
-//   the factor (the "kernel factor", (b, 3, n + 1, ld)): [G; alpha] split
-//   into its TF32 halves (planes 0, 1) and G^T rounded to TF32 (plane 2),
-//   every row padded to ld = n rounded up to 4 floats, the 16-byte row
-//   stride TMA needs.  The 2 ct_qf column scale of the old layout is a row
+//   the factor (the "kernel factor", (b, 4, n + 1, ld)): [G; alpha] split
+//   into its TF32 halves (planes 0, 1) and G^T split likewise (plane 2 the
+//   hi half, G^T rounded to nearest TF32; plane 3 the lo half, which only
+//   the three-pass backward reads), every row padded to ld = n rounded up
+//   to 4 floats, the 16-byte row stride TMA needs.  The 2 ct_qf column scale of the old layout is a row
 //   scale in the backward's epilogue.  (The other way, A from registers,
 //   would read G^T as fragments from G's rows, as the sm_80 kernels did,
 //   but puts every operand element through the registers of each
-//   consumer; the transposed copy costs 4 MB a GP, once.)
+//   consumer; the transposed copy costs 4 MB a GP per plane, once.)
 // - a ring of shared-memory stages (32 contraction steps = one 128-byte
 //   swizzle row of floats per tile row; 4 stages) filled by TMA
 //   (cp.async.bulk.tensor, 128-byte swizzle, ragged edges zero-filled by
@@ -86,17 +88,20 @@
 //   function obtained through cudaGetDriverEntryPoint (no -lcuda).
 //   setmaxnreg is not used: the consumers fit in the 168 registers that
 //   three warpgroups leave, without spills;
-// - 3xTF32 (forward): the tensor cores read a float32 operand as TF32 by
-//   dropping its low 13 bits, so the halves must exist as data: G's in the
-//   kernel factor, k*'s split in shared memory by the warpgroup that reads
-//   the landed stage (hi in place, lo into one of two tiles of its own:
-//   one raw plane of k* in device memory, not two; SPLIT_IN_SMEM);
-// - FP32 promotion (forward): the tensor cores' FP32 accumulation inside an
+// - 3xTF32 (forward, three-pass backward): the tensor cores read a float32
+//   operand as TF32 by dropping its low 13 bits, so the halves must exist
+//   as data: the factor's in the kernel factor, the per-call operand's (k*
+//   in the forward, v^T in the backward) split in shared memory by the
+//   warpgroup that reads the landed stage (hi in place, lo into a tile of
+//   its own: one raw plane in device memory, not two; SPLIT_IN_SMEM);
+// - FP32 promotion (forward, three-pass backward): the tensor cores' FP32
+//   accumulation inside an
 //   mma is not rounded to nearest (chained over all 125 steps of the
 //   flagship's contraction it cost 7e-5 of the mean), so each ring stage's
 //   12 products (4 steps x 3 passes) go into a fresh accumulator (scale-d
 //   = 0) that is added to the running sum in FP32: a promotion interval of
-//   one stage, 32 contraction steps (PROMOTE).  Each stage therefore waits
+//   one stage, 32 contraction steps (PROMOTE; the three-pass backward
+//   always one stage).  Each stage therefore waits
 //   for its products; with a longer
 //   interval the products of one stage stay in flight while the next is
 //   split, but ptxas then serializes the wgmmas (its note C7518), and it
@@ -106,8 +111,8 @@
 //   memory by the warpgroup that reads it, while the previous stage's
 //   products run (one wgmma group kept in flight), so both operands are
 //   rounded to nearest, not truncated;
-// - k* (fast backward): the forward's k*^T, not a recompute of z (which
-//   cost the sm_80 backward a third of its time).  The plain backward's
+// - k* (both backwards): the forward's k*^T, not a recompute of z (which
+//   cost the sm_80 backwards a third of their time).  The plain backward's
 //   z < 0 mask is not needed: z = 0 only where xs_l = qs_j in every
 //   dimension, and there the query contraction multiplies by 0;
 // - triangular balance: a block takes the pair of row tiles (r, R - 1 - r)
@@ -129,12 +134,15 @@
 // FP32 instructions per element; 0.020 of 0.050 ms), which no product
 // overlaps, then the rounding pass and the products (0.005 ms each).
 //
-// fused_predict_bwd_high keeps the sm_80 design (mma.sync.m16n8k8 TF32
-// from a 3-stage cp.async ring, 8 warps per 128 x 64 tile, padded row
-// strides so that every fragment read meets 32 distinct banks) and reads
-// v^T: its three passes would need both halves of both operands in shared
-// memory, which this design does not hold.
-//
+// In the three-pass backward a stage holds v^T's tile and both halves of
+// G^T's (48 KB at 128 walkers), and v^T's lo half needs a tile of its own.
+// The ring is two stages deep (HIGH_STAGES): a third fits beside the
+// epilogue's buffers but measured slower at 1024 walkers on the H100 and
+// no faster at 256 (tools/torch_predict_variants.py, high_stages_3).  A stage's
+// products are waited for before the FP32 promotion, and a warpgroup
+// barrier follows, so that no warp splits the next stage into the lo tile
+// while another warp's products may still read it.
+
 // Each entry launches on the caller's stream, allocates nothing (the
 // wrapper allocates outputs and the scratch that fused_predict_scratch
 // sizes), and returns cudaGetLastError() (or FP_ERR_TMA when a tensor-map
@@ -153,12 +161,14 @@ constexpr int FP_ERR_TMA = 7001;  // a tensor-map descriptor could not be encode
 // --------------------------------------------- design knobs (Hopper kernels)
 constexpr int FWD_STAGES = 4;          // forward ring depth
 constexpr int BWD_STAGES = 4;          // fast backward ring depth
+constexpr int HIGH_STAGES = 2;         // three-pass backward ring depth
 constexpr int PROMOTE = 1;             // ring stages chained into a fresh sum before the FP32 add
 constexpr bool SPLIT_IN_SMEM = true;   // k*: split in shared memory (true) or by kstar_kernel
 constexpr int TN = 128;                // rows of [G; alpha] / of G^T per tile (wgmma N), 64 or 128
 
 constexpr int BK = 32;                 // contraction steps per ring stage (128 bytes of floats)
 constexpr int KST_PLANES = SPLIT_IN_SMEM ? 1 : 2;
+constexpr int FACTOR_PLANES = 4;       // planes of the kernel factor per GP
 constexpr int XS_LD = DMAX + 4;        // rows of xs / qs, read 4 dimensions at a time
 constexpr int CQ_LD = DMAX + 1;
 static_assert(TN == 64 || TN == 128, "wgmma tiles of 64 or 128 rows");
@@ -199,38 +209,6 @@ __device__ __forceinline__ float tf32_round(float x) { return __uint_as_float(tf
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// c += a b for one 16 x 8 x 8 TF32 tile, FP32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// asynchronous global -> shared copies; ok == false zero-fills the target
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ------------------------------------- Hopper: mbarriers, TMA, wgmma, barriers
@@ -506,21 +484,27 @@ struct Fwd {
   static_assert(SMEM <= 232448, "forward ring fits in shared memory");
 };
 
-template <int kCons>
+// The backwards' layout (kHigh: the three-pass one).  A stage holds the
+// v^T tile and G^T's tile (rounded to nearest TF32), and for the three-pass
+// backward also G^T's lo tile (plane 3 of the kernel factor); v^T's lo half
+// goes to one tile per warpgroup after the ring.
+template <int kCons, bool kHigh>
 struct Bwd {
+  static constexpr int STAGES = kHigh ? HIGH_STAGES : BWD_STAGES;
   static constexpr int BM = 64 * kCons;
   static constexpr int A_BYTES = BM * BK * 4;  // a v^T tile
-  static constexpr int B_BYTES = TN * BK * 4;  // a G^T tile
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int RING = BWD_STAGES * STAGE;
-  // after the ring: xs rows of the tile, scaled queries, the query
-  // cotangent of the pair, alpha of the tile, the barriers
-  static constexpr int XS_OFF = RING;
+  static constexpr int B_BYTES = TN * BK * 4;  // a G^T tile (one half)
+  static constexpr int STAGE = A_BYTES + (kHigh ? 2 : 1) * B_BYTES;
+  static constexpr int RING = STAGES * STAGE;
+  // after the ring: v^T's lo tile (three-pass), xs rows of the tile, scaled
+  // queries, the query cotangent of the pair, alpha of the tile, the barriers
+  static constexpr int ALO_OFF = RING;
+  static constexpr int XS_OFF = ALO_OFF + (kHigh ? A_BYTES : 0);
   static constexpr int QS_OFF = XS_OFF + TN * XS_LD * 4;
   static constexpr int CQ_OFF = QS_OFF + BM * XS_LD * 4;
   static constexpr int AL_OFF = CQ_OFF + BM * CQ_LD * 4;
   static constexpr int BAR_OFF = AL_OFF + TN * 4;
-  static constexpr int SMEM = BAR_OFF + 2 * BWD_STAGES * 8 + 1024;
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;
   static_assert(SMEM <= 232448, "backward ring and epilogue fit in shared memory");
 };
 
@@ -555,7 +539,7 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
 template <int kCons>
 __global__ void __launch_bounds__(128 * (kCons + 1), 1)
 fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_kst,  // k*^T planes {n, m, KST_PLANES b}
-                 const __grid_constant__ CUtensorMap tm_fac,  // kernel factor {n, n + 1, 3 b}
+                 const __grid_constant__ CUtensorMap tm_fac,  // kernel factor {n, n + 1, 4 b}
                  float* __restrict__ mean,      // (b, m)
                  float* __restrict__ qf_part,   // (b, npairs, m)
                  float* __restrict__ vt,        // (b, m, ld) or nullptr
@@ -594,8 +578,9 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_kst,  // k*^T planes {n,
           tma_load_3d(st, &tm_kst, &full[slot], kt * BK, j0, k);
           if constexpr (!SPLIT_IN_SMEM)
             tma_load_3d(st + C::A_BYTES, &tm_kst, &full[slot], kt * BK, j0, b + k);
-          tma_load_3d(st + C::B_OFF, &tm_fac, &full[slot], kt * BK, i0, 3 * k);
-          tma_load_3d(st + C::B_OFF + C::B_BYTES, &tm_fac, &full[slot], kt * BK, i0, 3 * k + 1);
+          tma_load_3d(st + C::B_OFF, &tm_fac, &full[slot], kt * BK, i0, FACTOR_PLANES * k);
+          tma_load_3d(st + C::B_OFF + C::B_BYTES, &tm_fac, &full[slot], kt * BK, i0,
+                      FACTOR_PLANES * k + 1);
         }
       }
     }
@@ -704,24 +689,21 @@ fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_kst,  // k*^T planes {n,
   }
 }
 
-// (G^T v)^T in one TF32 pass for the training-row tiles (p, R - 1 - p) of
-// one (GP, walker tile), then ct_k* = 2 ct_qf (G^T v) + alpha ct_mean, ct_z
-// and the query cotangent in FP32; ct_part holds the pair's partial sum.
-template <int kCons>
-__global__ void __launch_bounds__(128 * (kCons + 1), 1)
-bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_v,    // v^T {n, m, b}
-                 const __grid_constant__ CUtensorMap tm_fac,  // kernel factor {n, n + 1, 3 b}
-                 const float* __restrict__ xs,       // (b, n, d)
-                 const float* __restrict__ xq,       // (m, d)
-                 const float* __restrict__ inv_ls,   // (b, d)
-                 const float* __restrict__ alpha,    // (b, n)
-                 const float* __restrict__ kst,      // k*^T planes (KST_PLANES, b, m, ld)
-                 const float* __restrict__ ct_mean,  // (b, m)
-                 const float* __restrict__ ct_qf,    // (b, m)
-                 float* __restrict__ ct_part,        // (b, npairs, m, d)
-                 int b, int n, int m, int d, int ld, int nlb, int npairs) {
-  using C = Bwd<kCons>;
+// (G^T v)^T for the training-row tiles (p, R - 1 - p) of one (GP, walker
+// tile): in one TF32 pass (fast backward), or in 3xTF32 with each ring
+// stage's products promoted to the FP32 sum (kHigh, the three-pass
+// backward); then ct_k* = 2 ct_qf (G^T v) + alpha ct_mean, ct_z and the
+// query cotangent in FP32; ct_part holds the pair's partial sum.
+template <int kCons, bool kHigh>
+__device__ __forceinline__ void bwd_body(
+    const CUtensorMap* tm_v, const CUtensorMap* tm_fac, const float* __restrict__ xs,
+    const float* __restrict__ xq, const float* __restrict__ inv_ls,
+    const float* __restrict__ alpha, const float* __restrict__ kst,
+    const float* __restrict__ ct_mean, const float* __restrict__ ct_qf,
+    float* __restrict__ ct_part, int b, int n, int m, int d, int ld, int nlb, int npairs) {
+  using C = Bwd<kCons, kHigh>;
   constexpr int NC = 128 * kCons;  // consumer threads
+  constexpr int S = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   float* xs_s = reinterpret_cast<float*>(smem + C::XS_OFF);  // [TN][XS_LD]
@@ -729,11 +711,11 @@ bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_v,    // v^T {n, m, b}
   float* cq_s = reinterpret_cast<float*>(smem + C::CQ_OFF);  // [BM][CQ_LD]
   float* al_s = reinterpret_cast<float*>(smem + C::AL_OFF);  // [TN]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
-  uint64_t* empty = full + BWD_STAGES;
+  uint64_t* empty = full + S;
   const int k = blockIdx.z, p = blockIdx.y, j0 = blockIdx.x * C::BM;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < BWD_STAGES; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NC);
     }
@@ -750,12 +732,15 @@ bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_v,    // v^T {n, m, b}
         const int l0 = (s == 0 ? p : nlb - 1 - p) * TN;
         // G is lower triangular: only rows i >= l0 reach columns l >= l0
         for (int kt = l0 / BK; kt < kend; ++kt, ++it) {
-          const int slot = it % BWD_STAGES;
-          mbar_wait(&empty[slot], ((it / BWD_STAGES) & 1) ^ 1);
+          const int slot = it % S;
+          mbar_wait(&empty[slot], ((it / S) & 1) ^ 1);
           uint8_t* st = smem + slot * C::STAGE;
           mbar_expect_tx(&full[slot], C::STAGE);
-          tma_load_3d(st, &tm_v, &full[slot], kt * BK, j0, k);
-          tma_load_3d(st + C::A_BYTES, &tm_fac, &full[slot], kt * BK, l0, 3 * k + 2);
+          tma_load_3d(st, tm_v, &full[slot], kt * BK, j0, k);
+          tma_load_3d(st + C::A_BYTES, tm_fac, &full[slot], kt * BK, l0, FACTOR_PLANES * k + 2);
+          if constexpr (kHigh)
+            tma_load_3d(st + C::A_BYTES + C::B_BYTES, tm_fac, &full[slot], kt * BK, l0,
+                        FACTOR_PLANES * k + 3);
         }
       }
     }
@@ -786,27 +771,63 @@ bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_v,    // v^T {n, m, b}
     for (int e = 0; e < TN / 2; ++e) acc[e] = 0.f;
     int prev = -1;
     for (int kt = l0 / BK; kt < kend; ++kt, ++it) {
-      const int slot = it % BWD_STAGES;
-      mbar_wait(&full[slot], (it / BWD_STAGES) & 1);
+      const int slot = it % S;
+      mbar_wait(&full[slot], (it / S) & 1);
       uint8_t* st = smem + slot * C::STAGE;
       float* a = reinterpret_cast<float*>(st) + wg * 64 * BK;
-      // round this warpgroup's 64 rows of v^T to nearest TF32 in place (the
-      // tensor cores would drop the low bits); G^T is rounded in memory
+      const uint64_t db = sw128_desc(st + C::A_BYTES);
+      if constexpr (kHigh) {
+        // this warpgroup's 64 rows of v^T -> hi in place, lo into its tile
+        // (the tensor cores would drop the low bits); G^T's halves are
+        // planes 2 and 3 of the kernel factor
+        float* alo = reinterpret_cast<float*>(smem + C::ALO_OFF) + wg * 64 * BK;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) round4(reinterpret_cast<float4*>(a) + wtid + 128 * q);
-      fence_proxy_async();
-      named_bar_sync(1 + wg, 128);
-      const uint64_t da = sw128_desc(a), db = sw128_desc(st + C::A_BYTES);
-      fence_regs(acc);
-      wgmma_fence();
+        for (int q = 0; q < 4; ++q)
+          split4(reinterpret_cast<float4*>(a) + wtid + 128 * q,
+                 reinterpret_cast<float4*>(alo) + wtid + 128 * q);
+        fence_proxy_async();
+        named_bar_sync(1 + wg, 128);
+        const uint64_t dah = sw128_desc(a), dal = sw128_desc(alo);
+        const uint64_t dbl = sw128_desc(st + C::A_BYTES + C::B_BYTES);
+        float part[TN / 2];
+        fence_regs(part);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk) wgmma_tile(acc, da + 2 * kk, db + 2 * kk, 1);
-      wgmma_commit();
-      // keep this stage's products in flight; the previous stage's are done
-      wgmma_wait<1>();
-      fence_regs(acc);
-      if (prev >= 0) mbar_arrive(&empty[prev]);
-      prev = slot;
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          // the stage's 12 products into a fresh sum, small terms first
+          wgmma_tile(part, dal + 2 * kk, db + 2 * kk, kk == 0 ? 0 : 1);
+          wgmma_tile(part, dah + 2 * kk, dbl + 2 * kk, 1);
+          wgmma_tile(part, dah + 2 * kk, db + 2 * kk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+        // every warp's products are done before the lo tile is rewritten
+        named_bar_sync(1 + wg, 128);
+        mbar_arrive(&empty[slot]);
+        // the tensor cores' sums are not rounded to nearest: promoted here
+        // in FP32, every stage (32 contraction steps, whatever m)
+#pragma unroll
+        for (int e = 0; e < TN / 2; ++e) acc[e] += part[e];
+      } else {
+        // round this warpgroup's 64 rows of v^T to nearest TF32 in place (the
+        // tensor cores would drop the low bits); G^T is rounded in memory
+#pragma unroll
+        for (int q = 0; q < 4; ++q) round4(reinterpret_cast<float4*>(a) + wtid + 128 * q);
+        fence_proxy_async();
+        named_bar_sync(1 + wg, 128);
+        const uint64_t da = sw128_desc(a);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) wgmma_tile(acc, da + 2 * kk, db + 2 * kk, 1);
+        wgmma_commit();
+        // keep this stage's products in flight; the previous stage's are done
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (prev >= 0) mbar_arrive(&empty[prev]);
+        prev = slot;
+      }
     }
     // the forward's k* for this thread's 2 rows x (TN / 4) columns, loaded
     // while the last products finish (k*^T rows are walkers; hi + lo when
@@ -832,9 +853,11 @@ bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_v,    // v^T {n, m, b}
         kv[4 * c + 2 * h + 1] = v2.y;
       }
     }
-    wgmma_wait<0>();
-    fence_regs(acc);
-    if (prev >= 0) mbar_arrive(&empty[prev]);
+    if constexpr (!kHigh) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (prev >= 0) mbar_arrive(&empty[prev]);
+    }
 
     // epilogue, FP32: the tile's xs rows and alpha
     load_rows<TN, NC, 4>(xs_s, xs_k, l0, n, d, tid);  // acc is live: 4 loads at a time
@@ -907,291 +930,31 @@ bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_v,    // v^T {n, m, b}
   }
 }
 
-// -------------------------------- the three-pass backward (kernel 3, mma.sync)
+#define BWD_PARAMS                                                                          \
+  const __grid_constant__ CUtensorMap tm_v,   /* v^T {n, m, b} */                           \
+      const __grid_constant__ CUtensorMap tm_fac, /* kernel factor {n, n + 1, 4 b} */       \
+      const float* __restrict__ xs,               /* (b, n, d) */                           \
+      const float* __restrict__ xq,               /* (m, d) */                              \
+      const float* __restrict__ inv_ls,           /* (b, d) */                              \
+      const float* __restrict__ alpha,            /* (b, n) */                              \
+      const float* __restrict__ kst,              /* k*^T planes (KST_PLANES, b, m, ld) */  \
+      const float* __restrict__ ct_mean,          /* (b, m) */                              \
+      const float* __restrict__ ct_qf,            /* (b, m) */                              \
+      float* __restrict__ ct_part,                /* (b, npairs, m, d) */                   \
+      int b, int n, int m, int d, int ld, int nlb, int npairs
+#define BWD_ARGS \
+  &tm_v, &tm_fac, xs, xq, inv_ls, alpha, kst, ct_mean, ct_qf, ct_part, b, n, m, d, ld, nlb, npairs
 
-constexpr int TM = 128;      // output rows per tile (rows of ct_k*)
-constexpr int HN = 64;       // walkers per tile
-constexpr int TK = 32;       // contraction rows per pipeline stage
-constexpr int STAGES = 3;    // cp.async ring depth
-constexpr int TC_NT = 256;   // 8 warps: 4 along rows x 2 along walkers
-constexpr int A_BWD_LD = TM + 8;   // A tile [TK][TM]: G rows = A^T
-constexpr int VT_LD = TK + 4;      // B tile [HN][TK]: v^T rows
-constexpr int BWD_STAGE = TK * A_BWD_LD + HN * VT_LD;
-constexpr int CZ_LD = HN + 1;
-constexpr int BWD_SMEM = (STAGES * BWD_STAGE + HN * XS_LD + HN * DMAX) * 4;  // 97,280 B
-constexpr int RED_LD = 17;  // the query contraction's partials, [4][HN][RED_LD]
-static_assert(TM * XS_LD + TM * CZ_LD + 4 * HN * RED_LD <= STAGES * BWD_STAGE,
-              "the query contraction's partials fit in the drained ring");
-
-// The cp.async ring: stage kt is copied while stages kt - 2, kt - 1 are
-// consumed; one barrier per stage.  load(stage, kt) issues the copies of
-// contraction tile kt, compute(stage, kt) consumes it.
-template <int kStage, class Load, class Compute>
-__device__ __forceinline__ void run_ring(float* ring, int ktiles, Load load,
-                                         Compute compute) {
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load(ring + s * kStage, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; stage kt - 1 is consumed
-    const int nxt = kt + STAGES - 1;
-    if (nxt < ktiles) load(ring + (nxt % STAGES) * kStage, nxt);
-    cp_async_commit();
-    compute(ring + (kt % STAGES) * kStage, kt);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring may be reused
+// kernel 2: the fast backward, one TF32 pass
+template <int kCons>
+__global__ void __launch_bounds__(128 * (kCons + 1), 1) bwd_wgmma_kernel(BWD_PARAMS) {
+  bwd_body<kCons, false>(BWD_ARGS);
 }
 
-// ct_k* = 2 ct_qf G^T v + alpha ct_mean for the training-row tiles
-// (p, R - 1 - p) of one (GP, walker tile) in 3xTF32 with each step's
-// products promoted to FP32, then ct_z and the query cotangent in FP32;
-// ct_part holds the pair's partial sum.  v^T rows are padded to ld (a
-// multiple of 4, zeros past n): 16-byte copies.  kVec: 16-byte aligned rows
-// of G, 16-byte copies, two blocks per SM.  Otherwise (ragged n) 4-byte
-// copies of G, whose addressing needs more than the 128 registers that two
-// blocks per SM leave: one block per SM.
-template <bool kVec>
-__global__ void __launch_bounds__(TC_NT, kVec ? 2 : 1)
-bwd_high_kernel(const float* __restrict__ xs,      // (b, n, d)
-                const float* __restrict__ xq,      // (m, d)
-                const float* __restrict__ inv_ls,  // (b, d)
-                const float* __restrict__ G,       // (b, n, n)
-                const float* __restrict__ alpha,   // (b, n)
-                const float* __restrict__ amp,     // (b,)
-                const float* __restrict__ vt,      // (b, m, ld)
-                const float* __restrict__ ct_mean, // (b, m)
-                const float* __restrict__ ct_qf,   // (b, m)
-                float* __restrict__ ct_part,       // (b, npairs, m, d)
-                int n, int m, int d, int ld, int nlb, int npairs) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs_s = smem + STAGES * BWD_STAGE;  // [HN][XS_LD], the whole block
-  float* cq_s = qs_s + HN * XS_LD;          // [HN][d]: the pair's query cotangent
-  float* xs_s = smem;                       // [TM][XS_LD] once the ring drained
-  float* cz_s = smem + TM * XS_LD;          // [TM][CZ_LD] likewise
-  const int k = blockIdx.z, p = blockIdx.y, j0 = blockIdx.x * HN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const float* xs_k = xs + (size_t)k * n * d;
-  const float* g_k = G + (size_t)k * n * n;
-  const float* a_k = alpha + (size_t)k * n;
-  const float* v_k = vt + (size_t)k * m * ld;
-  const float amp_k = amp[k];
-
-  load_queries<HN, TC_NT>(qs_s, xq, inv_ls + k * d, j0, m, d, tid);
-  for (int e = tid; e < HN * d; e += TC_NT) cq_s[e] = 0.f;
-  // the query contraction: column jq, row group lg of each tile; the
-  // thread adds the 4 groups' sums of dimensions lg, lg + 4, ... to cq_s
-  const int jq = tid % HN, lg = tid / HN;
-
-  const int ntiles = (nlb - 1 - p == p) ? 1 : 2;
-  for (int s = 0; s < ntiles; ++s) {
-    const int l0 = (s == 0 ? p : nlb - 1 - p) * TM;
-    // G is lower triangular: only rows i >= l0 reach columns l >= l0
-    const int ktiles = (n - l0 + TK - 1) / TK;
-    float acc[2][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-    auto load = [&](float* st, int kt) {
-      const int i0 = l0 + kt * TK;
-      float* Gs = st;
-      float* Vs = st + TK * A_BWD_LD;
-      if constexpr (kVec) {
-        for (int c = tid; c < TK * TM / 4; c += TC_NT) {
-          const int row = c / (TM / 4), col = (c % (TM / 4)) * 4;
-          const int i = i0 + row, l = l0 + col;
-          const bool ok = i < n && l < n;
-          cp_async16(Gs + row * A_BWD_LD + col, ok ? g_k + (size_t)i * n + l : g_k, ok);
-        }
-      } else {
-        for (int e = tid; e < TK * TM; e += TC_NT) {
-          const int row = e / TM, col = e % TM;
-          const int i = i0 + row, l = l0 + col;
-          const bool ok = i < n && l < n;
-          cp_async4(Gs + row * A_BWD_LD + col, ok ? g_k + (size_t)i * n + l : g_k, ok);
-        }
-      }
-      for (int c = tid; c < HN * TK / 4; c += TC_NT) {
-        const int row = c / (TK / 4), col = (c % (TK / 4)) * 4;
-        const int j = j0 + row, i = i0 + col;
-        const bool ok = j < m && i < ld;  // ld % 4 == 0: whole chunks
-        cp_async16(Vs + row * VT_LD + col, ok ? v_k + (size_t)j * ld + i : v_k, ok);
-      }
-    };
-
-    const int col_first = l0 + wm * 32;  // this warp's first row of ct_k*
-    auto compute = [&](const float* st, int kt) {
-      const float* Gs = st;
-      const float* Vs = st + TK * A_BWD_LD;
-#pragma unroll
-      for (int kk = 0; kk < TK / 8; ++kk) {
-        // rows i < l of G are zero in column l
-        if (l0 + kt * TK + kk * 8 + 7 < col_first) continue;
-        uint32_t vh[4][2], vl[4][2];
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            split_tf32(Vs[(wn * 32 + ni * 8 + g) * VT_LD + kk * 8 + t + 4 * h],
-                       vh[ni][h], vl[ni][h]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          // A[l][i] = G[i][l]: fragment rows are columns of the G tile
-          const float* gr = Gs + (kk * 8 + t) * A_BWD_LD + wm * 32 + mi * 16 + g;
-          uint32_t gh[4], gl[4];
-          split_tf32(gr[0], gh[0], gl[0]);
-          split_tf32(gr[8], gh[1], gl[1]);
-          split_tf32(gr[4 * A_BWD_LD], gh[2], gl[2]);
-          split_tf32(gr[4 * A_BWD_LD + 8], gh[3], gl[3]);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            // a fresh fragment per step, added in FP32 (the tensor
-            // cores' own sums are not rounded to nearest)
-            float step[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_tf32(step, gl, vh[ni]);
-            mma_tf32(step, gh, vl[ni]);
-            mma_tf32(step, gh, vh[ni]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] += step[e];
-          }
-        }
-      }
-    };
-    run_ring<BWD_STAGE>(smem, ktiles, load, compute);
-
-    // epilogue, FP32: recompute z for this thread's 4 rows x 8 columns
-    load_rows<TM, TC_NT, 4>(xs_s, xs_k, l0, n, d, tid);  // acc is live: 4 loads at a time
-    __syncthreads();
-    float d2[2][2][4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int rh = 0; rh < 2; ++rh)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) d2[mi][rh][ni][0] = d2[mi][rh][ni][1] = 0.f;
-    for (int dd = 0; dd < d; dd += 4) {
-      float4 xr[2][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int rh = 0; rh < 2; ++rh)
-          xr[mi][rh] = *reinterpret_cast<const float4*>(
-              xs_s + (wm * 32 + mi * 16 + g + 8 * rh) * XS_LD + dd);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float4 q = *reinterpret_cast<const float4*>(
-              qs_s + (wn * 32 + ni * 8 + 2 * t + h) * XS_LD + dd);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int rh = 0; rh < 2; ++rh) {
-              const float4 x = xr[mi][rh];
-              float& acc2 = d2[mi][rh][ni][h];
-              float df = x.x - q.x;
-              acc2 = fmaf(df, df, acc2);
-              df = x.y - q.y;
-              acc2 = fmaf(df, df, acc2);
-              df = x.z - q.z;
-              acc2 = fmaf(df, df, acc2);
-              df = x.w - q.w;
-              acc2 = fmaf(df, df, acc2);
-            }
-        }
-    }
-    float cq2[4][2], cm[4][2];  // this thread's 8 walker columns
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = j0 + wn * 32 + ni * 8 + 2 * t + h;
-        cq2[ni][h] = (j < m) ? 2.f * ct_qf[(size_t)k * m + j] : 0.f;
-        cm[ni][h] = (j < m) ? ct_mean[(size_t)k * m + j] : 0.f;
-      }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int rh = 0; rh < 2; ++rh) {
-        const int ll = wm * 32 + mi * 16 + g + 8 * rh, l = l0 + ll;
-        const float a_l = (l < n) ? a_k[l] : 0.f;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float ctk = fmaf(cq2[ni][h], acc[mi][ni][2 * rh + h], a_l * cm[ni][h]);
-            const float z = -0.5f * d2[mi][rh][ni][h];
-            const float kst = amp_k * expf(fminf(z, 0.f));
-            cz_s[ll * CZ_LD + wn * 32 + ni * 8 + 2 * t + h] =
-                (z < 0.f && l < n) ? kst * ctk : 0.f;
-          }
-      }
-    __syncthreads();
-    // ct_xq[jq, :] over the 32 rows of group lg, 16 dimensions at a time in
-    // registers, xs rows read 4 dimensions at a time (a warp shares lg and
-    // the row: broadcast); the 4 groups' partials meet in red
-    float* red = cz_s + TM * CZ_LD;  // [4][HN][RED_LD]
-#pragma unroll
-    for (int half = 0; half < DMAX / 16; ++half) {
-      const int h0 = 16 * half;
-      if (h0 >= d) break;
-      float s_d[16], q_d[16];
-#pragma unroll
-      for (int dd = 0; dd < 16; dd += 4) {
-        const float4 q = (h0 + dd < d)
-            ? *reinterpret_cast<const float4*>(qs_s + jq * XS_LD + h0 + dd)
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-        q_d[dd] = q.x;
-        q_d[dd + 1] = q.y;
-        q_d[dd + 2] = q.z;
-        q_d[dd + 3] = q.w;
-        s_d[dd] = s_d[dd + 1] = s_d[dd + 2] = s_d[dd + 3] = 0.f;
-      }
-      for (int ll = lg * 32; ll < lg * 32 + 32; ++ll) {
-        const float c = cz_s[ll * CZ_LD + jq];
-#pragma unroll
-        for (int dd = 0; dd < 16; dd += 4) {
-          if (h0 + dd < d) {
-            const float4 x = *reinterpret_cast<const float4*>(xs_s + ll * XS_LD + h0 + dd);
-            s_d[dd] = fmaf(c, x.x - q_d[dd], s_d[dd]);
-            s_d[dd + 1] = fmaf(c, x.y - q_d[dd + 1], s_d[dd + 1]);
-            s_d[dd + 2] = fmaf(c, x.z - q_d[dd + 2], s_d[dd + 2]);
-            s_d[dd + 3] = fmaf(c, x.w - q_d[dd + 3], s_d[dd + 3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int dd = 0; dd < 16; ++dd) red[(lg * HN + jq) * RED_LD + dd] = s_d[dd];
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int dd = lg + 4 * r;  // this thread's dimension h0 + dd
-        if (h0 + dd < d) {
-          cq_s[jq * d + h0 + dd] += (red[jq * RED_LD + dd] + red[(HN + jq) * RED_LD + dd]) +
-                                    (red[(2 * HN + jq) * RED_LD + dd] +
-                                     red[(3 * HN + jq) * RED_LD + dd]);
-        }
-      }
-      __syncthreads();  // red is rewritten by the next half
-    }
-    __syncthreads();  // xs_s and cz_s are the ring of the next row tile
-  }
-  // cq_s is complete: the tile loop ended on a barrier
-  for (int e = tid; e < HN * d; e += TC_NT) {
-    const int jj = e / d, dd = e % d;
-    if (j0 + jj < m) {
-      ct_part[(((size_t)k * npairs + p) * m + j0 + jj) * d + dd] = cq_s[e] * inv_ls[k * d + dd];
-    }
-  }
+// kernel 3: the three-pass backward, 3xTF32 with FP32 promotion per stage
+template <int kCons>
+__global__ void __launch_bounds__(128 * (kCons + 1), 1) bwd_high_kernel(BWD_PARAMS) {
+  bwd_body<kCons, true>(BWD_ARGS);
 }
 
 // ------------------------------------------------------------ host side
@@ -1199,7 +962,6 @@ bwd_high_kernel(const float* __restrict__ xs,      // (b, n, d)
 int factor_ld(int n) { return (n + 3) / 4 * 4; }
 int fwd_pairs(int n) { return ((n + 1 + TN - 1) / TN + 1) / 2; }
 int bwd_pairs(int n) { return ((n + TN - 1) / TN + 1) / 2; }
-int high_pairs(int n) { return ((n + TM - 1) / TM + 1) / 2; }
 
 bool bad_shape(int b, int n, int m, int d) {
   return d < 1 || d > DMAX || n < 1 || m < 1 || b < 1;
@@ -1266,6 +1028,43 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem, cudaStream_t s, Args
   return (int)cudaGetLastError();
 }
 
+// Either backward (kHigh: the three-pass one): the product kernel, then
+// the sum over its training-row tile pairs.
+template <bool kHigh>
+int launch_bwd(const float* xs, const float* xq, const float* inv_ls, const void* kf_desc,
+               const float* alpha, const float* vt, const float* kst, const float* ct_mean,
+               const float* ct_qf, float* scratch, float* ct_q, int b, int n, int m, int d,
+               void* stream) {
+  if (bad_shape(b, n, m, d) || !aligned16(kst)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ld = factor_ld(n);
+  const int nlb = (n + TN - 1) / TN, npairs = bwd_pairs(n);
+  const bool one = one_consumer((long long)((m + 127) / 128) * npairs * b);
+  const int bm = one ? 64 : 128;
+  CUtensorMap tm_fac, tm_v;
+  memcpy(&tm_fac, kf_desc, sizeof(tm_fac));
+  int err = encode_planes(&tm_v, vt, n, m, b, ld, bm);
+  if (err != 0) return err;
+  const dim3 grid((m + bm - 1) / bm, npairs, b);
+  if constexpr (kHigh) {
+    err = one ? launch(bwd_high_kernel<1>, grid, 256, Bwd<1, true>::SMEM, s, tm_v, tm_fac, xs,
+                       xq, inv_ls, alpha, kst, ct_mean, ct_qf, scratch, b, n, m, d, ld, nlb,
+                       npairs)
+              : launch(bwd_high_kernel<2>, grid, 384, Bwd<2, true>::SMEM, s, tm_v, tm_fac, xs,
+                       xq, inv_ls, alpha, kst, ct_mean, ct_qf, scratch, b, n, m, d, ld, nlb,
+                       npairs);
+  } else {
+    err = one ? launch(bwd_wgmma_kernel<1>, grid, 256, Bwd<1, false>::SMEM, s, tm_v, tm_fac, xs,
+                       xq, inv_ls, alpha, kst, ct_mean, ct_qf, scratch, b, n, m, d, ld, nlb,
+                       npairs)
+              : launch(bwd_wgmma_kernel<2>, grid, 384, Bwd<2, false>::SMEM, s, tm_v, tm_fac, xs,
+                       xq, inv_ls, alpha, kst, ct_mean, ct_qf, scratch, b, n, m, d, ld, nlb,
+                       npairs);
+  }
+  if (err != 0) return err;
+  return launch_rowsum(scratch, ct_q, b, npairs, (long long)m * d, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1282,19 +1081,22 @@ int fused_predict_ld(int n) { return factor_ld(n); }
 long long fused_predict_scratch(int entry, int b, int n, int m, int d) {
   if (entry == 0) return (long long)b * fwd_pairs(n) * m;
   if (entry == 1) return (long long)b * bwd_pairs(n) * m * d;
-  return (long long)b * high_pairs(n) * m * d;
+  return (long long)b * bwd_pairs(n) * m * d;
 }
 
 // Planes of the forward's k*^T buffer (KST_PLANES, b, m, ld): 1 = k*, 2 =
 // its TF32 halves.
 int fused_predict_kst_planes() { return KST_PLANES; }
 
+// Planes of the kernel factor per GP (b, FACTOR_PLANES, n + 1, ld).
+int fused_predict_factor_planes() { return FACTOR_PLANES; }
+
 // The tensor-map descriptor (128 bytes, into out) of a kernel factor
-// (b, 3, n + 1, ld); the wrapper encodes it once per fused state.
+// (b, 4, n + 1, ld); the wrapper encodes it once per fused state.
 int fused_predict_encode_factor(const float* kf, int b, int n, void* out) {
   if (b < 1 || n < 1) return (int)cudaErrorInvalidValue;
   CUtensorMap map;
-  const int err = encode_planes(&map, kf, n, n + 1, 3 * b, factor_ld(n), TN);
+  const int err = encode_planes(&map, kf, n, n + 1, FACTOR_PLANES * b, factor_ld(n), TN);
   if (err == 0) memcpy(out, &map, sizeof(map));
   return err;
 }
@@ -1336,44 +1138,18 @@ int fused_predict_bwd(const float* xs, const float* xq, const float* inv_ls,
                       const float* vt, const float* kst, const float* ct_mean,
                       const float* ct_qf, float* scratch, float* ct_q,
                       int b, int n, int m, int d, void* stream) {
-  if (bad_shape(b, n, m, d) || !aligned16(kst)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ld = factor_ld(n);
-  const int nlb = (n + TN - 1) / TN, npairs = bwd_pairs(n);
-  const bool one = one_consumer((long long)((m + 127) / 128) * npairs * b);
-  const int bm = one ? 64 : 128;
-  CUtensorMap tm_fac, tm_v;
-  memcpy(&tm_fac, kf_desc, sizeof(tm_fac));
-  int err = encode_planes(&tm_v, vt, n, m, b, ld, bm);
-  if (err != 0) return err;
-  const dim3 grid((m + bm - 1) / bm, npairs, b);
-  err = one ? launch(bwd_wgmma_kernel<1>, grid, 256, Bwd<1>::SMEM, s, tm_v, tm_fac, xs, xq,
-                     inv_ls, alpha, kst, ct_mean, ct_qf, scratch, b, n, m, d, ld, nlb, npairs)
-            : launch(bwd_wgmma_kernel<2>, grid, 384, Bwd<2>::SMEM, s, tm_v, tm_fac, xs, xq,
-                     inv_ls, alpha, kst, ct_mean, ct_qf, scratch, b, n, m, d, ld, nlb, npairs);
-  if (err != 0) return err;
-  return launch_rowsum(scratch, ct_q, b, npairs, (long long)m * d, s);
+  return launch_bwd<false>(xs, xq, inv_ls, kf_desc, alpha, vt, kst, ct_mean, ct_qf, scratch,
+                           ct_q, b, n, m, d, stream);
 }
 
+// The same arguments; G^T's lo half from plane 3 of the kernel factor.
 int fused_predict_bwd_high(const float* xs, const float* xq, const float* inv_ls,
-                           const float* G, const float* alpha, const float* amp,
-                           const float* vt, const float* ct_mean, const float* ct_qf,
-                           float* scratch, float* ct_q,
+                           const void* kf_desc, const float* alpha,
+                           const float* vt, const float* kst, const float* ct_mean,
+                           const float* ct_qf, float* scratch, float* ct_q,
                            int b, int n, int m, int d, void* stream) {
-  if (bad_shape(b, n, m, d) || !aligned16(vt)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ld = factor_ld(n);
-  const int nlb = (n + TM - 1) / TM, npairs = high_pairs(n);
-  const dim3 grid((m + HN - 1) / HN, npairs, b);
-  const bool vec = n % 4 == 0 && aligned16(G);
-  const int err = vec ? launch(bwd_high_kernel<true>, grid, TC_NT, BWD_SMEM, s, xs, xq, inv_ls,
-                               G, alpha, amp, vt, ct_mean, ct_qf, scratch, n, m, d, ld, nlb,
-                               npairs)
-                      : launch(bwd_high_kernel<false>, grid, TC_NT, BWD_SMEM, s, xs, xq, inv_ls,
-                               G, alpha, amp, vt, ct_mean, ct_qf, scratch, n, m, d, ld, nlb,
-                               npairs);
-  if (err != 0) return err;
-  return launch_rowsum(scratch, ct_q, b, npairs, (long long)m * d, s);
+  return launch_bwd<true>(xs, xq, inv_ls, kf_desc, alpha, vt, kst, ct_mean, ct_qf, scratch,
+                          ct_q, b, n, m, d, stream);
 }
 
 }  // extern "C"

@@ -10,18 +10,27 @@ Kernel (``csrc/fused_mvn.cu``, built by :mod:`._build`): replaces
 augmented matrix ``[[C, y], [y^T, 0]]`` symmetrically, lower triangle
 only: the pivots give the log-determinant and the last entry ends as
 ``-y^T C^-1 y``, so there is no separate solve.  A pivot that is not
-positive and finite, or a non-finite result, gives ``-inf``.  One thread
-block (or one cluster) owns one matrix.  All routes run the reference's
-blocked right-looking order (factor a panel of columns, then apply its
-trailing update as one product), FP32-class arithmetic throughout, and are
-chosen from ``n`` alone:
+positive and finite, or a non-finite result, gives ``-inf``.  One warp,
+one thread block or one cluster owns one matrix.  All routes run the
+reference's blocked right-looking order (factor a panel of columns, then
+apply its trailing update as one product; the warp kernel's one panel is
+the whole matrix), FP32-class arithmetic throughout, and are chosen from
+``n`` alone:
 
-- ``fused_mvn_loglike`` (n <= 319): the lower triangle packed in the
-  block's shared memory beside a copy of the current 16-column panel; the
-  panel's diagonal block factored by one warp, its rows below by a thread
-  each, the trailing update in 4 x 4 register tiles.  cov's lower triangle
-  and y are read once; three blocks share an SM at n = 170.  Bound by FP32
-  operations at n = 170 (by bytes at the small flagship blocks).
+- ``fused_mvn_loglike`` (n <= 319, the shared-memory route), two kernels
+  by n.  Up to n = 32 (six of the flagship's nine blocks) one warp per
+  matrix, its rows read straight into registers, no block barrier and no
+  shared memory.  Past it, the lower triangle packed in the
+  block's shared memory (copied in by ``cp.async``) beside a copy of the
+  current 16-column panel; each panel's diagonal block factored by one
+  warp, which factors the next panel's block while the other warps apply
+  the rest of the trailing update (look-ahead; panel 0's straight from
+  device memory while the triangle lands), its rows below by a thread
+  each, the trailing update in 4 x 4 register tiles; two block barriers
+  per panel.
+  cov's lower triangle and y are read once; three blocks share an SM at
+  n = 170.  Bound by FP32 operations at n = 170 (by bytes at the small
+  flagship blocks).
 - ``fused_mvn_loglike_cluster`` (up to n = 766, the stitched 544 x 544
   matrix): one thread-block cluster of C CTAs per matrix (C the smallest
   of 2 .. 8 whose shared memory holds it: 4 at n = 544), the rows dealt
@@ -81,6 +90,7 @@ register("fused_mvn_loglike_panel", _SOURCE, _REPLACES)
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 SMEM_PANEL = 16      # panel width of the shared-memory route
+WARP_MAX_N = 32      # largest n of the shared-memory route's warp kernel
 CLUSTER_PANEL = 16   # panel width = row-block height of the cluster route
 CLUSTER_MAX = 8      # largest cluster the cluster route uses
 WIDE_PANEL = 64      # panel width of the wide route ("panel")
@@ -241,7 +251,7 @@ def _lib():
                      "fused_mvn_panel_width", "fused_mvn_panel_sms", "fused_mvn_panel_bytes"):
             getattr(lib, name).restype = _I
             getattr(lib, name).argtypes = []
-        for name in ("fused_mvn_smem_blocks_per_sm", "fused_mvn_cluster_size",
+        for name in ("fused_mvn_smem_matrices_per_sm", "fused_mvn_cluster_size",
                      "fused_mvn_cluster_bytes", "fused_mvn_cluster_active",
                      "fused_mvn_panel_cluster", "fused_mvn_panel_ctas_per_sm",
                      "fused_mvn_panel_active"):
@@ -345,10 +355,11 @@ def route_max_n(route: str) -> int | None:
     return None if entry is None else getattr(_lib(), entry)()
 
 
-def smem_blocks_per_sm(n: int) -> int:
-    """Thread blocks of the shared-memory route one SM holds at this ``n``
-    (needs the built library, so a CUDA machine)."""
-    return _lib().fused_mvn_smem_blocks_per_sm(int(n))
+def smem_matrices_per_sm(n: int) -> int:
+    """Matrices of the shared-memory route one SM holds at once at this
+    ``n``: warps of its warp kernel (n <= WARP_MAX_N), blocks of its block
+    kernel (needs the built library, so a CUDA machine)."""
+    return _lib().fused_mvn_smem_matrices_per_sm(int(n))
 
 
 def smem_panel() -> int:

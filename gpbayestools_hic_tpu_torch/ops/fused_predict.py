@@ -29,30 +29,30 @@ precision contract and its bound on the H100 at the flagship shape
   FP32, with the forward's k* instead of a recompute of z.  Bound ~0.015 ms.
 - ``fused_predict_bwd_high`` replaces ``pallas_predict.py:_bwd_kernel``: the
   same cotangent at FP32-class accuracy, for good; ``grad_precision="high"``
-  / ``"highest"`` select it.  G^T v in 3xTF32 with each 8-deep step's
-  products promoted to FP32 (the TPU kernel ran 3-pass bf16), the rest
-  FP32.  Bound ~0.031 ms.
+  / ``"highest"`` select it.  G^T v in 3xTF32 (v^T split into TF32 halves
+  in shared memory, G^T's halves from the kernel factor) with each ring
+  stage's products promoted to the FP32 sum (the TPU kernel ran 3-pass
+  bf16), the rest FP32 as in the fast backward, with the forward's k*.
+  Bound ~0.031 ms.
 
-The forward and the fast backward are Hopper kernels: walkers on the M
-side of ``wgmma.mma_async`` TF32 products whose operands both come K-major
-from shared memory, a ring of stages filled by TMA and tracked by
-mbarriers (one producer warpgroup, one or two consumer warpgroups), and
-the light and heavy row tiles of the triangular factor paired so that
-every block does the same work.  The three-pass backward keeps the sm_80
-design (``mma.sync`` from a ``cp.async`` ring).  The source's header says
-more.
+All three are Hopper kernels: walkers on the M side of ``wgmma.mma_async``
+TF32 products whose operands both come K-major from shared memory, a ring
+of stages filled by TMA and tracked by mbarriers (one producer warpgroup,
+one or two consumer warpgroups), and the light and heavy row tiles of the
+triangular factor paired so that every block does the same work.  The
+source's header says more.
 
 Layouts.  The plain state is ``xs = x / ls`` (b, n, d), ``G`` (b, n, n),
 ``alpha`` (b, n), ``amp`` (b,), ``inv_ls`` (b, d) and ``kdiag`` (b,), all
 float32, as the plain versions read them.  ``build_fused_state`` adds the
-kernels' copy of the factor, ``kf`` (b, 3, n + 1, ld) (:func:`kernel_factor`):
-[G; alpha] in TF32 halves and G^T rounded to TF32, rows padded to
+kernels' copy of the factor, ``kf`` (b, 4, n + 1, ld) (:func:`kernel_factor`):
+[G; alpha] and G^T, each in TF32 halves, rows padded to
 ``ld = factor_ld(n)`` floats, the 16-byte stride TMA needs; its tensor-map
 descriptor is encoded once and cached.  The forward kernel saves v as v^T
 in plane 0 of a (1 + KST_PLANES, b, m, ld) buffer whose other planes hold
 the call's k*^T, and hands it out as the (b, n, m) view
 ``buf[0, :, :, :n].mT``, which the plain backward reads as it is and the
-kernels by its storage: the fast backward takes k* from there
+kernels by its storage: both backwards take k* from there
 (:func:`kernel_layout_v` makes that layout from a plain v).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
@@ -102,13 +102,15 @@ class FusedState(NamedTuple):
     amp: torch.Tensor     # (b,)
     inv_ls: torch.Tensor  # (b, d)
     kdiag: torch.Tensor   # (b,) predictive prior variance amp + noise
-    kf: torch.Tensor | None = None  # (b, 3, n + 1, ld) the kernels' factor (kernel_factor)
+    kf: torch.Tensor | None = None  # (b, 4, n + 1, ld) the kernels' factor (kernel_factor)
 
 
 #: largest input dimension the kernels take (``DMAX`` of csrc/fused_predict.cu)
 FUSED_MAX_DIM = 32
-#: rows of a Hopper kernel's tile (``TN``) and of the three-pass backward's (``TM``)
+#: rows of a Hopper kernel's tile (``TN``)
 TILE_ROWS = 128
+#: planes of the kernel factor per GP (``FACTOR_PLANES``)
+FACTOR_PLANES = 4
 #: planes of the forward's k*^T buffer (``KST_PLANES``: k* split in shared memory)
 KST_PLANES = 1
 
@@ -122,7 +124,7 @@ def factor_ld(n: int) -> int:
 def tile_pairs(rows: int) -> int:
     """Blocks along the rows of a triangular product: row tiles of
     TILE_ROWS, paired light with heavy (``fwd_pairs`` for n + 1 rows,
-    ``bwd_pairs`` and ``high_pairs`` for n)."""
+    ``bwd_pairs`` for n)."""
     return (-(-rows // TILE_ROWS) + 1) // 2
 
 
@@ -144,17 +146,23 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_factor(G: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """The kernels' copy of a float32 factor, (b, 3, n + 1, ld), zeros in
+    """The kernels' copy of a float32 factor, (b, 4, n + 1, ld), zeros in
     the padding: plane 0 [G; alpha] rounded to TF32 (hi), plane 1 the rest
     rounded to TF32 (lo), the forward's 3xTF32 operand; plane 2 G^T rounded
-    to TF32 (row n zero), the fast backward's operand."""
+    to TF32 (row n zero), the fast backward's operand and the hi half of
+    the three-pass backward's, plane 3 its lo half.  Each plane is 4 (n +
+    1) ld bytes per GP (4 MB at n = 1000)."""
     b, n = alpha.shape
     ga = torch.cat([G, alpha[:, None, :]], 1)
     hi = round_tf32(ga)
-    kf = torch.zeros((b, 3, n + 1, factor_ld(n)), dtype=torch.float32, device=G.device)
+    gt = G.transpose(1, 2)
+    gt_hi = round_tf32(gt)
+    kf = torch.zeros((b, FACTOR_PLANES, n + 1, factor_ld(n)), dtype=torch.float32,
+                     device=G.device)
     kf[:, 0, :, :n] = hi
     kf[:, 1, :, :n] = round_tf32(ga - hi)
-    kf[:, 2, :n, :n] = round_tf32(G.transpose(1, 2))
+    kf[:, 2, :n, :n] = gt_hi
+    kf[:, 3, :n, :n] = round_tf32(gt - gt_hi)
     return kf
 
 
@@ -259,6 +267,8 @@ def _lib():
         lib.fused_predict_encode_factor.argtypes = [_P, _I, _I, _P]
         lib.fused_predict_kst_planes.restype = _I
         lib.fused_predict_kst_planes.argtypes = []
+        lib.fused_predict_factor_planes.restype = _I
+        lib.fused_predict_factor_planes.argtypes = []
         lib.fused_predict_fwd.restype = _I
         lib.fused_predict_fwd.argtypes = [_P] * 10 + [_I] * 4 + [_P]
         lib.fused_predict_bwd.restype = _I
@@ -306,7 +316,7 @@ def _check_cuda(fs: FusedState, xq: torch.Tensor, *extra: torch.Tensor):
     b, n, d = fs.xs.shape
     m = xq.shape[0]
     if (xq.shape != (m, d) or fs.G.shape != (b, n, n) or fs.alpha.shape != (b, n)
-            or fs.kf.shape != (b, 3, n + 1, factor_ld(n))):
+            or fs.kf.shape != (b, FACTOR_PLANES, n + 1, factor_ld(n))):
         raise ValueError(
             f"shape mismatch: xq {tuple(xq.shape)}, xs {tuple(fs.xs.shape)}, "
             f"G {tuple(fs.G.shape)}, alpha {tuple(fs.alpha.shape)}, kf {tuple(fs.kf.shape)}"
@@ -370,13 +380,9 @@ def _bwd_cuda(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
     # per-block partial sums of the query cotangent
     ct_part = torch.empty(lib.fused_predict_scratch(1 if fast else 2, b, n, m, d), **opts)
     ct_q = torch.empty((b, m, d), **opts)
-    # the fast backward: G^T from the kernel factor, k* from the saved v's
-    # buffer; the three-pass one: G itself, z recomputed
-    if fast:
-        operands = (_factor_desc(lib, fs), fs.alpha.data_ptr(), v.data_ptr(),
-                    v.data_ptr() + 4 * b * m * factor_ld(n))
-    else:
-        operands = (fs.G.data_ptr(), fs.alpha.data_ptr(), fs.amp.data_ptr(), v.data_ptr())
+    # G^T's halves from the kernel factor, k* from the saved v's buffer
+    operands = (_factor_desc(lib, fs), fs.alpha.data_ptr(), v.data_ptr(),
+                v.data_ptr() + 4 * b * m * factor_ld(n))
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     with torch.cuda.device(xq.device):
         err = getattr(lib, kernel)(

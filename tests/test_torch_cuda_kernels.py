@@ -132,6 +132,7 @@ def test_cuda_layout_helpers_match_the_library(cuda_device):
     next plane."""
     lib = fp._lib()
     assert lib.fused_predict_kst_planes() == fp.KST_PLANES
+    assert lib.fused_predict_factor_planes() == fp.FACTOR_PLANES
     for b, n, m, d in ((1, 1, 1, 1), (4, 1000, 1024, 17), (23, 257, 37, 5), (70, 999, 200, 32)):
         assert lib.fused_predict_ld(n) == fp.factor_ld(n)
         for entry in (0, 1, 2):
@@ -149,33 +150,37 @@ def test_cuda_layout_helpers_match_the_library(cuda_device):
 
 @pytest.mark.parametrize("n", [257, 1000])
 def test_cuda_walkers_do_not_depend_on_the_batch(cuda_device, n):
-    """A walker's mean, qf, v and query cotangent are the same bit for bit
-    whether it shares the call with 1023 other walkers or with 255 (the
-    two batches take different block shapes: one consumer warpgroup per
-    block at 256, two at 1024), as the sharded path j of chip_smoke.py
-    requires."""
+    """A walker's mean, qf, v and query cotangent (of both backwards) are
+    the same bit for bit whether it shares the call with 1023 other walkers
+    or with 255 (the two batches take different block shapes: one consumer
+    warpgroup per block at 256, two at 1024), as the sharded path j of
+    chip_smoke.py requires."""
     fs, xq, ctm, ctq = _problem(cuda_device, n=n, m=1024, seed=11)
     full = fp.fused_fwd(fs, xq, save_v=True)
     g_full = fp.fused_bwd(fs, xq, full[2], ctm, ctq)
+    h_full = fp.fused_bwd(fs, xq, full[2], ctm, ctq, "high")
     for lo in (0, 256, 768):
         sl = slice(lo, lo + 256)
         part = fp.fused_fwd(fs, xq[sl].contiguous(), save_v=True)
         assert torch.equal(part[0], full[0][:, sl]) and torch.equal(part[1], full[1][:, sl])
         assert torch.equal(part[2], full[2][:, :, sl])
-        g = fp.fused_bwd(fs, xq[sl].contiguous(), part[2], ctm[:, sl].contiguous(),
-                         ctq[:, sl].contiguous())
+        cts = (ctm[:, sl].contiguous(), ctq[:, sl].contiguous())
+        g = fp.fused_bwd(fs, xq[sl].contiguous(), part[2], *cts)
         assert torch.equal(g, g_full[:, sl])
+        h = fp.fused_bwd(fs, xq[sl].contiguous(), part[2], *cts, "high")
+        assert torch.equal(h, h_full[:, sl])
 
 
 @pytest.mark.parametrize("n", [40, 257, 1000])
-@pytest.mark.parametrize("m", [1, 37, 200])
+@pytest.mark.parametrize("m", [1, 37, 200, 256])
 def test_cuda_high_precision_backward_matches_f64_plain(cuda_device, n, m):
     """Kernel 3 (grad_precision="high"/"highest": G^T v in 3xTF32 with each
-    step promoted to FP32, the rest FP32) vs the plain backward evaluated
-    in float64 on the same inputs: 5e-5 normwise, about n * 2^-24 for the
-    length-n sums it takes, well below what one TF32 pass leaves (~1e-4 and
-    more).  Ragged n and m take the 4-byte copy route, n = 1000 with m =
-    200 the 16-byte one.  It has its own launch counter."""
+    ring stage's products promoted to FP32, the rest FP32) vs the plain
+    backward evaluated in float64 on the same inputs: 5e-5 normwise, about
+    n * 2^-24 for the length-n sums it takes, well below what one TF32
+    pass leaves (~1e-4 and more), and not bit-equal to the fast backward.
+    Ragged n (rows padded to a multiple of 4) and m take the same route.
+    It has its own launch counter."""
     fs, xq, ctm, ctq = _problem(cuda_device, n=n, m=m)
     _, _, v = fp.fused_fwd(fs, xq, save_v=True)
     before = dict(LAUNCH_COUNTS)
@@ -187,6 +192,7 @@ def test_cuda_high_precision_backward_matches_f64_plain(cuda_device, n, m):
     g64 = fp.fused_bwd_plain(*_f64(fs, xq, v, ctm, ctq))
     assert _rel(g_high.double(), g64) <= 5e-5
     assert torch.equal(g_high, g_highest)
+    assert not torch.equal(g_high, fp.fused_bwd(fs, xq, v, ctm, ctq))
     with pytest.raises(ValueError, match="grad_precision"):
         fp.fused_bwd(fs, xq, v, ctm, ctq, "low")
 
@@ -334,6 +340,69 @@ def test_cuda_mvn_matches_plain(cuda_device, route, b, n):
     keep[bads] = False
     torch.testing.assert_close(got[keep], want[keep], rtol=2e-4, atol=0)
     torch.testing.assert_close(got[keep], lib[keep], rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 12, 14, 21, 28, 31, 32, 33, 73, 170])
+def test_cuda_mvn_smem_bits_do_not_depend_on_the_batch(cuda_device, n):
+    """The shared-memory route (its warp kernel to n = 32, its block kernel
+    past it): at b = 1, 511, 512, 513 and 1025 (ragged against the warp
+    kernel's four matrices per block), from the batch's start and from its
+    end, and with the batch permuted, every matrix gives
+    the bits it gives in the full batch (path j shards the batch), and the
+    full batch matches the plain elimination (rtol 2e-4)."""
+    total = 1025
+    y, cov = _mvn_problem(cuda_device, total, n, seed=100 + n)
+    full = fm._mvn_cuda(y, cov, route="smem")
+    for b in (1, 511, 512, 513, total):
+        for off in {0, total - b}:
+            got = fm._mvn_cuda(y[off:off + b], cov[off:off + b], route="smem")
+            assert torch.equal(got, full[off:off + b]), (b, off)
+    perm = torch.randperm(total, generator=torch.Generator().manual_seed(n)).to(cuda_device)
+    assert torch.equal(fm._mvn_cuda(y[perm].contiguous(), cov[perm].contiguous(), route="smem"),
+                       full[perm])
+    torch.testing.assert_close(full, fm.fused_mvn_loglike_plain(y, cov), rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("n", [12, 14, 28, 32])
+def test_cuda_mvn_warp_kernel_past_the_resident_warps(cuda_device, n):
+    """At b = 16383 and 16384 the warp kernel's blocks (four matrices each)
+    are more than the card holds at once.  Each matrix gives the bits it
+    gives in a batch of 1024, and the batch matches the plain elimination
+    (rtol 2e-4)."""
+    y, cov = _mvn_problem(cuda_device, 1024, n, seed=300 + n)
+    small = fm._mvn_cuda(y, cov, route="smem")
+    for b in (16383, 16384):
+        reps = -(-b // 1024)
+        yb = y.repeat(reps, 1)[:b].contiguous()
+        cb = cov.repeat(reps, 1, 1)[:b].contiguous()
+        got = fm._mvn_cuda(yb, cb, route="smem")
+        assert torch.equal(got, small.repeat(reps)[:b]), b
+    torch.testing.assert_close(small, fm.fused_mvn_loglike_plain(y, cov), rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("n", [12, 28, 32, 73])
+@pytest.mark.parametrize("where", ["first", "mid", "end"])
+def test_cuda_mvn_smem_bad_pivots_in_every_slot(cuda_device, n, where):
+    """A bad pivot (the first, one mid-matrix or mid-panel, the last or a
+    panel's last) planted in each slot of the warp kernel's blocks in turn
+    (b = 8: two blocks of four matrices; the block kernel: one matrix per
+    block): -inf there, every other matrix bit-equal to the clean batch."""
+    b = 8
+    p = fm.smem_panel()
+    if n > fm.WARP_MAX_N:
+        k = {"first": 0, "mid": p + p // 2, "end": 2 * p - 1}[where]
+    else:
+        k = {"first": 0, "mid": n // 2, "end": n - 1}[where]
+    y, cov = _mvn_problem(cuda_device, b, n, seed=200 + n)
+    clean = fm._mvn_cuda(y, cov, route="smem")
+    assert torch.isfinite(clean).all()
+    for slot in range(b):
+        c = cov.clone()
+        c[slot, k, k] = -1.0
+        got = fm._mvn_cuda(y, c, route="smem")
+        keep = torch.arange(b, device=cuda_device) != slot
+        assert got[slot] == -torch.inf, slot
+        assert torch.equal(got[keep], clean[keep]), slot
 
 
 @pytest.mark.parametrize("b", [1, 3, 130])

@@ -107,6 +107,89 @@ PANEL = 16
 PANELS = (8, 16, 32)
 
 
+def _warp_elimination(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+    """The shared-memory route's warp kernel (n <= fm.WARP_MAX_N), in plain
+    torch (on no path): the augmented matrix eliminated pivot by pivot,
+    right-looking (one panel, the whole matrix), lane r's row r updated as
+    A[r][q] = fma(-A[r][j] / p_j, A[q][j], A[r][q]) and the y row, held as
+    column n, as A[n][r] = fma(-A[n][j] / p_j, A[r][j], A[n][r]); each FMA
+    rounded once (its exact product in float64).  A matrix whose pivot is
+    not positive and finite gives -inf; the others never see it."""
+    b, n = y.shape
+
+    def fma(a, b_, c):
+        return (a.double() * b_.double() + c.double()).to(cov.dtype)
+
+    x = torch.tril(cov.clone())
+    yr = y.clone()
+    ynn = torch.zeros((b,), dtype=cov.dtype)
+    logdet_half = torch.zeros((b,), dtype=cov.dtype)
+    ok = torch.ones((b,), dtype=torch.bool)
+    for j in range(n):
+        p = x[:, j, j].clone()
+        ok &= (p > 0) & ~torch.isinf(p)
+        rp = 1.0 / p
+        s = x[:, :, j] * rp[:, None]          # every row's multiplier
+        sn = yr[:, j] * rp                     # the y row's
+        col = x[:, :, j].clone()
+        x[:, j + 1:, j + 1:] = torch.tril(fma(-s[:, j + 1:, None], col[:, None, j + 1:],
+                                              x[:, j + 1:, j + 1:]))
+        yj = yr[:, j].clone()
+        yr[:, j + 1:] = fma(-sn[:, None], col[:, j + 1:], yr[:, j + 1:])
+        ynn = fma(-sn, yj, ynn)
+        logdet_half = logdet_half + 0.5 * torch.log(torch.where(p > 0, p, torch.ones_like(p)))
+    lp = 0.5 * ynn - logdet_half
+    return torch.where(ok & torch.isfinite(lp), lp, torch.full_like(lp, -torch.inf))
+
+
+def _smem_route(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+    """The shared-memory route's arithmetic and order: the warp kernel's up
+    to fm.WARP_MAX_N, the block kernel's past it (its look-ahead gives each
+    entry of the next diagonal block the sum a trailing tile would give)."""
+    if y.shape[1] <= fm.WARP_MAX_N:
+        return _warp_elimination(y, cov)
+    return _blocked_elimination(y, cov, PANEL)
+
+
+@pytest.mark.parametrize("n", [1, 12, 14, 16, 17, 21, 28, 31, 32, 33, 73, 170, 319])
+def test_smem_route_matches_jax_pallas_and_f64(n):
+    """The shared-memory route as the kernels run it (warp kernel to n = 32,
+    block kernel past it) against the JAX Pallas kernel (interpret mode)
+    and the float64 plain elimination, rtol 2e-4 (the JAX package's own
+    kernel tolerance): the flagship's block sizes, both sides of the warp
+    kernel's limit and of the panel boundaries, and the route's largest n."""
+    y, cov = _problem(2 if n > 100 else 4, n, seed=500 + n)
+    j_pallas = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    yt, ct = torch.tensor(y), torch.tensor(cov)
+    want64 = fm.fused_mvn_loglike_plain(yt.double(), ct.double()).numpy()
+    got = _smem_route(yt, ct)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), j_pallas, rtol=2e-4)
+    np.testing.assert_allclose(got.numpy(), want64, rtol=2e-4)
+
+
+@pytest.mark.parametrize("n,where", [(12, "first"), (12, "mid"), (12, "end"), (28, "first"),
+                                     (28, "mid"), (28, "end"), (32, "end"), (73, "first"),
+                                     (73, "mid_panel"), (73, "panel_end")])
+def test_smem_route_bad_pivot_beside_healthy_matrices(n, where):
+    """A bad pivot at the first pivot, mid-matrix (mid-panel) or at the
+    matrix's (a panel's) last pivot, in a matrix that shares a warp-kernel
+    block (four matrices) with healthy ones: -inf there, as in the JAX
+    Pallas kernel; the other matrices keep their values bit for bit."""
+    b, bad = 8, 1
+    k = {"first": 0, "mid": n // 2, "end": n - 1, "mid_panel": PANEL + PANEL // 2,
+         "panel_end": 2 * PANEL - 1}[where]
+    y, cov = _problem(b, n, seed=600 + n)
+    clean = _smem_route(torch.tensor(y), torch.tensor(cov))
+    cov[bad, k, k] = -1.0
+    j = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    got = _smem_route(torch.tensor(y), torch.tensor(cov))
+    assert j[bad] == -np.inf and got[bad] == -torch.inf
+    keep = np.arange(b) != bad
+    np.testing.assert_array_equal(got.numpy()[keep], clean.numpy()[keep])
+    np.testing.assert_allclose(got.numpy()[keep], j[keep], rtol=2e-4)
+
+
 @pytest.mark.parametrize("n", [1, PANEL - 1, PANEL, PANEL + 1, 2 * PANEL + 1, 73, 170])
 def test_blocked_order_matches_jax_pallas_and_plain(n):
     """The shared-memory kernel's blocked elimination, emulated in float32
@@ -343,7 +426,12 @@ def test_kernel_source_calls_no_library_factorization():
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
     for word in ("cusolver", "cublas", "torch", "ATen", "potrf"):
         assert word not in code, word
-    assert "__global__" in code and "mvn_smem_kernel<<<" in code
+    assert "__global__" in code and "smem_kernel(n)<<<" in code and "mvn_smem_kernel<256>" in code
+    # the shared-memory route's warp kernel up to WARP_MAX_N; the block
+    # kernel's triangle copied in by cp.async
+    assert "warp_kernel(n)<<<" in code and "mvn_warp_kernel<16>" in code
+    assert f"constexpr int WARP_MAX_N = {fm.WARP_MAX_N};" in code
+    assert "cp.async.ca.shared.global" in code and "copy_triangle(" in code
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in code
     # the cluster route: launched as clusters, DSMEM through map_shared_rank
     assert "cudaLaunchKernelEx" in code and "cudaLaunchAttributeClusterDimension" in code

@@ -396,7 +396,8 @@ def test_grad_precision_selects_the_backward_kernel():
     with pytest.raises(ValueError, match="grad_precision"):
         fp.fused_bwd(fs, torch.tensor(xq), None, None, None, "bf16")
     src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
-    assert "int fused_predict_bwd_high(" in src and "bwd_high_kernel<true>" in src
+    assert "int fused_predict_bwd_high(" in src and "bwd_high_kernel<2>" in src
+    assert "bwd_high_kernel<1>" in src and "mma.sync" not in src
     assert "int fused_predict_bwd(" in src and "bwd_wgmma_kernel<2>" in src
     assert "bwd_wgmma_kernel<1>" in src and "bwd_fp32_kernel" not in src
 
@@ -454,7 +455,7 @@ def test_predict_variant_edits_apply_to_the_source():
         "split_in_memory",
         "tn_64", "kstar_128x64", "kstar_64x128", "kstar_32x64", "one_consumer",
         "two_consumers", "fwd_no_products", "bwd_no_products", "bwd_no_round",
-        "bwd_no_contraction"}
+        "bwd_no_contraction", "high_stages_3", "high_no_products", "high_no_split"}
     assert tool.variant_source(src, tool.VARIANTS["kept"]) == src
     for name, edits in tool.VARIANTS.items():
         assert tool.variant_source(src, edits) != src or name == "kept"
@@ -464,12 +465,14 @@ def test_predict_variant_edits_apply_to_the_source():
 
 
 def test_kernel_factor_layout_and_sizes():
-    """build_fused_state's kernel factor, (b, 3, n + 1, ld) with ld = n
+    """build_fused_state's kernel factor, (b, 4, n + 1, ld) with ld = n
     rounded up to 4 (the 16-byte row stride TMA needs): planes 0 + 1 are
     [G; alpha] split into two TF32 values (to 2^-22 of the largest), plane
-    2 is G^T rounded to nearest TF32 with a zero row n, and every padding
-    column is zero.  The Python mirrors of the library's sizes agree with
-    the source's constants and count what the kernels take."""
+    2 is G^T rounded to nearest TF32 and plane 3 the rest of G^T rounded to
+    TF32 (the three-pass backward's lo half), both with a zero row n, and
+    every padding column is zero.  The Python mirrors of the library's
+    sizes agree with the source's constants and count what the kernels
+    take."""
     for n in (1, 5, 50, 257):
         x, params, st, _, _ = _gp_problem(7, b=2, n=n, d=3, m=4)
         t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
@@ -477,7 +480,8 @@ def test_kernel_factor_layout_and_sizes():
                                   t(st.linv), t(st.alpha_vec))
         ld = fp.factor_ld(n)
         assert ld % 4 == 0 and n <= ld < n + 4
-        assert fs.kf.shape == (2, 3, n + 1, ld) and fs.kf.is_contiguous()
+        assert fs.kf.shape == (2, fp.FACTOR_PLANES, n + 1, ld) == (2, 4, n + 1, ld)
+        assert fs.kf.is_contiguous()
         ga = torch.cat([fs.G, fs.alpha[:, None, :]], 1)
         hi, lo = fs.kf[:, 0, :, :n], fs.kf[:, 1, :, :n]
         for half in (hi, lo):
@@ -485,13 +489,17 @@ def test_kernel_factor_layout_and_sizes():
         assert torch.equal(hi, _round_tf32(ga))
         assert float(((hi.double() + lo.double()) - ga.double()).abs().max()) <= (
             2.0 ** -21 * float(ga.abs().max()))
-        assert torch.equal(fs.kf[:, 2, :n, :n], _round_tf32(fs.G.transpose(1, 2)))
-        assert torch.count_nonzero(fs.kf[:, 2, n]) == 0
+        gt = fs.G.transpose(1, 2)
+        assert torch.equal(fs.kf[:, 2, :n, :n], _round_tf32(gt))
+        assert torch.equal(fs.kf[:, 3, :n, :n], _round_tf32(gt - _round_tf32(gt)))
+        assert float(((fs.kf[:, 2, :n, :n].double() + fs.kf[:, 3, :n, :n].double())
+                      - gt.double()).abs().max()) <= 2.0 ** -21 * float(gt.abs().max())
+        assert torch.count_nonzero(fs.kf[:, 2:, n]) == 0
         assert torch.count_nonzero(fs.kf[..., n:]) == 0
         assert torch.equal(fp.round_tf32(ga), _round_tf32(ga))
     src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
-    for tile in ("TN", "TM"):
-        assert f"constexpr int {tile} = {fp.TILE_ROWS};" in src
+    assert f"constexpr int TN = {fp.TILE_ROWS};" in src
+    assert f"constexpr int FACTOR_PLANES = {fp.FACTOR_PLANES};" in src
     assert "constexpr bool SPLIT_IN_SMEM = true;" in src and fp.KST_PLANES == 1  # raw k*
     assert [fp.tile_pairs(r) for r in (1, 128, 129, 257, 1000, 1001)] == [1, 1, 1, 2, 4, 4]
     b, n, m, d = 4, 1000, 1024, 17
@@ -661,3 +669,71 @@ def test_wgmma_backward_operands_on_real_factors(interpret_force, v_rounding):
     g_jax = torch.tensor(np.asarray(jax.grad(jloss)(jnp.asarray(xq32))))
     e, e_jax = _normwise(g, g64), _normwise(g_jax, g64)
     assert e < e_jax and e < 2e-3, (e, e_jax)
+
+
+def _wgmma_high_backward(fs, xq, ctm, ctq, promote_steps=PROMOTE_STEPS):
+    """The three-pass backward kernel's arithmetic in its layouts: v^T as
+    the forward saves it, split into TF32 halves as the kernel splits a
+    landed stage; G^T's halves from planes 2 and 3 of the kernel factor;
+    (G^T v)^T = v^T (G^T)^T as the forward's product runs (three passes,
+    each stage's products promoted to FP32); the rest of the backward in
+    FP32, summed over the GPs."""
+    n = fs.G.shape[1]
+    _, _, v = fp.fused_fwd_plain(fs, xq, save_v=True)
+    vt = fp.kernel_layout_v(fs, xq, v).transpose(1, 2)  # (b, m, n): the saved v^T rows
+    vh = fp.round_tf32(vt)
+    prod_t = _wgmma_product(vh, fp.round_tf32(vt - vh), fs.kf[:, 2, :n, :n],
+                            fs.kf[:, 3, :n, :n], promote_steps)
+    return _backward_with_product(fs, xq, ctm, ctq, prod_t.transpose(1, 2))
+
+
+def test_wgmma_high_backward_arithmetic_on_real_factors(interpret_force):
+    """The three-pass backward kernel's arithmetic in its new layouts (v^T
+    split in shared memory, G^T's halves from the kernel factor, walkers on
+    the M side, each stage's products promoted to FP32) on the real GP
+    factor: within chip_smoke.py's 5e-5 of the float64 gradient, closer to
+    it than the JAX Pallas _bwd_kernel (3-pass bf16, interpret mode), and
+    not the fast backward's one-pass result, which misses 5e-5."""
+    fs, fs64, jfs, xq32, w32 = _real_factor_problem()
+    xq = torch.tensor(xq32)
+    ctm, ctq = torch.tensor(w32[0]), torch.tensor(w32[1])
+    _, _, v64 = fp.fused_fwd_plain(fs64, xq.double(), save_v=True)
+    g64 = fp.fused_bwd_plain(fs64, xq.double(), v64, ctm.double(), ctq.double()).sum(0)
+    g = _wgmma_high_backward(fs, xq, ctm, ctq)
+    n = fs.G.shape[1]
+    _, _, v = fp.fused_fwd_plain(fs, xq, save_v=True)
+    fast_t = torch.bmm(_round_tf32(v).transpose(1, 2).double(),
+                       fs.kf[:, 2, :n, :n].double().mT).float()
+    g_fast = _backward_with_product(fs, xq, ctm, ctq, fast_t.transpose(1, 2))
+
+    def jloss(q):
+        mn, qq = pp.fused_pc_predict(jfs, q)
+        return jnp.sum(mn * w32[0].T) + jnp.sum(qq * w32[1].T)
+
+    g_jax = torch.tensor(np.asarray(jax.grad(jloss)(jnp.asarray(xq32))))
+    e, e_jax, e_fast = _normwise(g, g64), _normwise(g_jax, g64), _normwise(g_fast, g64)
+    assert e <= 5e-5 and e < e_jax, (e, e_jax)
+    assert e_fast > 5e-5 and not torch.equal(g, g_fast), (e, e_fast)
+
+
+def test_high_backward_promotion_interval_of_one_stage():
+    """The three-pass backward's promotion interval (one ring stage of 32
+    contraction steps, whatever m) keeps a GP of n = 1000 with a large
+    alpha (noise 1e-3) within 5e-5 of the float64 gradient under a model
+    of the tensor cores' accumulation that truncates."""
+    rng = np.random.default_rng(3)
+    b, n, d, m = 2, 1000, 5, 64
+    x = torch.tensor(rng.uniform(0, 1, (n, d)))
+    params = {"log_ls": torch.tensor(np.log(rng.uniform(0.3, 1.0, (b, d)))),
+              "log_amp": torch.tensor(np.log(rng.uniform(0.5, 2.0, b))),
+              "log_noise": torch.tensor(np.log(np.full(b, 1e-3)))}
+    st = _port_finalize(params, x, torch.tensor(rng.normal(size=(b, n))))
+    fs = fp.build_fused_state(params, x, st.linv, st.alpha_vec)
+    xq = torch.tensor(rng.uniform(0, 1, (m, d)), dtype=torch.float32)
+    ctm = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32)
+    ctq = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32)
+    fs64 = fp.FusedState(*(t.double() for t in fs))
+    _, _, v64 = fp.fused_fwd_plain(fs64, xq.double(), save_v=True)
+    g64 = fp.fused_bwd_plain(fs64, xq.double(), v64, ctm.double(), ctq.double()).sum(0)
+    g = _wgmma_high_backward(fs, xq, ctm, ctq)
+    assert _normwise(g, g64) <= 5e-5, _normwise(g, g64)

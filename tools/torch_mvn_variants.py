@@ -5,11 +5,15 @@ timed on the flagship's own covariances.
 Run from the repository root on a CUDA machine:
 
     python3 tools/torch_mvn_variants.py [--route cluster|smem|panel] [--parent DIR ...]
+                                        [--variants NAME,...]
 
 ``--route cluster`` (the default) times the cluster route
 (``fused_mvn_loglike_cluster``) on the stitched 544 x 544 matrices of a
 half-ensemble (512 walkers); ``--route smem`` the shared-memory route on the
-flagship's blocks (n = 170, 73, 28, 12; 1024 walkers); ``--route panel``
+flagship's blocks (n = 170, 73, 28, 21, 14, 12; a half-ensemble of 512 walkers and
+1024; n = 28 and 12 also at b = 16384, past the warps the card holds at
+once), beside the committed cluster route forced onto its cases past
+n = 32 (one matrix over a cluster of CTAs); ``--route panel``
 the wide route (``fused_mvn_loglike_panel``) on the stitched-wide chain's
 own covariances (chip_smoke.py's fifth path: the flagship's blocks twice,
 1088 observables) at (512, 1088), and at (16, 767) on their leading
@@ -59,16 +63,32 @@ edit no longer applies):
   and stored, no products); in every diagnostic a bad pivot does not end
   the matrix, so the garbage runs the whole elimination;
 - shared-memory route: ``panel_8`` / ``panel_16`` / ``panel_32``
-  (``SMEM_PANEL`` set to that width, the committed one left out),
-  ``row_load`` (the triangle loaded a row per warp, one load in flight per
-  thread), ``four_blocks`` (a launch bound of four blocks per SM), and the
-  diagnostics ``load_only``, ``no_block_factor``, ``no_trailing_update``.
+  (``SMEM_PANEL`` set to that width, the committed one left out); its
+  block kernel (n > 32): ``load_then_factor`` (panel 0's diagonal block
+  factored after the load, not during it), ``no_lookahead`` (each
+  diagonal block factored after the trailing update, not during it: one
+  more block barrier per panel), ``threads_256`` / ``threads_128`` (at
+  every n, not 128 below n = 128 and 256 from it), ``four_blocks`` (a
+  launch bound of four 256-thread blocks per SM), ``phase_clock``
+  (kSmemPhaseClock set: thread 0, whose warp factors the diagonal blocks,
+  and thread 32, whose warp takes trailing tiles, count the SM cycles of
+  each phase; the script prints the split of one call); its warp kernel
+  (n <= 32): ``warp_warps_8`` (eight matrices per block, not four),
+  ``warp_rows_32`` (32 rows of registers at every n, not 16 up to n = 16);
+  ``triangle_register_load`` (the block kernel's triangle loaded into
+  registers by the packed index, not by cp.async a row per warp);
+  ``two_blocks`` (the block kernel built for two 256-thread blocks per SM,
+  not three), ``tile_cols_8`` (trailing tiles of 4 x 8 outputs per
+  thread, 16 x 64 per warp, not 4 x 4);
+  and the diagnostics ``load_only`` (the load and panel 0's block),
+  ``no_block_factor``, ``no_trailing_update``.
 
 Diagnostics give wrong results by design and are not checked.  A variant
 whose launch the card refuses (a cluster it cannot place) is reported and
 left out.
 
-``--parent DIR`` adds the ``fused_mvn.cu`` of another checkout (e.g. the
+``--variants NAME,...`` builds and times only those variants (``kept``
+and the parents always).  ``--parent DIR`` adds the ``fused_mvn.cu`` of another checkout (e.g. the
 parent commit unpacked with ``git archive``) as the variant ``parent``
 (given again: ``parent2``, ...).  On the cluster route's cases a source
 without ``fused_mvn_loglike_cluster`` is timed through its
@@ -83,10 +103,12 @@ Every variant is checked against the plain elimination (chip_smoke.py's
 TOL_MVN, one non-PD matrix planted) and timed by CUDA-graph replay
 (``chip_smoke.graph_ms``) twice, in the order variants, then variants
 reversed, so that drift shows as a difference between the two passes.  It
-prints each variant's ptxas report for the route's kernel, its occupancy
-(blocks per SM at n = 170, the cluster size and clusters placed at
-n = 544, or the wide route's cluster size, CTAs per SM and clusters
-placed per case), the card's name and power limit, and one JSON line.  Imports
+prints each variant's ptxas report for the route's kernels, its occupancy
+(the shared-memory route's matrices per SM at each n, or blocks per SM at
+n = 170 for a source of one block per matrix; the cluster size and
+clusters placed at n = 544; or the wide route's cluster size, CTAs per SM
+and clusters placed per case), the card's name and power limit, and one
+JSON line.  Imports
 nothing of JAX.
 """
 
@@ -105,7 +127,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 WIDTH_LINE = re.compile(r"constexpr int SMEM_PANEL = (\d+);")
-SIZES = (170, 73, 28, 12)
+SIZES = (170, 73, 28, 21, 14, 12)
+#: the shared-memory route's batches: a half-ensemble of run_mcmc, and 1024
+SMEM_BATCHES = (512, 1024)
+#: the committed cluster route is also timed on the shared-memory cases past this n
+CLUSTER_FROM = 32
+#: the warp kernel also at a batch past the warps the card holds at once
+WARP_LARGE_B = 16384
+WARP_LARGE_SIZES = (28, 12)
 STITCHED = 544
 
 _NO_FACTOR = ("  const int c0 = k * P, pw = min(P, n - c0), rows = min(P, n + 1 - c0);\n",
@@ -113,7 +142,9 @@ _NO_FACTOR = ("  const int c0 = k * P, pw = min(P, n - c0), rows = min(P, n + 1 
               "  const int c0 = k * P, pw = min(P, n - c0), rows = min(P, n + 1 - c0);\n")
 _NO_SUBSTITUTION = ("    for (int lr = t0 * P + tid; lr < nrows; lr += nthreads) {",
                     "    for (int lr = nrows; lr < nrows; lr += nthreads) {")
-_NO_TRAILING = ("    for (; tile >= 0; tile += step) {",
+_NO_TRAILING = ("    int t = ahead ? t0 + 1 : t0, before = 0;  // current local block, tiles of the "
+                "blocks before it\n    for (; tile >= 0; tile += step) {",
+                "    int t = ahead ? t0 + 1 : t0, before = 0;\n"
                 "    for (tile = -1; tile >= 0; tile += step) {")
 _NO_STEPS = ("    for (int s = 0; s * S < pw; ++s) {", "    for (int s = pw; s * S < pw; ++s) {")
 # a diagnostic's garbage must not stop a matrix at its first bad pivot
@@ -198,8 +229,8 @@ CLUSTER_EDITS = {
          "    cluster_arrive();  // A\n"),
     ],
     "phase_clock": [("constexpr bool kPhaseClock = false;", "constexpr bool kPhaseClock = true;")],
-    "cluster_load_only": [("  for (int k = 0; k < npan; ++k) {",
-                           "  for (int k = npan; k < npan; ++k) {"), _NO_FACTOR],
+    "cluster_load_only": [("logdet_half);\n  for (int k = 0; k < npan; ++k) {",
+                           "logdet_half);\n  for (int k = npan; k < npan; ++k) {"), _NO_FACTOR],
     "cluster_barriers_only": [_NO_FACTOR, _NO_SUBSTITUTION, _NO_TRAILING],
     "cluster_no_block_factor": [_NO_FACTOR],
     "cluster_no_substitution": [_NO_SUBSTITUTION],
@@ -208,26 +239,58 @@ CLUSTER_EDITS = {
 #: cluster-route variants whose results are wrong by design
 CLUSTER_DIAGNOSTIC = tuple(k for k in CLUSTER_EDITS if k.startswith("cluster_"))
 
+_SMEM_FIRST = ("  if (warp == 0) smem_factor_block(a, cov_b, y_b, dg, isq, bad, 0, n, logdet_half);\n"
+               "  cp_async_wait_all();\n")
+_SMEM_THREADS = "constexpr int smem_threads(int n) { return n < 128 ? 128 : 256; }"
 EDITS = {
-    "row_load": [
-        ("  load_triangle(a, cov_b, y_b, n);\n",
-         "  for (int i = tid >> 5; i <= n; i += nthreads >> 5) {\n"
-         "    float* row = a + tri(i);\n"
-         "    if (i < n) {\n"
-         "      for (int j = lane; j <= i; j += 32) row[j] = cov_b[(size_t)i * n + j];\n"
-         "    } else {\n"
-         "      for (int j = lane; j < n; j += 32) row[j] = y_b[j];\n"
-         "      if (lane == 0) row[n] = 0.f;\n"
-         "    }\n"
-         "  }\n"),
-    ],
-    "four_blocks": [("__global__ void __launch_bounds__(256, 3)\nmvn_smem_kernel(",
-                     "__global__ void __launch_bounds__(256, 4)\nmvn_smem_kernel(")],
-    "load_only": [("  float logdet_half = 0.f;  // warp 0's sum\n  for (int c0 = 0; c0 < n; c0 += P) {",
-                   "  float logdet_half = 0.f;  // warp 0's sum\n  for (int c0 = n; c0 < n; c0 += P) {")],
-    "no_block_factor": [("    if (warp == 0) {\n      float x[P];", "    if (false) {\n      float x[P];")],
-    "no_trailing_update": [("    for (int t = tid >> 6; t < ntile; t += nthreads >> 6) {",
-                            "    for (int t = ntile; t < ntile; t += nthreads >> 6) {")],
+    # block kernel: panel 0's block factored after the load, not during it
+    "load_then_factor": [(_SMEM_FIRST,
+                          "  cp_async_wait_all();\n"
+                          "  __syncthreads();\n"
+                          "  if (warp == 0) smem_factor_block(a, cov_b, y_b, dg, isq, bad, 0, n, "
+                          "logdet_half);\n")],
+    # each diagonal block factored after the trailing update, not during it
+    # (one more block barrier per panel)
+    "no_lookahead": [
+        ("    const bool ahead = k + 1 < npan;", "    const bool ahead = false;"),
+        ("    __syncthreads();  // A\n",
+         "    __syncthreads();  // A\n"
+         "    if (k > 0 && warp == 0)\n"
+         "      smem_factor_block(a, cov_b, y_b, dg, isq, bad, c0, n, logdet_half);\n"
+         "    __syncthreads();\n")],
+    "threads_256": [(_SMEM_THREADS, "constexpr int smem_threads(int) { return 256; }")],
+    "threads_128": [(_SMEM_THREADS, "constexpr int smem_threads(int) { return 128; }")],
+    "four_blocks": [("__launch_bounds__(kThreads, kThreads == 256 ? 3 : 6)",
+                     "__launch_bounds__(kThreads, kThreads == 256 ? 4 : 6)")],
+    # warp kernel: eight matrices per block, not four; 32-row registers at
+    # every n, not 16 up to n = 16
+    "warp_warps_8": [("constexpr int WARP_WARPS = 4;", "constexpr int WARP_WARPS = 8;")],
+    "warp_rows_32": [("return n <= 16 ? mvn_warp_kernel<16> : mvn_warp_kernel<32>;",
+                      "return mvn_warp_kernel<32>;")],
+    # the triangle loaded into registers with the packed index, as the cluster route does
+    "triangle_register_load": [("  copy_triangle(a, cov_b, y_b, n, warp, NW, lane);\n",
+                                "  load_packed_rows(a, cov_b, y_b, n, 0, tri(n1), tid, kThreads);\n")],
+    # the block kernel built for two 256-thread blocks per SM (no register cap that spills)
+    "two_blocks": [("__launch_bounds__(kThreads, kThreads == 256 ? 3 : 6)",
+                    "__launch_bounds__(kThreads, kThreads == 256 ? 2 : 6)")],
+    # trailing tiles of 4 x 8 outputs per thread (16 x 64 per warp), not 4 x 4
+    "tile_cols_8": [("constexpr int SMEM_TILE_COLS = 4;", "constexpr int SMEM_TILE_COLS = 8;")],
+    "phase_clock": [("constexpr bool kSmemPhaseClock = false;",
+                     "constexpr bool kSmemPhaseClock = true;")],
+    # diagnostics: the load (and panel 0's block) only; no diagonal block
+    # factored; no trailing update
+    "load_only": [("  for (int k = 0; k < npan; ++k) {\n    const int c0 = k * P, pw = min(P, n - c0), "
+                   "c1 = c0 + pw;\n    __syncthreads();  // A",
+                   "  for (int k = npan; k < npan; ++k) {\n    const int c0 = k * P, pw = min(P, n - c0), "
+                   "c1 = c0 + pw;\n    __syncthreads();  // A")],
+    "no_block_factor": [("  const int i = c0 + lane;  // this lane's row\n",
+                         "  const int i = c0 + lane;  // this lane's row\n"
+                         "  if (lane == 0) *bad = 0;\n  if (c0 >= 0) return;\n")],
+    # (warp 1 still signals warp 0, which waits for the next diagonal block)
+    "no_trailing_update": [("        if (t >= nblk) break;\n",
+                            "        if (t >= nblk) break;\n"
+                            "        if (ahead && tile == 0) named_bar_arrive(1, 64);\n"
+                            "        continue;\n")],
 }
 #: variants whose results are wrong by design (timing breakdowns only)
 DIAGNOSTIC = ("load_only", "no_block_factor", "no_trailing_update")
@@ -263,22 +326,24 @@ def variant_sources(src: str, parents=(), route: str = "smem") -> dict[str, str]
     return out
 
 
-def ptxas_report(log: str, kernel: str = "mvn_smem_kernel") -> str:
-    """"R registers, S bytes spilled" of the route's kernel, each build of
-    it (a template's instances) in the order ptxas reports them."""
+def ptxas_report(log: str, kernel="mvn_smem_kernel") -> str:
+    """"R registers, S bytes spilled" of the route's kernel (or of each of a
+    tuple of kernels), each build of it (a template's instances) in the
+    order ptxas reports them."""
     lines = log.splitlines()
     found = []
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and kernel in line:
-            spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
-            regs = re.search(r"Used (\d+) registers", lines[i + 3])
-            inst = re.search(kernel + r"ILi(\d+)E", line)
-            found.append((f"<{inst.group(1)}> " if inst else "")
-                         + f"{regs.group(1)} registers, {spill.group(1)} bytes spilled")
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and name in line:
+                spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
+                regs = re.search(r"Used (\d+) registers", lines[i + 3])
+                inst = re.search(name + r"ILi(\d+)E", line)
+                found.append(f"{name}" + (f"<{inst.group(1)}> " if inst else " ")
+                             + f"{regs.group(1)} registers, {spill.group(1)} bytes spilled")
     return "; ".join(found) or "not found"
 
 
-def build(tmp: str, sources: dict[str, str], kernel: str = "mvn_smem_kernel"):
+def build(tmp: str, sources: dict[str, str], kernel="mvn_smem_kernel"):
     """Compile every variant at once (one nvcc each): name -> (CDLL, ptxas)."""
     from gpbayestools_hic_tpu_torch.ops import _build
 
@@ -301,7 +366,9 @@ def build(tmp: str, sources: dict[str, str], kernel: str = "mvn_smem_kernel"):
             ("fused_mvn_loglike_smem", [_P] * 3 + [_I] * 2 + [_P]),
             ("fused_mvn_loglike_cluster", [_P] * 3 + [_I] * 2 + [_P]),
             ("fused_mvn_loglike_panel", [_P] * 4 + [_I] * 2 + [_P]),
+            ("fused_mvn_smem_matrices_per_sm", [_I]),
             ("fused_mvn_smem_blocks_per_sm", [_I]),
+            ("fused_mvn_smem_phase_cycles", [_P]),
             ("fused_mvn_cluster_size", [_I]),
             ("fused_mvn_cluster_active", [_I]),
             ("fused_mvn_cluster_phase_cycles", [_P]),
@@ -327,7 +394,10 @@ def build(tmp: str, sources: dict[str, str], kernel: str = "mvn_smem_kernel"):
 
 def occupancy(lib, route: str) -> str:
     if route == "smem":
-        return f"{lib.fused_mvn_smem_blocks_per_sm(170)} blocks per SM at n = 170"
+        if not hasattr(lib, "fused_mvn_smem_matrices_per_sm"):  # one block per matrix
+            return f"{lib.fused_mvn_smem_blocks_per_sm(170)} blocks per SM at n = 170"
+        return ", ".join(f"{lib.fused_mvn_smem_matrices_per_sm(n)} matrices per SM at n = {n}"
+                         for n in SIZES)
     if route == "panel":
         if not hasattr(lib, "fused_mvn_panel_scratch"):
             return "one block per matrix (no clusters in this source)"
@@ -350,17 +420,36 @@ PHASES = ("load", "barrier A", "substitution", "its broadcast", "barrier B", "tr
 FACTOR_PARTS = ("rows and update", "pivots", "logarithms", "broadcast")
 
 
-def phase_split(lib, run) -> str:
-    """The phase_clock variant's split of one call: thread 0's SM cycles
-    per phase, summed over the CTAs, as shares of their sum."""
+SMEM_PHASES = ("load and panel 0's block", "barrier A", "substitution", "barrier B",
+               "trailing update / look-ahead", "exit")
+
+
+def phase_split(lib, run, route: str = "cluster") -> str:
+    """The phase_clock variant's split of one call: SM cycles per phase,
+    summed over the CTAs, as shares of their sum (the cluster route: thread
+    0; the shared-memory route's block kernel: thread 0, whose warp factors
+    the diagonal blocks, and thread 32, whose warp takes trailing tiles)."""
     import torch
 
-    buf = (ctypes.c_ulonglong * (len(PHASES) + 1 + len(FACTOR_PARTS)))()
-    lib.fused_mvn_cluster_phase_cycles(buf)  # clear
+    smem = route == "smem"
+    size = 2 * len(SMEM_PHASES) + 1 if smem else len(PHASES) + 1 + len(FACTOR_PARTS)
+    read = lib.fused_mvn_smem_phase_cycles if smem else lib.fused_mvn_cluster_phase_cycles
+    buf = (ctypes.c_ulonglong * size)()
+    read(buf)  # clear
     run()
     torch.cuda.synchronize()
-    if lib.fused_mvn_cluster_phase_cycles(buf):
+    if read(buf):
         raise SystemExit("phase clock readout failed")
+    if smem:
+        k = len(SMEM_PHASES)
+        blocks = max(buf[2 * k], 1)
+        parts = []
+        for who, off in (("thread 0 (factoring warp)", 0), ("thread 32 (trailing warp)", k)):
+            total = sum(buf[off:off + k]) or 1
+            parts.append(f"{who}: " + ", ".join(f"{name} {buf[off + i] / total:.3f}"
+                                               for i, name in enumerate(SMEM_PHASES))
+                         + f"; {total / blocks:.0f} cycles per block")
+        return f"phase split ({blocks} blocks, SM cycles): " + " | ".join(parts)
     total = sum(buf[:len(PHASES)]) or 1
     ctas = max(buf[len(PHASES)], 1)
     return (f"phase split (thread 0 of each of {ctas} CTAs, SM cycles): "
@@ -412,6 +501,7 @@ def main() -> int:
     parser.add_argument("--route", choices=("cluster", "smem", "panel"), default="cluster")
     parser.add_argument("--parent", action="append", default=[],
                         help="root of another checkout to time beside this one")
+    parser.add_argument("--variants", help="comma-separated variants to time (default: all)")
     args = parser.parse_args()
     route = args.route
     import chip_smoke as cs
@@ -426,12 +516,20 @@ def main() -> int:
     with open(os.path.join(ROOT, rel)) as f:
         src = f.read()
     parents = [os.path.join(path, rel) for path in args.parent]
-    kernel = {"cluster": "mvn_cluster_kernel", "smem": "mvn_smem_kernel",
+    kernel = {"cluster": "mvn_cluster_kernel", "smem": ("mvn_smem_kernel", "mvn_warp_kernel"),
               "panel": "mvn_wide_kernel"}[route]
     diagnostic = {"cluster": CLUSTER_DIAGNOSTIC, "smem": DIAGNOSTIC,
                   "panel": PANEL_DIAGNOSTIC}[route]
     with tempfile.TemporaryDirectory(prefix="mvn_variants_") as tmp:
-        libs = build(tmp, variant_sources(src, parents, route), kernel)
+        sources = variant_sources(src, parents, route)
+        if args.variants:
+            wanted = {"kept", *args.variants.split(",")}
+            unknown = wanted - set(sources)
+            if unknown:
+                raise SystemExit(f"no such variant: {sorted(unknown)}")
+            sources = {name: text for name, text in sources.items()
+                       if name in wanted or name.startswith("parent")}
+        libs = build(tmp, sources, kernel)
         order = list(libs)
         results = {name: {"ptxas": libs[name][1], "occupancy": occupancy(libs[name][0], route)}
                    for name in order}
@@ -454,40 +552,61 @@ def main() -> int:
             stitched = cs.stitched_inputs(chain, dev, block_inputs)
             cases = [stitched(cs.NWALKERS // 2)]
         else:
-            cases = [block_inputs(cs.BLOCKS.index(n), cs.NWALKERS) for n in SIZES]
+            cases = [block_inputs(cs.BLOCKS.index(n), b) for b in SMEM_BATCHES for n in SIZES]
+            # the warp kernel past the warps the card holds (each warp takes
+            # several matrices): the 1024 walkers' matrices repeated
+            for n in WARP_LARGE_SIZES:
+                y, cov = block_inputs(cs.BLOCKS.index(n), cs.NWALKERS)
+                reps = WARP_LARGE_B // cs.NWALKERS
+                cases.append((y.repeat(reps, 1).contiguous(), cov.repeat(reps, 1, 1).contiguous()))
         for y, cov in cases:
             b, n = y.shape
             cov[b // 2] = -torch.eye(n, device=dev)
             plain = fm.fused_mvn_loglike_plain(y, cov)
             keep = torch.arange(b, device=dev) != b // 2
             runs = {name: launcher(libs[name][0], route, y, cov) for name in order}
-            for name in list(order):
+            if route == "smem" and n > CLUSTER_FROM:
+                # the committed cluster route forced at this n: a cluster of
+                # CTAs per matrix where one block per matrix leaves slots empty
+                runs["cluster_route"] = launcher(libs["kept"][0], "cluster", y, cov)
+                results.setdefault("cluster_route", {})
+            case_order = order + (["cluster_route"] if "cluster_route" in runs else [])
+            for name in list(case_order):
                 try:
                     got = runs[name]()
                     torch.cuda.synchronize()
                 except SystemExit as err:  # a configuration the card refuses
                     print(f"variant {name} at n = {n}: launch refused ({err}); left out",
                           flush=True)
-                    order.remove(name)
+                    case_order.remove(name)
+                    if name in order:
+                        order.remove(name)
                     continue
                 _, rel_err = cs.normwise(got[keep], plain[keep])
                 if name not in diagnostic and not (got[b // 2] == -torch.inf
                                                    and rel_err <= cs.TOL_MVN):
-                    raise SystemExit(f"variant {name} at n = {n} disagrees with the plain "
-                                     f"elimination ({rel_err:.3e})")
-                results[name][f"err_{n}"] = rel_err
+                    if name == "kept":
+                        raise SystemExit(f"the committed source at n = {n} disagrees with the "
+                                         f"plain elimination ({rel_err:.3e})")
+                    print(f"VARIANT {name} at n = {n} DISAGREES with the plain elimination "
+                          f"({rel_err:.3e}); left out", flush=True)
+                    case_order.remove(name)
+                    if name in order:
+                        order.remove(name)
+                    continue
+                results[name][f"err_{b}_{n}"] = rel_err
             reps = {"cluster": 4, "smem": 20, "panel": 2 if b > 64 else 8}[route]
-            for names in (order, order[::-1]):
+            for names in (case_order, case_order[::-1]):
                 for name in names:
                     ms = cs.graph_ms(runs[name], reps=reps)
-                    results[name].setdefault(f"ms_{n}", []).append(ms)
-            if "phase_clock" in libs:
-                print(phase_split(libs["phase_clock"][0], runs["phase_clock"]), flush=True)
-            for name in order:
-                t = results[name][f"ms_{n}"]
+                    results[name].setdefault(f"ms_{b}_{n}", []).append(ms)
+            if "phase_clock" in libs and (route != "smem" or n > fm.WARP_MAX_N):
+                print(phase_split(libs["phase_clock"][0], runs["phase_clock"], route), flush=True)
+            for name in case_order:
+                t = results[name][f"ms_{b}_{n}"]
                 print(f"n = {n:3d} (b = {b}) {name:26s} {t[0]:.4f} / {t[1]:.4f} ms "
                       f"(two passes, CUDA-graph replay), normwise vs plain "
-                      f"{results[name][f'err_{n}']:.2e}", flush=True)
+                      f"{results[name][f'err_{b}_{n}']:.2e}", flush=True)
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "route": route,
                       "variants": results}))

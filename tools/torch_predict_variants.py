@@ -5,8 +5,10 @@ timed at the flagship's shapes.
 Run from the repository root on a CUDA machine:
 
     python3 tools/torch_predict_variants.py [--parent DIR] [--walkers 1024,256]
+                                            [--variants NAME,...]
 
-``--parent DIR`` adds the ``fused_predict.cu`` of another checkout (e.g. the
+``--variants NAME,...`` builds and times only those variants (``kept``
+and the parent always).  ``--parent DIR`` adds the ``fused_predict.cu`` of another checkout (e.g. the
 parent commit unpacked with ``git archive``) as the variant ``parent``, so
 that the two are timed in one process on one card.  The parent may be of
 the sm_80 design (``mma.sync``, v saved as (b, n, m), no kernel factor) or
@@ -33,10 +35,14 @@ knobs (the script fails if an edit no longer applies to the source):
   tile (training rows x walkers per block; 64 x 64 kept);
 - ``one_consumer`` / ``two_consumers``: every block with one (64 walkers) /
   two (128) consumer warpgroups, whatever the grid;
-- diagnostics, wrong results: ``fwd_no_products`` / ``bwd_no_products``
-  (the ring's copies without the products), ``bwd_no_round`` (v^T not
-  rounded: the tensor cores drop its low bits), ``bwd_no_contraction``
-  (no query contraction, the FP32 part of the epilogue).
+- ``high_stages_3``: the three-pass backward's ring three stages deep, not
+  two;
+- diagnostics, wrong results: ``fwd_no_products`` / ``bwd_no_products`` /
+  ``high_no_products`` (the ring's copies without the products),
+  ``bwd_no_round`` (v^T not rounded: the tensor cores drop its low bits),
+  ``high_no_split`` (v^T not split: its lo half left as it was),
+  ``bwd_no_contraction`` (no query contraction, the FP32 part of the
+  epilogue of both backwards).
 
 For each it prints the ptxas registers and spills of the kernels, the
 device time of the forward, the fast backward and the three-pass backward
@@ -100,6 +106,15 @@ VARIANTS = {
          "")],
     "bwd_no_contraction": [("    for (int d0 = 0; d0 < d; d0 += 4) {",
                             "    for (int d0 = 0; d0 < 0; d0 += 4) {")],
+    "high_stages_3": [_knob("int HIGH_STAGES", "2", "3")],
+    "high_no_products": [
+        ("          wgmma_tile(part, dal + 2 * kk, db + 2 * kk, kk == 0 ? 0 : 1);\n"
+         "          wgmma_tile(part, dah + 2 * kk, dbl + 2 * kk, 1);\n"
+         "          wgmma_tile(part, dah + 2 * kk, db + 2 * kk, 1);\n", "")],
+    "high_no_split": [
+        ("        for (int q = 0; q < 4; ++q)\n"
+         "          split4(reinterpret_cast<float4*>(a) + wtid + 128 * q,\n"
+         "                 reinterpret_cast<float4*>(alo) + wtid + 128 * q);\n", "")],
 }
 
 
@@ -111,13 +126,17 @@ def variant_source(text: str, edits) -> str:
     return text
 
 
-def build(tmp: str, parent: str | None = None):
-    """Compile every variant at once (one nvcc each); name -> CDLL, ptxas."""
+def build(tmp: str, parent: str | None = None, only=None):
+    """Compile every variant (or the ``kept`` one and those named in
+    ``only``) at once (one nvcc each); name -> CDLL, ptxas."""
     from gpbayestools_hic_tpu_torch.ops import _build
 
     rel = os.path.join("gpbayestools_hic_tpu_torch", _build.SOURCES["fused_predict"])
     src = open(os.path.join(ROOT, rel)).read()
-    sources = {name: variant_source(src, edits) for name, edits in VARIANTS.items()}
+    if only is not None and set(only) - set(VARIANTS):
+        raise SystemExit(f"no such variant: {sorted(set(only) - set(VARIANTS))}")
+    sources = {name: variant_source(src, edits) for name, edits in VARIANTS.items()
+               if only is None or name == "kept" or name in only}
     if parent is not None:
         sources["parent"] = open(os.path.join(parent, rel)).read()
     procs = {}
@@ -159,7 +178,9 @@ def ptxas_report(log: str) -> dict:
 
 class Library:
     """One build of the source, called by the interface it exports: this
-    design's (kernel factor and its descriptor, v^T) or the sm_80 one's."""
+    design's (kernel factor and its descriptor, v^T; a three-pass backward
+    of the earlier Hopper design reads G itself and recomputes k*, and its
+    kernel factor has three planes) or the sm_80 one's."""
 
     def __init__(self, lib):
         P, I = ctypes.c_void_p, ctypes.c_int
@@ -179,17 +200,27 @@ class Library:
             lib.fused_predict_kst_planes.argtypes = []
             self.planes = lib.fused_predict_kst_planes()
             lib.fused_predict_fwd.argtypes = [P] * 10 + [I] * 4 + [P]
+        # planes of the kernel factor this build reads (three before the
+        # three-pass backward read G^T's lo half from it)
+        self.factor_planes = 0
+        if self.hopper:
+            self.factor_planes = 3
+            if hasattr(lib, "fused_predict_factor_planes"):
+                lib.fused_predict_factor_planes.restype = I
+                lib.fused_predict_factor_planes.argtypes = []
+                self.factor_planes = lib.fused_predict_factor_planes()
         self.descs = {}
 
     def desc(self, s):
         key = s.kf.data_ptr()
         if key not in self.descs:
             b, n = s.alpha.shape
+            kf = s.kf[:, :self.factor_planes].contiguous()  # its planes' layout is the same
             buf = ctypes.create_string_buffer(128)
-            if self.lib.fused_predict_encode_factor(s.kf.data_ptr(), b, n, buf):
+            if self.lib.fused_predict_encode_factor(kf.data_ptr(), b, n, buf):
                 raise SystemExit("factor descriptor")
-            self.descs[key] = buf
-        return self.descs[key]
+            self.descs[key] = (buf, kf)
+        return self.descs[key][0]
 
     def fwd(self, s, xq):
         import torch
@@ -229,7 +260,7 @@ class Library:
         part = torch.empty(self.lib.fused_predict_scratch(
             1 if entry == "fused_predict_bwd" else 2, b, n, m, d), **f32)
         ct_q = torch.empty((b, m, d), **f32)
-        if self.hopper and entry == "fused_predict_bwd":
+        if self.hopper and (entry == "fused_predict_bwd" or self.factor_planes == 4):
             from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
 
             operands = (self.desc(s), s.alpha.data_ptr(), v.data_ptr(),
@@ -246,8 +277,8 @@ class Library:
 
 
 def profile(lib, group, xq, ct_mean, ct_qf) -> dict:
-    """Device time per call of each kernel of the forward and the fast
-    backward (torch.profiler over two rotations of each)."""
+    """Device time per call of each kernel of the forward and both
+    backwards (torch.profiler over two rotations of each)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -256,7 +287,10 @@ def profile(lib, group, xq, ct_mean, ct_qf) -> dict:
     out = {}
     for what, fn in (("forward", lambda: [lib.fwd(s, xq) for s in group]),
                      ("fast backward", lambda: [lib.bwd(s, xq, v, ct_mean, ct_qf)
-                                                for s, v in zip(group, vs)])):
+                                                for s, v in zip(group, vs)]),
+                     ("three-pass backward", lambda: [
+                         lib.bwd(s, xq, v, ct_mean, ct_qf, "fused_predict_bwd_high")
+                         for s, v in zip(group, vs)])):
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
                 fn()
@@ -264,7 +298,8 @@ def profile(lib, group, xq, ct_mean, ct_qf) -> dict:
         calls = 2 * len(group)
         for ev in prof.key_averages():
             dev_us = getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-            kernels = ("kstar_kernel", "fwd_wgmma_kernel", "bwd_wgmma_kernel", "rowsum_kernel")
+            kernels = ("kstar_kernel", "fwd_wgmma_kernel", "bwd_wgmma_kernel", "bwd_high_kernel",
+                       "rowsum_kernel")
             if any(k in ev.key for k in kernels) and dev_us > 0 and ev.count >= calls:
                 name = f"{what}: {ev.key[:60]}"
                 out[name] = dev_us / 1e3 / calls
@@ -287,13 +322,15 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", help="root of another checkout to time beside this one")
     parser.add_argument("--walkers", default="1024,256", help="walker counts to time")
+    parser.add_argument("--variants", help="comma-separated variants to time (default: all)")
     args = parser.parse_args()
     walkers = [int(w) for w in args.walkers.split(",")]
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     with tempfile.TemporaryDirectory(prefix="predict_variants_") as tmp:
-        libs, ptxas = build(tmp, args.parent)
+        libs, ptxas = build(tmp, args.parent,
+                            args.variants.split(",") if args.variants else None)
         chain, _ = build_synthetic_chain(nev=cs.NEV, ndim=cs.NDIM, nobs_blocks=cs.BLOCKS,
                                          npc=cs.NPC, gp_maxiter=0, seed=0, tmpdir=tmp, device=dev)
         states = [e._fused for e in chain.emuList]
