@@ -47,6 +47,7 @@ from ..ops.scalers import (
 )
 from ..runtime import parse_model_parameter_file
 from ..utils.io import load_pytree, load_training_pickle, save_pytree
+from ..utils.profiling import span
 from ..utils.tensors import to_device
 from .gp import GPConfig, GPState, gp_fit, gp_predict, gp_sample
 from .param_pca import (
@@ -320,35 +321,39 @@ class Emulator:
     def _predict_full(self, x: torch.Tensor, extra_std: torch.Tensor):
         """(m, d) -> mean (m, nobs), covariance (m, nobs, nobs)."""
         x = self._transform_x(x)
-        gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config)
-        gp_mean = gp_mean.T
-        gp_var = gp_var.T + extra_std[:, None] ** 2
-        if self.perform_no_PCA_:
-            # the variance is de-standardized consistently with the mean
-            # (deliberate divergence from the reference's unit mismatch)
-            mean = gp_mean * self._scaler_scale + self._scaler_mean
-            cov = torch.diag_embed(gp_var * self._scaler_scale**2)
-        else:
-            mean = gp_mean @ self._trans_t + self._scaler_mean
-            cov = (gp_var @ self._var_trans_t).reshape(-1, self.nobs, self.nobs)
-            cov = cov + self._cov_trunc_t
-        if self.exp_and_cov_diagonal_:
-            mean = torch.exp(mean)
-            fstd = torch.sqrt(torch.diagonal(cov, dim1=1, dim2=2))
-            cov = torch.diag_embed((fstd * mean) ** 2)
-        return mean, cov
+        with span("hic.predict"):
+            gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config)
+        with span("hic.assembly"):
+            gp_mean = gp_mean.T
+            gp_var = gp_var.T + extra_std[:, None] ** 2
+            if self.perform_no_PCA_:
+                # the variance is de-standardized consistently with the mean
+                # (deliberate divergence from the reference's unit mismatch)
+                mean = gp_mean * self._scaler_scale + self._scaler_mean
+                cov = torch.diag_embed(gp_var * self._scaler_scale**2)
+            else:
+                mean = gp_mean @ self._trans_t + self._scaler_mean
+                cov = (gp_var @ self._var_trans_t).reshape(-1, self.nobs, self.nobs)
+                cov = cov + self._cov_trunc_t
+            if self.exp_and_cov_diagonal_:
+                mean = torch.exp(mean)
+                fstd = torch.sqrt(torch.diagonal(cov, dim1=1, dim2=2))
+                cov = torch.diag_embed((fstd * mean) ** 2)
+            return mean, cov
 
     def _pc_core(self, x: torch.Tensor, fast_grad: bool, raw: bool):
         x = self._transform_x(x)
         if fast_grad and self._fused is not None:
             # fused kernel (float32 RBF): k* build, mean and the variance
             # quadratic form in one pass; same max(kdiag - q, 0) epilogue
-            gp_mean, qform = fused_pc_predict(
-                self._fused, x, self.gp_config.grad_precision)     # (m, npc)
+            with span("hic.predict"):
+                gp_mean, qform = fused_pc_predict(
+                    self._fused, x, self.gp_config.grad_precision)     # (m, npc)
             gp_var = torch.clamp(self._fused.kdiag[None, :] - qform, min=0.0)
         else:
-            gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config,
-                                         fast_grad=fast_grad)
+            with span("hic.predict"):
+                gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config,
+                                             fast_grad=fast_grad)
             gp_mean, gp_var = gp_mean.T, gp_var.T
         if raw:
             return gp_mean, gp_var

@@ -32,6 +32,7 @@ from ..ops.kernels import (
 )
 from ..ops.lbfgsb import lbfgsb_minimize
 from ..ops.linalg import cholesky_jittered, solve_lower_triangular
+from ..utils.profiling import span
 
 
 class GPConfig(NamedTuple):
@@ -264,16 +265,17 @@ class _NormMeanVar(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_mean, ct_q):
-        v, alpha_vec, linv, kstar = ctx.saved_tensors
-        if ct_mean is None:
-            ct_mean = torch.zeros(kstar.shape[1], dtype=v.dtype, device=v.device)
-        if ct_q is None:
-            ct_q = torch.zeros_like(ct_mean)
-        vq = v * ct_q[None, :]
-        ct_kstar = alpha_vec[:, None] * ct_mean[None, :] + 2.0 * (linv.transpose(0, 1) @ vq)
-        ct_linv = 2.0 * (vq @ kstar.transpose(0, 1)) if ctx.needs_input_grad[1] else None
-        ct_alpha = kstar @ ct_mean if ctx.needs_input_grad[2] else None
-        return ct_kstar, ct_linv, ct_alpha
+        with span("hic.predict_bwd"):
+            v, alpha_vec, linv, kstar = ctx.saved_tensors
+            if ct_mean is None:
+                ct_mean = torch.zeros(kstar.shape[1], dtype=v.dtype, device=v.device)
+            if ct_q is None:
+                ct_q = torch.zeros_like(ct_mean)
+            vq = v * ct_q[None, :]
+            ct_kstar = alpha_vec[:, None] * ct_mean[None, :] + 2.0 * (linv.transpose(0, 1) @ vq)
+            ct_linv = 2.0 * (vq @ kstar.transpose(0, 1)) if ctx.needs_input_grad[1] else None
+            ct_alpha = kstar @ ct_mean if ctx.needs_input_grad[2] else None
+            return ct_kstar, ct_linv, ct_alpha
 
 
 def gp_predict(

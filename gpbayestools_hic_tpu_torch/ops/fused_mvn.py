@@ -74,6 +74,7 @@ from typing import NamedTuple
 import torch
 
 from .linalg import mvn_loglike_batch, solve_cholesky
+from ..utils.profiling import span
 from .registry import count_launch, raise_on, register
 
 _SOURCE = "gpbayestools_hic_tpu_torch/csrc/fused_mvn.cu"
@@ -420,6 +421,7 @@ def mvn_loglike_best(y: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
     kernel); the batched library factorization elsewhere (CPU, float64).
     The choice is by dtype and device only: a kernel that fails to build or
     launch raises."""
-    if cov.is_cuda and cov.dtype == torch.float32:
-        return mvn_loglike_fused(y, cov)
-    return mvn_loglike_batch(y, cov)
+    with span("hic.mvn"):
+        if cov.is_cuda and cov.dtype == torch.float32:
+            return mvn_loglike_fused(y, cov)
+        return mvn_loglike_batch(y, cov)

@@ -68,6 +68,7 @@ from typing import NamedTuple
 import torch
 
 from .kernels import scaled_sqdist
+from ..utils.profiling import span
 from .registry import count_launch, raise_on, register
 
 _SOURCE = "gpbayestools_hic_tpu_torch/csrc/fused_predict.cu"
@@ -432,15 +433,17 @@ class _FusedPCPredict(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct_mean, ct_qf):
-        xq, xs, G, alpha, amp, inv_ls, kdiag, kf, v = ctx.saved_tensors
-        fs = FusedState(xs, G, alpha, amp, inv_ls, kdiag, kf)
-        if ct_mean is None:
-            ct_mean = torch.zeros((xq.shape[0], xs.shape[0]), dtype=xq.dtype, device=xq.device)
-        if ct_qf is None:
-            ct_qf = torch.zeros_like(ct_mean)
-        ct_q = fused_bwd(fs, xq, v, ct_mean.t().contiguous(), ct_qf.t().contiguous(),
-                         ctx.grad_precision)
-        return (ct_q.sum(0),) + (None,) * 8
+        with span("hic.predict_bwd"):
+            xq, xs, G, alpha, amp, inv_ls, kdiag, kf, v = ctx.saved_tensors
+            fs = FusedState(xs, G, alpha, amp, inv_ls, kdiag, kf)
+            if ct_mean is None:
+                ct_mean = torch.zeros((xq.shape[0], xs.shape[0]), dtype=xq.dtype,
+                                      device=xq.device)
+            if ct_qf is None:
+                ct_qf = torch.zeros_like(ct_mean)
+            ct_q = fused_bwd(fs, xq, v, ct_mean.t().contiguous(), ct_qf.t().contiguous(),
+                             ctx.grad_precision)
+            return (ct_q.sum(0),) + (None,) * 8
 
 
 def fused_pc_predict(fs: FusedState, xq: torch.Tensor, grad_precision: str = "default"):

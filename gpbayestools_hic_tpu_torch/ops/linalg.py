@@ -86,7 +86,7 @@ def spd_qform_logdet(s: torch.Tensor, z: torch.Tensor) -> tuple[torch.Tensor, to
     The JAX package unrolls the Cholesky-Crout recurrence per entry for
     the TPU.  On the GPU that makes O(k^2) small launches forward and
     backward: on an H100 the flagship's posterior gradient (4 x 4 blocks)
-    took 2.7 times as long unrolled (``tools/torch_profile_posterior.py``).
+    took 2.7 times as long unrolled (profiled with ``torch.profiler``).
     """
     chol, info = torch.linalg.cholesky_ex(s)
     w = torch.linalg.solve_triangular(chol, z.unsqueeze(-1), upper=False)

@@ -48,6 +48,7 @@ from ..ops.fused_mvn import mvn_loglike_best
 from ..ops.linalg import mvn_loglike_diagcov_batch, spd_qform_logdet
 from ..runtime import parse_model_parameter_file
 from ..utils.io import load_exp_data_pickle
+from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -119,10 +120,11 @@ def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
 
     def block_ll(bs, x_safe):
         gp_mean, v = e.predict_pc_raw_fastgrad(x_safe)     # (m, npc) x2
-        d = gp_mean - bs["p0"]
-        quad, logdet_b = spd_qform_logdet(bs["m_inv"] + torch.diag_embed(v), d)
-        lp = -0.5 * (quad + bs["const2"]) - 0.5 * (bs["logdet_c0_m"] + logdet_b)
-        return torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -torch.inf))
+        with span("hic.woodbury"):
+            d = gp_mean - bs["p0"]
+            quad, logdet_b = spd_qform_logdet(bs["m_inv"] + torch.diag_embed(v), d)
+            lp = -0.5 * (quad + bs["const2"]) - 0.5 * (bs["logdet_c0_m"] + logdet_b)
+            return torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -torch.inf))
 
     return block_ll, bs
 
@@ -344,15 +346,16 @@ class Chain:
             ``extra_std`` (scalar or (m,)) is multiplied by each sample's
             LAST parameter column; its square is added to every emulator's
             predictive PC variance, as the reference's ``_predict`` does."""
-            m = x.shape[0]
-            extra = extra_std * x[:, -1]
-            mean = torch.zeros((m, nobs), dtype=dtype, device=x.device)
-            cov = torch.zeros((m, nobs, nobs), dtype=dtype, device=x.device)
-            for e, i0, i1 in zip(emus, offsets[:-1], offsets[1:]):
-                mu_i, cov_i = e._predict_full(x, extra)
-                mean[:, i0:i1] = mu_i
-                cov[:, i0:i1, i0:i1] = cov_i
-            return mean, cov
+            with span("hic.assembly"):
+                m = x.shape[0]
+                extra = extra_std * x[:, -1]
+                mean = torch.zeros((m, nobs), dtype=dtype, device=x.device)
+                cov = torch.zeros((m, nobs, nobs), dtype=dtype, device=x.device)
+                for e, i0, i1 in zip(emus, offsets[:-1], offsets[1:]):
+                    mu_i, cov_i = e._predict_full(x, extra)
+                    mean[:, i0:i1] = mu_i
+                    cov[:, i0:i1, i0:i1] = cov_i
+                return mean, cov
 
         def loglike_core_blocked(state, x):
             """Likelihood factorized over per-emulator covariance blocks."""
@@ -382,13 +385,15 @@ class Chain:
             return ((x > state["lo"]) & (x < state["hi"])).all(1)
 
         def log_likelihood(state, x, finite=False):
-            ll = loglike_core(state, x)
-            outside = torch.full_like(ll, finite_floor if finite else -torch.inf)
-            return torch.where(inside_box(state, x), ll, outside)
+            with span("hic.posterior"):
+                ll = loglike_core(state, x)
+                outside = torch.full_like(ll, finite_floor if finite else -torch.inf)
+                return torch.where(inside_box(state, x), ll, outside)
 
         def log_posterior(state, x):
-            ll = loglike_core(state, x)
-            return torch.where(inside_box(state, x), ll, torch.full_like(ll, -torch.inf))
+            with span("hic.posterior"):
+                ll = loglike_core(state, x)
+                return torch.where(inside_box(state, x), ll, torch.full_like(ll, -torch.inf))
 
         fns = {
             "log_likelihood": log_likelihood,

@@ -37,6 +37,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.profiling import span
+
 MOVES = ("stretch", "de", "snooker", "de-snooker")
 
 # de needs two DISTINCT partners per half (>= 4 walkers) and snooker an
@@ -229,18 +231,19 @@ def run_ensemble(
         lp = log_prob_fn(x)
         n_acc = torch.zeros((nwalkers,), dtype=dtype, device=device)
         for i in range(nsteps):
-            gen.manual_seed(derive_seed(seed, step_offset + i))
-            d1 = draw_half_update(gen, move, half, half, ndim, dtype, device)
-            d2 = draw_half_update(gen, move, half, half, ndim, dtype, device)
-            first, lp_first, acc1 = _half_update(
-                x[:half], x[half:], lp[:half], log_prob_fn, a, move, d1)
-            second, lp_second, acc2 = _half_update(
-                x[half:], first, lp[half:], log_prob_fn, a, move, d2)
-            x = torch.cat([first, second])
-            lp = torch.cat([lp_first, lp_second])
-            n_acc = n_acc + torch.cat([acc1, acc2]).to(dtype)
-            xs.append(x)
-            lps.append(lp)
+            with span("hic.step"):
+                gen.manual_seed(derive_seed(seed, step_offset + i))
+                d1 = draw_half_update(gen, move, half, half, ndim, dtype, device)
+                d2 = draw_half_update(gen, move, half, half, ndim, dtype, device)
+                first, lp_first, acc1 = _half_update(
+                    x[:half], x[half:], lp[:half], log_prob_fn, a, move, d1)
+                second, lp_second, acc2 = _half_update(
+                    x[half:], first, lp[half:], log_prob_fn, a, move, d2)
+                x = torch.cat([first, second])
+                lp = torch.cat([lp_first, lp_second])
+                n_acc = n_acc + torch.cat([acc1, acc2]).to(dtype)
+                xs.append(x)
+                lps.append(lp)
     if nsteps:
         chain = torch.stack(xs, dim=1)
         log_prob = torch.stack(lps, dim=1)

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import new_generator, resolve_device, resolve_dtype
+from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -110,7 +111,8 @@ def make_value_and_grad(log_prob_fn, state, tf, bounded):
             x, logjac = _u_to_x(uu, tf, bounded)
             lp_x = log_prob_fn(state, x)
             total = lp_x + logjac
-            (g,) = torch.autograd.grad(total.sum(), uu)
+            with span("hic.grad"):
+                (g,) = torch.autograd.grad(total.sum(), uu)
         lp_u = total.detach()
         g = torch.where(torch.isfinite(lp_u)[:, None], g, torch.zeros_like(g))
         return lp_u, lp_x.detach(), g
@@ -131,7 +133,8 @@ def make_sharded_value_and_grad(x_value_and_grad, tf, bounded):
             uu = u.detach().requires_grad_(True)
             x, logjac = _u_to_x(uu, tf, bounded)
             lp_x, g_x = x_value_and_grad(x.detach())
-            (g,) = torch.autograd.grad((x * g_x).sum() + logjac.sum(), uu)
+            with span("hic.grad"):
+                (g,) = torch.autograd.grad((x * g_x).sum() + logjac.sum(), uu)
         lp_u = lp_x + logjac.detach()
         g = torch.where(torch.isfinite(lp_u)[:, None], g, torch.zeros_like(g))
         return lp_u, lp_x, g
@@ -330,32 +333,34 @@ def _mh_phase(vg, tf, bounded, u0, gen, log_eps0, *, nsteps, n_leapfrog,
     m = u.shape[0]
     xs, lps, accs = [], [], []
     for step in range(nsteps):
-        e = math.exp(log_eps) * _uniform(gen, (m, 1), dtype, dev, 0.9, 1.1)
-        p0 = torch.randn(u.shape, generator=gen, dtype=dtype, device=dev)
-        if traj_jitter > 0 and not probe:
-            lo_L = max(n_leapfrog - traj_jitter, 1)
-            L = torch.randint(lo_L, n_leapfrog + 1, (m,), generator=gen, device=dev)
-        else:
-            L = None
-        log_unif = torch.log(_uniform(gen, (m,), dtype, dev))
-        if probe:
-            u, lp_u, lp_x, g, acc_prob = probe_transition(
-                vg, u, lp_u, lp_x, g, e, p0, step, n_leapfrog, log_unif
-            )
-        else:
-            u, lp_u, lp_x, g, acc_prob = mh_transition(
-                vg, u, lp_u, lp_x, g, e, p0, L, n_leapfrog, log_unif
-            )
-        acc = float(acc_prob)
-        if adapt:
-            t = t + 1.0
-            hbar = (1 - 1 / (t + 10.0)) * hbar + (target_accept - acc) / (t + 10.0)
-            log_eps = mu_da - math.sqrt(t) / 0.05 * hbar
-            w = t**-0.75
-            log_eps_bar = w * log_eps + (1 - w) * log_eps_bar
-        xs.append(u if probe else _u_to_x(u, tf, bounded)[0])
-        lps.append(lp_x)
-        accs.append(acc)
+        with span("hic.step"):
+            e = math.exp(log_eps) * _uniform(gen, (m, 1), dtype, dev, 0.9, 1.1)
+            p0 = torch.randn(u.shape, generator=gen, dtype=dtype, device=dev)
+            if traj_jitter > 0 and not probe:
+                lo_L = max(n_leapfrog - traj_jitter, 1)
+                L = torch.randint(lo_L, n_leapfrog + 1, (m,), generator=gen, device=dev)
+            else:
+                L = None
+            log_unif = torch.log(_uniform(gen, (m,), dtype, dev))
+            if probe:
+                u, lp_u, lp_x, g, acc_prob = probe_transition(
+                    vg, u, lp_u, lp_x, g, e, p0, step, n_leapfrog, log_unif
+                )
+            else:
+                u, lp_u, lp_x, g, acc_prob = mh_transition(
+                    vg, u, lp_u, lp_x, g, e, p0, L, n_leapfrog, log_unif
+                )
+            with span("hic.readback"):
+                acc = float(acc_prob)
+            if adapt:
+                t = t + 1.0
+                hbar = (1 - 1 / (t + 10.0)) * hbar + (target_accept - acc) / (t + 10.0)
+                log_eps = mu_da - math.sqrt(t) / 0.05 * hbar
+                w = t**-0.75
+                log_eps_bar = w * log_eps + (1 - w) * log_eps_bar
+            xs.append(u if probe else _u_to_x(u, tf, bounded)[0])
+            lps.append(lp_x)
+            accs.append(acc)
     return (torch.stack(xs), torch.stack(lps), np.asarray(accs), u,
             (hbar, log_eps, log_eps_bar, t))
 
@@ -380,18 +385,20 @@ def _trajectory_phase(vg, tf, bounded, u0, gen, log_eps, *, nsteps,
     s_hi = (n_leapfrog + 1) if window == 0 else window
     xs, lps, accs = [], [], []
     for _ in range(nsteps):
-        e = eps * _uniform(gen, (m, 1), dtype, dev, 0.9, 1.1)
-        xi = torch.randn(u.shape, generator=gen, dtype=dtype, device=dev)
-        s = torch.randint(0, s_hi, (m,), generator=gen, device=dev)
-        gumbel_u = _uniform(gen, (n_leapfrog + 1, m), dtype, dev).clamp(min=tiny)
-        acc_u = _uniform(gen, (m,), dtype, dev).clamp(min=tiny)
-        u, p, lp_u, lp_x, g, acc = trajectory_transition(
-            vg, u, p, lp_u, lp_x, g, e, xi, s, gumbel_u, acc_u,
-            n_leapfrog=n_leapfrog, window=window, persist=persist,
-        )
-        xs.append(_u_to_x(u, tf, bounded)[0])
-        lps.append(lp_x)
-        accs.append(float(acc))
+        with span("hic.step"):
+            e = eps * _uniform(gen, (m, 1), dtype, dev, 0.9, 1.1)
+            xi = torch.randn(u.shape, generator=gen, dtype=dtype, device=dev)
+            s = torch.randint(0, s_hi, (m,), generator=gen, device=dev)
+            gumbel_u = _uniform(gen, (n_leapfrog + 1, m), dtype, dev).clamp(min=tiny)
+            acc_u = _uniform(gen, (m,), dtype, dev).clamp(min=tiny)
+            u, p, lp_u, lp_x, g, acc = trajectory_transition(
+                vg, u, p, lp_u, lp_x, g, e, xi, s, gumbel_u, acc_u,
+                n_leapfrog=n_leapfrog, window=window, persist=persist,
+            )
+            xs.append(_u_to_x(u, tf, bounded)[0])
+            lps.append(lp_x)
+            with span("hic.readback"):
+                accs.append(float(acc))
     return torch.stack(xs), torch.stack(lps), np.asarray(accs), u
 
 
@@ -700,10 +707,13 @@ def run_hmc(
             n_leapfrog=n_leapfrog, adapt=False, target_accept=target_accept,
             traj_jitter=traj_jitter,
         )
-    xs_np = xs.cpu().numpy().astype(np.float64)
+    with span("hic.readback"):
+        xs_np = xs.cpu().numpy().astype(np.float64)
+    with span("hic.readback"):
+        lps_np = lps.cpu().numpy().astype(np.float64)
     return HMCResult(
         chain=np.transpose(xs_np, (1, 0, 2)),
-        log_prob=lps.cpu().numpy().astype(np.float64).T,
+        log_prob=lps_np.T,
         acceptance=accs,
         final_state=xs_np[-1],
         step_size=float(math.exp(log_eps)),

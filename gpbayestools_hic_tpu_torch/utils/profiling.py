@@ -2,9 +2,32 @@
 ``utils/profiling.py``).
 
 Wall-clock timers that wait for the device before the clock stops
-(``torch.cuda.synchronize`` where ``block_until_ready`` was), and a
+(``torch.cuda.synchronize`` where ``block_until_ready`` was), a
 ``torch.profiler`` trace of host and CUDA activity written as a Chrome
-trace.
+trace, and named spans at the port's layer boundaries.
+
+Spans (:func:`span`) are off by default: a span site then costs one check
+of a module flag.  After ``enable_spans(True)`` each span is a
+``torch.profiler.record_function``, so a running profiler records it in
+the same trace as the CUDA activities, on the same clock, around every
+launch made inside it (autograd's device thread included).  A span is its
+name, start and end; parentage is containment in time on a thread.  The
+names and where they are recorded:
+
+- ``hic.step``: one sampler step (``samplers/hmc.py``, ``samplers/ensemble.py``);
+- ``hic.posterior``: one posterior or likelihood call (``samplers/chain.py``);
+- ``hic.predict``: an emulator's GP predict, fused or plain (``models/emulator.py``);
+- ``hic.predict_bwd``: the predict's hand-written backward
+  (``ops/fused_predict.py``, ``models/gp.py``);
+- ``hic.woodbury``: the PC-space Woodbury epilogue (``samplers/chain.py``);
+- ``hic.assembly``: the PC-to-observable mean and covariance and their
+  stitching (``models/emulator.py``, ``samplers/chain.py``);
+- ``hic.mvn``: the dense MVN log-likelihood (``ops/fused_mvn.py``);
+- ``hic.grad``: the HMC gradient's ``torch.autograd.grad`` (``samplers/hmc.py``);
+- ``hic.readback``: a device-to-host read on the HMC sampler's path.
+
+Spans change no number: a chain drawn with them on equals one drawn with
+them off.
 """
 
 from __future__ import annotations
@@ -17,6 +40,28 @@ from pathlib import Path
 import torch
 
 logger = logging.getLogger(__name__)
+
+_SPANS = False
+_NO_SPAN = contextlib.nullcontext()
+
+
+def enable_spans(flag: bool = True) -> None:
+    """Switch the port's spans on (``record_function`` at every span site)
+    or off (a flag check)."""
+    global _SPANS
+    _SPANS = bool(flag)
+
+
+def spans_enabled() -> bool:
+    return _SPANS
+
+
+def span(name: str):
+    """A context manager around one layer's work: a shared null context
+    while spans are off, else ``torch.profiler.record_function(name)``."""
+    if not _SPANS:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _cuda_devices(tree) -> set:
