@@ -47,8 +47,8 @@ It imports nothing of JAX or the JAX package.  In order it
    host's enqueue stays out of the measured time);
 4. drives seven paths, each with every launch count set to 0 just before
    it and read just after it (a path that never launched one of its
-   kernels fails the run; f and g must launch the forward and the fast
-   backward, h the forward):
+   kernels fails the run; b, c and h must launch the forward, f and g the
+   forward and the fast backward):
    a. ``likelihood_mode="auto"``: the f32 log-posterior on 1024 walkers,
       held within 0.5 log-units (and, for this route, 0.02) of the f64
       numpy oracle at 64 points, then ``Chain.run_MCMC_HMC`` with 1024
@@ -1290,8 +1290,8 @@ def drive_paths(chain, tmp, on_paths):
 
     paths = (
         ("auto+hmc", auto_hmc, ("fused_predict_fwd", "fused_predict_bwd")),
-        ("generic+ensemble", generic, ("fused_mvn_loglike",)),
-        ("stitched+ensemble", stitched, ("fused_mvn_loglike_cluster",)),
+        ("generic+ensemble", generic, ("fused_predict_fwd", "fused_mvn_loglike")),
+        ("stitched+ensemble", stitched, ("fused_predict_fwd", "fused_mvn_loglike_cluster")),
         ("hmc grad_precision=high", hmc_high, ("fused_predict_fwd", "fused_predict_bwd_high")),
         ("hmc-auto-L+resume", hmc_auto, ("fused_predict_fwd", "fused_predict_bwd")),
         ("ptlmc", lambda: ptlmc_run(chain), ("fused_predict_fwd", "fused_predict_bwd")),

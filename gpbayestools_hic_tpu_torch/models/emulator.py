@@ -31,6 +31,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..config import new_generator, resolve_device, resolve_dtype
 from ..ops.fused_predict import (
@@ -63,6 +64,15 @@ from .param_pca import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def records_derivative(x: torch.Tensor) -> bool:
+    """Whether a derivative of ``x`` is being taken: autograd records a
+    gradient for it, or it carries a forward-mode tangent or sits inside a
+    ``torch.func`` transform (``jacfwd``, ``vmap``)."""
+    return ((torch.is_grad_enabled() and x.requires_grad)
+            or torch._C._functorch.is_functorch_wrapped_tensor(x)
+            or fwAD.unpack_dual(x).tangent is not None)
 
 
 class Emulator:
@@ -318,14 +328,40 @@ class Emulator:
             return x
         return apply_param_pca_packed(self._pp_packed, self.param_pca_groups, x)
 
+    def _takes_fused(self, x: torch.Tensor, fast_grad: bool) -> bool:
+        """Whether the GP predict at ``x`` runs the fused op: the emulator has
+        a fused state (float32 RBF, d <= FUSED_MAX_DIM), and either the
+        caller asked for the fast gradient or the queries are on the card
+        with no derivative taken of them.  A CPU call keeps ``gp_predict``'s
+        summation order; a caller that differentiates keeps its FP32 plain
+        gradient (the fused backward's default kernel is one TF32 pass, and
+        the op has no forward-mode rule)."""
+        if self._fused is None:
+            return False
+        return fast_grad or (x.is_cuda and not records_derivative(x))
+
+    def _gp_pc(self, x: torch.Tensor, fast_grad: bool = False):
+        """The GP predict of every PC at the queries (through the parameter
+        transform): ``gp_mean (m, npc)``, ``gp_var (m, npc)``; the route is
+        :meth:`_takes_fused`'s."""
+        x = self._transform_x(x)
+        if self._takes_fused(x, fast_grad):
+            # fused kernel (float32 RBF): k* build, mean and the variance
+            # quadratic form in one pass; same max(kdiag - q, 0) epilogue
+            with span("hic.predict"):
+                gp_mean, qform = fused_pc_predict(
+                    self._fused, x, self.gp_config.grad_precision)     # (m, npc)
+            return gp_mean, torch.clamp(self._fused.kdiag[None, :] - qform, min=0.0)
+        with span("hic.predict"):
+            gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config,
+                                         fast_grad=fast_grad)
+        return gp_mean.T, gp_var.T
+
     def _predict_full(self, x: torch.Tensor, extra_std: torch.Tensor):
         """(m, d) -> mean (m, nobs), covariance (m, nobs, nobs)."""
-        x = self._transform_x(x)
-        with span("hic.predict"):
-            gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config)
+        gp_mean, gp_var = self._gp_pc(x)
         with span("hic.assembly"):
-            gp_mean = gp_mean.T
-            gp_var = gp_var.T + extra_std[:, None] ** 2
+            gp_var = gp_var + extra_std[:, None] ** 2
             if self.perform_no_PCA_:
                 # the variance is de-standardized consistently with the mean
                 # (deliberate divergence from the reference's unit mismatch)
@@ -342,19 +378,7 @@ class Emulator:
             return mean, cov
 
     def _pc_core(self, x: torch.Tensor, fast_grad: bool, raw: bool):
-        x = self._transform_x(x)
-        if fast_grad and self._fused is not None:
-            # fused kernel (float32 RBF): k* build, mean and the variance
-            # quadratic form in one pass; same max(kdiag - q, 0) epilogue
-            with span("hic.predict"):
-                gp_mean, qform = fused_pc_predict(
-                    self._fused, x, self.gp_config.grad_precision)     # (m, npc)
-            gp_var = torch.clamp(self._fused.kdiag[None, :] - qform, min=0.0)
-        else:
-            with span("hic.predict"):
-                gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config,
-                                             fast_grad=fast_grad)
-            gp_mean, gp_var = gp_mean.T, gp_var.T
+        gp_mean, gp_var = self._gp_pc(x, fast_grad)
         if raw:
             return gp_mean, gp_var
         if self.perform_no_PCA_:
