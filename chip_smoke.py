@@ -556,7 +556,7 @@ def hold_fused(fs, xq, ct_mean, ct_qf, label, high):
 
     b, n, d = fs.xs.shape
     at = f"{label}(b={b}, n={n}, d={d}, m={xq.shape[0]})"
-    fs64 = fp.FusedState(*(t.double() for t in fs))
+    fs64 = fp.state_as(fs, torch.float64)
     mean_k, qf_k, v_k = fp.fused_fwd(fs, xq, save_v=True)
     mean_p, qf_p, v_p = fp.fused_fwd_plain(fs, xq, save_v=True)
     torch.cuda.synchronize()
@@ -722,7 +722,7 @@ def kernel_phase(chain, device):
     # (m = 256: HMC's second run and path d, PTLMC, each shard of path j)
     # and with the nine emulators' GPs in one call (b = 36)
     merged = fp.FusedState(*(torch.cat([getattr(s, f) for s in states]).contiguous()
-                             for f in fp.FusedState._fields))
+                             for f in fp.TENSOR_FIELDS), kind=states[0].kind)
     ct36 = [torch.tensor(rng.normal(size=(merged.xs.shape[0], m)), dtype=torch.float32,
                          device=device) for _ in range(2)]
     for group, mm, ctm, ctq in (
@@ -759,6 +759,81 @@ def kernel_phase(chain, device):
             stats[name].setdefault("graph_replay", []).append(
                 dict(b=bb, n=n, d=d, m=mm, ms=t, bound_ms=bd, bound_by=why, library_ms=tl,
                      library_tf32_ms=tl32))
+    return stats
+
+
+def matern_state(device, b, n, d, seed):
+    """A float32 Matern-1.5 fused state of b GPs on n random training points
+    in d dimensions, with a PCSK-like per-design noise in its factor (the
+    known-hyperparameter path, as the PCSK cell loads its heads)."""
+    import torch
+    from gpbayestools_hic_tpu_torch.models.gp import GPConfig, finalize_gp_state
+    from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
+    from gpbayestools_hic_tpu_torch.ops.kernels import KernelConfig
+
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    x = torch.tensor(rng.uniform(0, 1, (n, d)), **f32)
+    params = {"log_amp": torch.tensor(rng.uniform(-0.5, 0.5, b), **f32),
+              "log_ls": torch.tensor(rng.uniform(-0.5, 1.0, (b, d)), **f32),
+              "log_noise": torch.full((b,), -4.6, **f32)}
+    y = torch.tensor(rng.normal(size=(b, n)), **f32)
+    noise = torch.tensor(rng.uniform(0.0, 0.05, (b, n)), **f32)
+    st = finalize_gp_state(params, x, y, GPConfig(kernel=KernelConfig("Matern"), alpha=1e-6),
+                           noise)
+    return fp.build_fused_state(st.params, st.x, st.linv, st.alpha_vec, "Matern")
+
+
+def matern_phase(device):
+    """The Matern-1.5 instances (``fused_predict_*_matern``: the Matern k*
+    pre-pass, the shared product kernels, the backwards reading its weight)
+    against their plain versions and float64 (hold_fused's tolerances, the
+    three-pass backward too), at the kernel table's shape (b 4, n 1000, d 17,
+    m 1024) and at the PCSK cell's widest block (b 88, n 1095, d 20, m 4096),
+    and timed there by CUDA-graph replay against the RBF instance on the same
+    factor, the plain version and the library's product."""
+    import torch
+    from gpbayestools_hic_tpu_torch.ops import fused_predict as fp
+
+    stats = {}
+    for b, n, d, m in ((4, NEV, NDIM, NWALKERS), (88, 1095, 20, 4096)):
+        fs = matern_state(device, b, n, d, seed=b)
+        rng = np.random.default_rng(7)
+        xq = torch.tensor(rng.uniform(0.0, 1.0, (m, d)), dtype=torch.float32, device=device)
+        # one query on a training point: r = 0, where Matern's weight is finite
+        xq[0] = fs.xs[0, 0] / fs.inv_ls[0]
+        ct_mean, ct_qf = (torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32,
+                                       device=device) for _ in range(2))
+        e_fwd, errs, e_g, e_h = hold_fused(fs, xq, ct_mean, ct_qf, "Matern ", high=True)
+        rbf = fs._replace(kind="RBF")
+        v_m = fp.fused_fwd(fs, xq, save_v=True)[2]
+        v_r = fp.fused_fwd(rbf, xq, save_v=True)[2]
+        t = {}
+        for fam, st, v in (("matern", fs, v_m), ("rbf", rbf, v_r)):
+            t[fam] = (graph_ms(lambda: fp.fused_fwd(st, xq, save_v=True), reps=2),
+                      graph_ms(lambda: fp.fused_bwd(st, xq, v, ct_mean, ct_qf), reps=2),
+                      graph_ms(lambda: fp.fused_bwd(st, xq, v, ct_mean, ct_qf, "high"), reps=2))
+        plain = (cuda_ms(lambda: fp.fused_fwd_plain(fs, xq, save_v=True), reps=2),
+                 cuda_ms(lambda: fp.fused_bwd_plain(fs, xq, v_m, ct_mean, ct_qf), reps=2))
+        kst = fp._kstar_plain(fs, xq)[2]
+        ct = 2.0 * v_m * ct_qf[:, None, :]
+        lib = {"fwd": graph_lib_ms(lambda: torch.bmm(fs.G, kst)),
+               "bwd": graph_lib_ms(lambda: torch.bmm(fs.G.transpose(1, 2), ct))}
+        del kst, ct, v_m, v_r
+        for i, (name, tp, (tl, tl32), err) in enumerate((
+                ("fused_predict_fwd_matern", plain[0], lib["fwd"], e_fwd),
+                ("fused_predict_bwd_matern", plain[1], lib["bwd"], e_g),
+                ("fused_predict_bwd_high_matern", plain[1], lib["bwd"], e_h))):
+            log(f"timing {name} by CUDA-graph replay at b={b}, n={n}, d={d}, m={m}: "
+                f"{t['matern'][i]:.4f} ms, the RBF instance {t['rbf'][i]:.4f} ms, plain "
+                f"{tp:.4f} ms, library yardstick {tl:.4f} ms FP32, {tl32:.4f} ms TF32")
+            stats.setdefault(name, {"precision": "as the RBF instance", "max_abs_err": err,
+                                    "shapes": []})["shapes"].append(
+                dict(b=b, n=n, d=d, m=m, ms=t["matern"][i], rbf_ms=t["rbf"][i], plain_ms=tp,
+                     library_ms=tl, library_tf32_ms=tl32, max_abs_err=err,
+                     normwise=errs if i == 0 else None))
+        del fs, rbf
+        torch.cuda.empty_cache()
     return stats
 
 
@@ -2182,6 +2257,9 @@ def main() -> int:
         log(f"phase training: {time.perf_counter() - t0:.1f} s")
 
         stats = kernel_phase(chain, device)
+        t0 = time.perf_counter()
+        stats.update(matern_phase(device))
+        log(f"phase Matern kernels: {time.perf_counter() - t0:.1f} s")
         stats.update(mvn_phase(chain, device))
         on_paths = {"fused_mvn_loglike_panel"}
         counts = drive_paths(chain, tmp, on_paths)

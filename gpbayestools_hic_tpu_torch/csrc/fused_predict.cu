@@ -9,22 +9,38 @@
 //
 // Per GP k (a batch of b GPs sharing n training inputs) and m queries:
 //   qs_j   = xq_j * inv_ls_k                           (scaled query)
-//   z_lj   = -0.5 * sum_d (xs_ld - qs_jd)^2            (direct differences)
-//   k*_lj  = amp_k * exp(min(z_lj, 0))
+//   r2_lj  = sum_d (xs_ld - qs_jd)^2                   (direct differences)
+//   k*_lj  = amp_k * exp(min(-r2_lj / 2, 0))           (RBF)
+//          = amp_k * (1 + s) exp(-s),  s = sqrt(3 r2)  (Matern-1.5)
 //   v      = G k*,  G = L^-1 lower triangular (n, n)
 //   mean_j = alpha^T k*_j,   qf_j = sum_i v_ij^2
-// and the query cotangent of (mean, qf):
+// and the query cotangent of (mean, qf), with w the derivative weight
+// dk*/dqs = w (xs - qs):  w = k* (RBF),  w = 3 amp_k exp(-s) (Matern-1.5:
+// dk/d(r2) = -(3/2) amp e^-s, finite at r = 0):
 //   ct_k*  = G^T (2 v ct_qf) + alpha ct_mean
-//   ct_z   = k* ct_k*  where z < 0
+//   ct_z   = w ct_k*
 //   ct_xq_jd = inv_ls_kd * sum_l ct_z_lj (xs_ld - qs_jd)     (per GP)
+//
+// The kernel family enters the k* pre-pass alone (kstar_kernel<kKind>, so
+// the device trace names the family: kstar_kernel<0> RBF, kstar_kernel<1>
+// Matern-1.5).  For Matern the pre-pass also writes w into planes of its
+// own beside k* when a backward follows (fused_predict_fwd_matern's wst):
+// w needs e^-s, which k* alone does not give back, and recomputing it from
+// the distances would put d more FMAs, a square root and an exp per element
+// into the backwards' FP32 epilogue, which already holds their time back;
+// the extra plane costs one more write and read of m n floats per GP.  The
+// product kernels and both backwards are the same instances for both
+// families: the backwards read ct_z's weight from the planes the wrapper
+// points them at (k* for RBF, w for Matern).  MaternProd has no kernel.
 //
 // All three are length-n contractions over the (n, n) factor G: n(n+1) m
 // flops per GP with the triangle skipped, against 4 n^2 bytes of G, so at
 // the flagship shape (b = 4, n = 1000, d = 17, m = 1024) they are bound by
 // operations, not by memory.  The entries and their precision contracts:
 //
-// - fused_predict_fwd (kstar_kernel + fwd_wgmma_kernel + rowsum_kernel):
-//   the value path, FP32-class accuracy for good.  var = kdiag - qf
+// - fused_predict_fwd, fused_predict_fwd_matern (kstar_kernel<kKind> +
+//   fwd_wgmma_kernel + rowsum_kernel): the value path, FP32-class accuracy
+//   for good (Matern's square root and exp in FP32 as RBF's exp).  var = kdiag - qf
 //   cancels, so one TF32 or bf16 pass (2^-11 / 2^-9 relative) is not
 //   allowed on v = [G; alpha] k*.  The product runs on the tensor cores in
 //   3xTF32 (hi*hi + hi*lo + lo*hi, hi = tf32_rna(x), lo = tf32_rna(x - hi),
@@ -111,10 +127,11 @@
 //   memory by the warpgroup that reads it, while the previous stage's
 //   products run (one wgmma group kept in flight), so both operands are
 //   rounded to nearest, not truncated;
-// - k* (both backwards): the forward's k*^T, not a recompute of z (which
-//   cost the sm_80 backwards a third of their time).  The plain backward's
-//   z < 0 mask is not needed: z = 0 only where xs_l = qs_j in every
-//   dimension, and there the query contraction multiplies by 0;
+// - k* (both backwards): the forward's k*^T (its w^T for Matern), not a
+//   recompute of z (which cost the sm_80 backwards a third of their time).
+//   The plain backward's z < 0 mask is not needed: z = 0 only where xs_l =
+//   qs_j in every dimension, and there the query contraction multiplies by
+//   0 (Matern's w is finite there);
 // - triangular balance: a block takes the pair of row tiles (r, R - 1 - r)
 //   of one (GP, walker tile), so every block does the same work; a tile
 //   contracts only the columns its rows reach (the alpha row all n);
@@ -397,21 +414,40 @@ __device__ __forceinline__ void load_queries(float* qs_s, const float* xq, const
 
 // ---------------------------------------------------------- k* (pre-pass)
 
-// k*^T[h, k, j, l] for j < m, l < n: amp_k exp(min(z, 0)), one raw plane
-// (split into TF32 halves, h = 0 hi and h = 1 lo, when not SPLIT_IN_SMEM).
-// One KS_L x KS_J tile (training rows x walkers) per block; a thread takes
-// one training row and KS_R walkers KS_G apart, so that the rows of k*^T
-// are written along l and a warp reads one query row at a time
-// (broadcast).
+// kernel families of the k* pre-pass (its template argument)
+constexpr int KIND_RBF = 0;     // amp exp(-r2 / 2)
+constexpr int KIND_MATERN = 1;  // amp (1 + s) e^-s, s = sqrt(3 r2): Matern-1.5
+
+// value at (h, k, j, l) of a (KST_PLANES, b, m, ld) buffer: one raw plane,
+// or its TF32 halves (h = 0 hi, h = 1 lo) when not SPLIT_IN_SMEM
+__device__ __forceinline__ void put_planes(float* out, size_t plane, float val) {
+  if constexpr (SPLIT_IN_SMEM) {
+    out[0] = val;
+  } else {
+    uint32_t hi, lo;
+    split_tf32(val, hi, lo);
+    out[0] = __uint_as_float(hi);
+    out[plane] = __uint_as_float(lo);
+  }
+}
+
+// k*^T[h, k, j, l] for j < m, l < n in the family kKind, and for Matern
+// (when wst is given) the derivative weight w^T = 3 amp_k e^-s beside it,
+// in the same layout.  One KS_L x KS_J tile (training rows x walkers) per
+// block; a thread takes one training row and KS_R walkers KS_G apart, so
+// that the rows of k*^T are written along l and a warp reads one query row
+// at a time (broadcast).
 constexpr int KS_L = 64, KS_J = 64;
 constexpr int KS_G = 256 / KS_L, KS_R = KS_J / KS_G;
 
+template <int kKind>
 __global__ void __launch_bounds__(256, 4)
 kstar_kernel(const float* __restrict__ xs,      // (b, n, d)
              const float* __restrict__ xq,      // (m, d)
              const float* __restrict__ inv_ls,  // (b, d)
              const float* __restrict__ amp,     // (b,)
              float* __restrict__ kst,           // (KST_PLANES, b, m, ld)
+             float* __restrict__ wst,           // (KST_PLANES, b, m, ld) or nullptr
              int b, int n, int m, int ld, int d) {
   __shared__ __align__(16) float xs_s[KS_L * XS_LD];
   __shared__ __align__(16) float qs_s[KS_J * XS_LD];
@@ -447,15 +483,14 @@ kstar_kernel(const float* __restrict__ xs,      // (b, n, d)
   for (int r = 0; r < KS_R; ++r) {
     const int j = j0 + jr + KS_G * r;
     if (j < m) {
-      const float val = amp_k * expf(fminf(-0.5f * d2[r], 0.f));
-      float* out = kst + ((size_t)k * m + j) * ld + l;
-      if constexpr (SPLIT_IN_SMEM) {
-        out[0] = val;
+      const size_t at = ((size_t)k * m + j) * ld + l;
+      if constexpr (kKind == KIND_MATERN) {
+        const float s = sqrtf(3.f * d2[r]);
+        const float e = expf(-s);
+        put_planes(kst + at, plane, amp_k * (1.f + s) * e);
+        if (wst != nullptr) put_planes(wst + at, plane, 3.f * amp_k * e);
       } else {
-        uint32_t hi, lo;
-        split_tf32(val, hi, lo);
-        out[0] = __uint_as_float(hi);
-        out[plane] = __uint_as_float(lo);
+        put_planes(kst + at, plane, amp_k * expf(fminf(-0.5f * d2[r], 0.f)));
       }
     }
   }
@@ -829,9 +864,9 @@ __device__ __forceinline__ void bwd_body(
         prev = slot;
       }
     }
-    // the forward's k* for this thread's 2 rows x (TN / 4) columns, loaded
-    // while the last products finish (k*^T rows are walkers; hi + lo when
-    // kstar_kernel split it in device memory)
+    // the forward's k* (Matern: its w) for this thread's 2 rows x (TN / 4)
+    // columns, loaded while the last products finish (k*^T rows are
+    // walkers; hi + lo when kstar_kernel split it in device memory)
     float kv[TN / 2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -863,7 +898,7 @@ __device__ __forceinline__ void bwd_body(
     load_rows<TN, NC, 4>(xs_s, xs_k, l0, n, d, tid);  // acc is live: 4 loads at a time
     for (int e = tid; e < TN; e += NC) al_s[e] = (l0 + e < n) ? alpha[(size_t)k * n + l0 + e] : 0.f;
     named_bar_sync(3, NC);
-    // ct_z = k* ct_k* in place of the product.  The plain backward's z < 0
+    // ct_z = w ct_k* in place of the product (w = k* for RBF).  The plain backward's z < 0
     // mask is not needed: z = 0 only where xs_l = qs_j in every dimension,
     // and there the query contraction multiplies by xs_l - qs_j = 0
 #pragma unroll
@@ -937,7 +972,7 @@ __device__ __forceinline__ void bwd_body(
       const float* __restrict__ xq,               /* (m, d) */                              \
       const float* __restrict__ inv_ls,           /* (b, d) */                              \
       const float* __restrict__ alpha,            /* (b, n) */                              \
-      const float* __restrict__ kst,              /* k*^T planes (KST_PLANES, b, m, ld) */  \
+      const float* __restrict__ kst,              /* k*^T or w^T planes (KST_PLANES, b, m, ld) */  \
       const float* __restrict__ ct_mean,          /* (b, m) */                              \
       const float* __restrict__ ct_qf,            /* (b, m) */                              \
       float* __restrict__ ct_part,                /* (b, npairs, m, d) */                   \
@@ -1065,6 +1100,36 @@ int launch_bwd(const float* xs, const float* xq, const float* inv_ls, const void
   return launch_rowsum(scratch, ct_q, b, npairs, (long long)m * d, s);
 }
 
+// The forward of family kKind: the k* pre-pass (and Matern's w when wst
+// is given), the product kernel, the sum over its row-tile pairs.
+template <int kKind>
+int launch_fwd(const float* xs, const float* xq, const float* inv_ls, const void* kf_desc,
+               const float* amp, float* mean, float* qf, float* vt, float* kst, float* wst,
+               float* scratch, int b, int n, int m, int d, void* stream) {
+  if (bad_shape(b, n, m, d) || !aligned16(kst)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ld = factor_ld(n);
+  float* qf_part = scratch;
+  const dim3 kgrid((n + KS_L - 1) / KS_L, (m + KS_J - 1) / KS_J, b);
+  kstar_kernel<kKind><<<kgrid, 256, 0, s>>>(xs, xq, inv_ls, amp, kst, wst, b, n, m, ld, d);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  CUtensorMap tm_fac, tm_kst;
+  memcpy(&tm_fac, kf_desc, sizeof(tm_fac));
+  const int nrb = (n + 1 + TN - 1) / TN, npairs = fwd_pairs(n);
+  const bool one = one_consumer((long long)((m + 127) / 128) * npairs * b);
+  const int bm = one ? 64 : 128;
+  err = encode_planes(&tm_kst, kst, n, m, KST_PLANES * b, ld, bm);
+  if (err != 0) return err;
+  const dim3 grid((m + bm - 1) / bm, npairs, b);
+  err = one ? launch(fwd_wgmma_kernel<1>, grid, 256, Fwd<1>::SMEM, s, tm_kst, tm_fac, mean,
+                     qf_part, vt, b, n, m, ld, nrb, npairs)
+            : launch(fwd_wgmma_kernel<2>, grid, 384, Fwd<2>::SMEM, s, tm_kst, tm_fac, mean,
+                     qf_part, vt, b, n, m, ld, nrb, npairs);
+  if (err != 0) return err;
+  return launch_rowsum(qf_part, qf, b, npairs, m, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1107,32 +1172,24 @@ int fused_predict_fwd(const float* xs, const float* xq, const float* inv_ls,
                       const void* kf_desc, const float* amp,
                       float* mean, float* qf, float* vt, float* kst, float* scratch,
                       int b, int n, int m, int d, void* stream) {
-  if (bad_shape(b, n, m, d) || !aligned16(kst)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ld = factor_ld(n);
-  float* qf_part = scratch;
-  const dim3 kgrid((n + KS_L - 1) / KS_L, (m + KS_J - 1) / KS_J, b);
-  kstar_kernel<<<kgrid, 256, 0, s>>>(xs, xq, inv_ls, amp, kst, b, n, m, ld, d);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-
-  CUtensorMap tm_fac, tm_kst;
-  memcpy(&tm_fac, kf_desc, sizeof(tm_fac));
-  const int nrb = (n + 1 + TN - 1) / TN, npairs = fwd_pairs(n);
-  const bool one = one_consumer((long long)((m + 127) / 128) * npairs * b);
-  const int bm = one ? 64 : 128;
-  err = encode_planes(&tm_kst, kst, n, m, KST_PLANES * b, ld, bm);
-  if (err != 0) return err;
-  const dim3 grid((m + bm - 1) / bm, npairs, b);
-  err = one ? launch(fwd_wgmma_kernel<1>, grid, 256, Fwd<1>::SMEM, s, tm_kst, tm_fac, mean,
-                     qf_part, vt, b, n, m, ld, nrb, npairs)
-            : launch(fwd_wgmma_kernel<2>, grid, 384, Fwd<2>::SMEM, s, tm_kst, tm_fac, mean,
-                     qf_part, vt, b, n, m, ld, nrb, npairs);
-  if (err != 0) return err;
-  return launch_rowsum(qf_part, qf, b, npairs, m, s);
+  return launch_fwd<KIND_RBF>(xs, xq, inv_ls, kf_desc, amp, mean, qf, vt, kst, nullptr,
+                              scratch, b, n, m, d, stream);
 }
 
-// vt, kst: the forward's v^T and k*^T planes of these inputs.
+// The same for Matern-1.5; wst: the derivative weight's w^T planes
+// (KST_PLANES, b, m, ld) that the backwards read in place of k*, or
+// nullptr when no backward follows.
+int fused_predict_fwd_matern(const float* xs, const float* xq, const float* inv_ls,
+                             const void* kf_desc, const float* amp,
+                             float* mean, float* qf, float* vt, float* kst, float* wst,
+                             float* scratch, int b, int n, int m, int d, void* stream) {
+  if (wst != nullptr && !aligned16(wst)) return (int)cudaErrorInvalidValue;
+  return launch_fwd<KIND_MATERN>(xs, xq, inv_ls, kf_desc, amp, mean, qf, vt, kst, wst,
+                                 scratch, b, n, m, d, stream);
+}
+
+// vt, kst: the forward's v^T and k*^T planes of these inputs (for a
+// Matern forward, its w^T planes in place of k*^T).
 int fused_predict_bwd(const float* xs, const float* xq, const float* inv_ls,
                       const void* kf_desc, const float* alpha,
                       const float* vt, const float* kst, const float* ct_mean,

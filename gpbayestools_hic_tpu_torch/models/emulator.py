@@ -316,9 +316,10 @@ class Emulator:
             if self.parameterTrafoPCA_ else None
         )
         gs = self.gp_state
+        kind = self.gp_config.kernel.kind
         self._fused = (
-            build_fused_state(gs.params, gs.x, gs.linv, gs.alpha_vec)
-            if fused_eligible(self.gp_config.kernel.kind, gs.x.shape[1], self._dtype) else None
+            build_fused_state(gs.params, gs.x, gs.linv, gs.alpha_vec, kind)
+            if fused_eligible(kind, gs.x.shape[1], self._dtype) else None
         )
 
     def _transform_x(self, x: torch.Tensor) -> torch.Tensor:
@@ -330,7 +331,8 @@ class Emulator:
 
     def _takes_fused(self, x: torch.Tensor, fast_grad: bool) -> bool:
         """Whether the GP predict at ``x`` runs the fused op: the emulator has
-        a fused state (float32 RBF, d <= FUSED_MAX_DIM), and either the
+        a fused state (float32 RBF or Matern-1.5, d <= FUSED_MAX_DIM; a
+        MaternProd head has none), and either the
         caller asked for the fast gradient or the queries are on the card
         with no derivative taken of them.  A CPU call keeps ``gp_predict``'s
         summation order; a caller that differentiates keeps its FP32 plain
@@ -346,8 +348,8 @@ class Emulator:
         :meth:`_takes_fused`'s."""
         x = self._transform_x(x)
         if self._takes_fused(x, fast_grad):
-            # fused kernel (float32 RBF): k* build, mean and the variance
-            # quadratic form in one pass; same max(kdiag - q, 0) epilogue
+            # fused kernel (float32 RBF or Matern-1.5): k* build, mean and the
+            # variance quadratic form in one pass; same max(kdiag - q, 0) epilogue
             with span("hic.predict"):
                 gp_mean, qform = fused_pc_predict(
                     self._fused, x, self.gp_config.grad_precision)     # (m, npc)
@@ -393,7 +395,8 @@ class Emulator:
 
     def predict_pc_raw_fastgrad(self, x: torch.Tensor):
         """Same values as :meth:`predict_pc_raw`; cheap reverse-mode gradient
-        (the fused kernels for a float32 RBF emulator).  Reverse mode only."""
+        (the fused kernels for a float32 RBF or Matern-1.5 emulator).  Reverse
+        mode only."""
         return self._pc_core(x, fast_grad=True, raw=True)
 
     def predict_diag(self, x: torch.Tensor):

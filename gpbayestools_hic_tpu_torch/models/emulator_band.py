@@ -19,9 +19,10 @@ The surmise methods on the same batched-GP core as the sklearn head:
 - unknown methods raise ``ValueError``.
 
 ``predict`` keeps the fixed-basis low-rank covariance, so ``Chain``'s
-Woodbury path applies to these heads unchanged; a float32 RBF head runs the
-fused predict kernels there, the per-design noise entering through the
-factor ``L^-1`` and ``K^-1 y``.
+Woodbury path applies to these heads unchanged; a float32 RBF or Matern-1.5
+head (the default kernel) runs the fused predict kernels there, the
+per-design noise entering through the factor ``L^-1`` and ``K^-1 y``; a
+MaternProd head takes the plain ``gp_predict``.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ class EmulatorBAND(Emulator):
 
     ``kernel_kind``: the per-PC GP covariance, "Matern" (ARD Matern-1.5,
     the default), "MaternProd" (surmise's separable product-Matern) or
-    "RBF" (the family the fused predict kernels compute).
+    "RBF"; the fused predict kernels compute "Matern" and "RBF".
     ``map_prior_strength`` > 0 fits the hyperparameters by MAP instead of
     maximum likelihood.  ``device`` and ``dtype`` as for :class:`Emulator`.
     """

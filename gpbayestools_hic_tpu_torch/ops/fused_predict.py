@@ -3,9 +3,17 @@
 The sampling hot path (every posterior value and every HMC gradient)
 evaluates, per GP k of an emulator's batch and per walker batch::
 
-    kstar = amp * exp(-0.5 * |(x_train - q) / ls|^2)   # (n, m)
+    r2    = |(x_train - q) / ls|^2                     # (n, m)
+    kstar = amp * exp(-0.5 * r2)                       # RBF
+          = amp * (1 + s) * exp(-s), s = sqrt(3 r2)    # Matern-1.5
     mean  = kstar^T alpha                              # (m,)
     qform = |G kstar|^2,  G = L^-1                     # (m,)  -> var = kdiag - qform
+
+The two families (``FusedState.kind``) differ in the k* pre-pass alone
+(``kstar_kernel<0>`` / ``kstar_kernel<1>`` in the device trace) and in the
+weight w of the query derivative dk*/dqs = w (xs - qs): w = k* for RBF,
+w = 3 amp e^-s for Matern, which the Matern pre-pass writes beside k* when a
+backward follows; the product kernels and both backwards are shared.
 
 Kernels (``csrc/fused_predict.cu``, built by :mod:`._build`), each with its
 precision contract and its bound on the H100 at the flagship shape
@@ -50,14 +58,15 @@ kernels' copy of the factor, ``kf`` (b, 4, n + 1, ld) (:func:`kernel_factor`):
 ``ld = factor_ld(n)`` floats, the 16-byte stride TMA needs; its tensor-map
 descriptor is encoded once and cached.  The forward kernel saves v as v^T
 in plane 0 of a (1 + KST_PLANES, b, m, ld) buffer whose other planes hold
-the call's k*^T, and hands it out as the (b, n, m) view
-``buf[0, :, :, :n].mT``, which the plain backward reads as it is and the
-kernels by its storage: both backwards take k* from there
-(:func:`kernel_layout_v` makes that layout from a plain v).
+the call's k*^T (and, for Matern, w^T after them), and hands it out as the
+(b, n, m) view ``buf[0, :, :, :n].mT``, which the plain backward reads as
+it is and the kernels by its storage: both backwards take k* (Matern: w)
+from there (:func:`kernel_layout_v` makes that layout from a plain v).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version.  There is no fallback from one to the other.
-Each kernel wrapper counts its launches in :data:`.registry.LAUNCH_COUNTS`.
+Each kernel wrapper counts its launches in :data:`.registry.LAUNCH_COUNTS`,
+per family (the Matern entries' names end in ``_matern``).
 """
 
 from __future__ import annotations
@@ -76,6 +85,14 @@ _SOURCE = "gpbayestools_hic_tpu_torch/csrc/fused_predict.cu"
 register("fused_predict_fwd", _SOURCE, "gpbayestools_hic_tpu/ops/pallas_predict.py:255")
 register("fused_predict_bwd", _SOURCE, "gpbayestools_hic_tpu/ops/pallas_predict.py:307")
 register("fused_predict_bwd_high", _SOURCE, "gpbayestools_hic_tpu/ops/pallas_predict.py:281")
+# the same kernels with the Matern-1.5 k* pre-pass (the TPU kernels computed RBF only)
+register("fused_predict_fwd_matern", _SOURCE, "gpbayestools_hic_tpu/ops/pallas_predict.py:255")
+register("fused_predict_bwd_matern", _SOURCE, "gpbayestools_hic_tpu/ops/pallas_predict.py:307")
+register("fused_predict_bwd_high_matern", _SOURCE,
+         "gpbayestools_hic_tpu/ops/pallas_predict.py:281")
+
+#: kernel families the kernels compute (``FusedState.kind``)
+FUSED_KINDS = ("RBF", "Matern")
 
 #: ``GPConfig.grad_precision`` -> backward kernel
 BACKWARD_KERNELS = {
@@ -96,6 +113,12 @@ def backward_kernel(grad_precision: str) -> str:
         ) from None
 
 
+def launch_name(entry: str, kind: str) -> str:
+    """The name a kernel entry's launches are counted under for family
+    ``kind``: the entry's own for RBF, with ``_matern`` for Matern."""
+    return entry if kind == "RBF" else f"{entry}_matern"
+
+
 class FusedState(NamedTuple):
     xs: torch.Tensor      # (b, n, d) training inputs scaled by 1/ls
     G: torch.Tensor       # (b, n, n) lower-triangular L^-1
@@ -104,6 +127,18 @@ class FusedState(NamedTuple):
     inv_ls: torch.Tensor  # (b, d)
     kdiag: torch.Tensor   # (b,) predictive prior variance amp + noise
     kf: torch.Tensor | None = None  # (b, 4, n + 1, ld) the kernels' factor (kernel_factor)
+    kind: str = "RBF"     # kernel family, one of FUSED_KINDS
+
+
+#: the tensor fields of a FusedState
+TENSOR_FIELDS = FusedState._fields[:-1]
+
+
+def state_as(fs: FusedState, dtype: torch.dtype) -> FusedState:
+    """``fs`` with its tensors in ``dtype`` (a float64 copy for a
+    reference), the family kept."""
+    return fs._replace(**{f: getattr(fs, f).to(dtype) for f in TENSOR_FIELDS
+                          if getattr(fs, f) is not None})
 
 
 #: largest input dimension the kernels take (``DMAX`` of csrc/fused_predict.cu)
@@ -167,33 +202,57 @@ def kernel_factor(G: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return kf
 
 
-def saved_v_buffer(b: int, n: int, m: int, **opts) -> torch.Tensor:
-    """The buffer the forward kernel saves v in: (1 + KST_PLANES, b, m, ld),
-    v^T in plane 0 (zeros past n), the call's k*^T in the others."""
-    return torch.empty((1 + KST_PLANES, b, m, factor_ld(n)), **opts)
+def saved_planes(kind: str) -> int:
+    """Planes of the buffer the forward saves v in: v^T, the k*^T planes
+    and, for Matern, the w^T planes."""
+    return 1 + KST_PLANES * (2 if kind == "Matern" else 1)
+
+
+def weight_plane(kind: str) -> int:
+    """The plane of the saved buffer the backwards read ct_z's weight from:
+    k*^T's for RBF, w^T's for Matern."""
+    return 1 if kind == "RBF" else 1 + KST_PLANES
+
+
+def saved_v_buffer(b: int, n: int, m: int, kind: str = "RBF", **opts) -> torch.Tensor:
+    """The buffer the forward kernel saves v in: (saved_planes(kind), b, m,
+    ld), v^T in plane 0 (zeros past n), the call's k*^T in the next
+    KST_PLANES, for Matern its w^T in the last KST_PLANES."""
+    return torch.empty((saved_planes(kind), b, m, factor_ld(n)), **opts)
 
 
 def kernel_layout_v(fs: FusedState, xq: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """A (b, n, m) v of queries xq in the layout the forward kernel saves
     it: the view ``buf[0, :, :, :n].mT`` of a :func:`saved_v_buffer` with
-    zeros in the padding and k*^T of xq (plain) beside it."""
+    zeros in the padding and k*^T of xq (plain) beside it (and w^T, for
+    Matern)."""
     b, n, m = v.shape
-    buf = saved_v_buffer(b, n, m, dtype=v.dtype, device=v.device).zero_()
+    buf = saved_v_buffer(b, n, m, fs.kind, dtype=v.dtype, device=v.device).zero_()
     buf[0, :, :, :n] = v.transpose(1, 2)
-    buf[1, :, :, :n] = _kstar_plain(fs, xq)[2].transpose(1, 2)
+    _, z, kstar = _kstar_plain(fs, xq)
+    buf[1, :, :, :n] = kstar.transpose(1, 2)
+    if fs.kind == "Matern":
+        buf[weight_plane(fs.kind), :, :, :n] = _weight_plain(fs, z, kstar).transpose(1, 2)
     return buf[0, :, :, :n].transpose(1, 2)
 
 
 def fused_eligible(kind: str, d: int, dtype: torch.dtype) -> bool:
-    """The kernels compute the RBF family in float32 for d <= FUSED_MAX_DIM;
-    a wider GP takes the plain ``gp_predict`` (as the JAX package's
-    ``fused_eligible(kind, d, dtype)`` sends it off its kernel)."""
-    return kind == "RBF" and d <= FUSED_MAX_DIM and dtype == torch.float32
+    """The kernels compute the RBF and the Matern-1.5 families
+    (:data:`FUSED_KINDS`) in float32 for d <= FUSED_MAX_DIM; a wider GP, and
+    surmise's product-Matern ("MaternProd"), take the plain ``gp_predict``
+    (as the JAX package's ``fused_eligible(kind, d, dtype)`` sends a GP
+    off its kernel, which computed RBF alone)."""
+    return kind in FUSED_KINDS and d <= FUSED_MAX_DIM and dtype == torch.float32
 
 
 def build_fused_state(params: dict, x: torch.Tensor, linv: torch.Tensor,
-                      alpha_vec: torch.Tensor) -> FusedState:
-    """Kernel-ready float32 state from a trained GP batch (one-time prep)."""
+                      alpha_vec: torch.Tensor, kind: str = "RBF") -> FusedState:
+    """Kernel-ready float32 state from a trained GP batch (one-time prep) of
+    family ``kind``.  A known per-design noise (a PCSK head's) is already in
+    ``linv`` and ``alpha_vec``; ``kdiag`` is amp + the white level in
+    either family."""
+    if kind not in FUSED_KINDS:
+        raise ValueError(f"the fused predict computes {FUSED_KINDS}, not {kind!r}")
     f32 = dict(dtype=torch.float32, device=x.device)
     ls = torch.exp(params["log_ls"].to(torch.float64))
     amp = torch.exp(params["log_amp"].to(torch.float64))
@@ -210,6 +269,7 @@ def build_fused_state(params: dict, x: torch.Tensor, linv: torch.Tensor,
         inv_ls=(1.0 / ls).to(**f32).contiguous(),
         kdiag=(amp + noise).to(**f32).contiguous(),
         kf=kernel_factor(G, alpha),
+        kind=kind,
     )
 
 
@@ -217,10 +277,23 @@ def build_fused_state(params: dict, x: torch.Tensor, linv: torch.Tensor,
 
 
 def _kstar_plain(fs: FusedState, xq: torch.Tensor):
+    """(qs (b, m, d), z = -r2 / 2 (b, n, m), k* (b, n, m)) in ``fs.kind``."""
     qs = xq[None, :, :] * fs.inv_ls[:, None, :]          # (b, m, d)
     z = -0.5 * scaled_sqdist(fs.xs, qs)                   # (b, n, m)
-    kstar = fs.amp[:, None, None] * torch.exp(torch.clamp(z, max=0.0))
+    if fs.kind == "Matern":
+        s = torch.sqrt(-6.0 * z)                          # sqrt(3 r2)
+        kstar = fs.amp[:, None, None] * (1.0 + s) * torch.exp(-s)
+    else:
+        kstar = fs.amp[:, None, None] * torch.exp(torch.clamp(z, max=0.0))
     return qs, z, kstar
+
+
+def _weight_plain(fs: FusedState, z: torch.Tensor, kstar: torch.Tensor) -> torch.Tensor:
+    """The weight w of dk*/dqs = w (xs - qs): k* where z < 0 for RBF, 3 amp
+    e^-s for Matern (finite at r = 0)."""
+    if fs.kind == "Matern":
+        return 3.0 * fs.amp[:, None, None] * torch.exp(-torch.sqrt(-6.0 * z))
+    return torch.where(z < 0, kstar, torch.zeros_like(kstar))
 
 
 def fused_fwd_plain(fs: FusedState, xq: torch.Tensor, save_v: bool = False):
@@ -238,7 +311,10 @@ def fused_bwd_plain(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
     qs, z, kstar = _kstar_plain(fs, xq)
     ct_v = 2.0 * v * ct_qf[:, None, :]
     ct_k = torch.bmm(fs.G.transpose(1, 2), ct_v) + fs.alpha[:, :, None] * ct_mean[:, None, :]
-    ct_z = torch.where(z < 0, kstar * ct_k, torch.zeros_like(kstar))
+    if fs.kind == "Matern":
+        ct_z = _weight_plain(fs, z, kstar) * ct_k
+    else:
+        ct_z = torch.where(z < 0, kstar * ct_k, torch.zeros_like(kstar))
     ct_qs = torch.stack(
         [(ct_z * (fs.xs[:, :, j, None] - qs[:, None, :, j])).sum(1)
          for j in range(qs.shape[-1])],
@@ -272,6 +348,8 @@ def _lib():
         lib.fused_predict_factor_planes.argtypes = []
         lib.fused_predict_fwd.restype = _I
         lib.fused_predict_fwd.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+        lib.fused_predict_fwd_matern.restype = _I
+        lib.fused_predict_fwd_matern.argtypes = [_P] * 11 + [_I] * 4 + [_P]
         lib.fused_predict_bwd.restype = _I
         lib.fused_predict_bwd.argtypes = [_P] * 11 + [_I] * 4 + [_P]
         lib.fused_predict_bwd_high.restype = _I
@@ -307,7 +385,7 @@ def _check_cuda(fs: FusedState, xq: torch.Tensor, *extra: torch.Tensor):
     if fs.kf is None:
         raise ValueError("fused predict kernels need the kernel factor: build the state "
                          "with build_fused_state")
-    for t in (xq, *fs, *extra):
+    for t in (xq, *(getattr(fs, f) for f in TENSOR_FIELDS), *extra):
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
                 "fused predict kernels take contiguous float32 tensors on one "
@@ -335,34 +413,44 @@ def _fwd_cuda(fs: FusedState, xq: torch.Tensor, save_v: bool):
     qf = torch.empty((b, m), **opts)
     # the per-block partial sums of qf
     scratch = torch.empty(lib.fused_predict_scratch(0, b, n, m, d), **opts)
-    # v^T and k*^T side by side when a backward follows, else k*^T alone
+    # v^T and k*^T (and Matern's w^T) side by side when a backward follows,
+    # else k*^T alone
+    matern = fs.kind == "Matern"
+    wst = None
     if save_v:
-        buf = saved_v_buffer(b, n, m, **opts)
-        vt, kst = buf[0], buf[1:]
+        buf = saved_v_buffer(b, n, m, fs.kind, **opts)
+        vt, kst = buf[0], buf[1:1 + KST_PLANES]
+        if matern:
+            wst = buf[weight_plane(fs.kind):]
     else:
         vt, kst = None, torch.empty((KST_PLANES, b, m, factor_ld(n)), **opts)
     desc = _factor_desc(lib, fs)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
+    head = (fs.xs.data_ptr(), xq.data_ptr(), fs.inv_ls.data_ptr(), desc, fs.amp.data_ptr(),
+            mean.data_ptr(), qf.data_ptr(), vt.data_ptr() if save_v else None, kst.data_ptr())
+    tail = (scratch.data_ptr(), b, n, m, d, stream)
     with torch.cuda.device(xq.device):
-        err = lib.fused_predict_fwd(
-            fs.xs.data_ptr(), xq.data_ptr(), fs.inv_ls.data_ptr(), desc, fs.amp.data_ptr(),
-            mean.data_ptr(), qf.data_ptr(), vt.data_ptr() if save_v else None,
-            kst.data_ptr(), scratch.data_ptr(), b, n, m, d, stream,
-        )
-    raise_on(err, "fused_predict_fwd launch")
-    count_launch("fused_predict_fwd", xq.device)
+        if matern:
+            err = lib.fused_predict_fwd_matern(
+                *head, wst.data_ptr() if wst is not None else None, *tail)
+        else:
+            err = lib.fused_predict_fwd(*head, *tail)
+    name = launch_name("fused_predict_fwd", fs.kind)
+    raise_on(err, f"{name} launch")
+    count_launch(name, xq.device)
     return mean, qf, (vt[:, :, :n].transpose(1, 2) if save_v else None)
 
 
-def _check_v(v: torch.Tensor, b: int, n: int, m: int, kernel: str):
+def _check_v(v: torch.Tensor, b: int, n: int, m: int, kernel: str, kind: str = "RBF"):
     """v must be a forward kernel's saved v (see saved_v_buffer)."""
     ld = factor_ld(n)
+    planes = saved_planes(kind)
     if (v.shape != (b, n, m) or v.stride() != (m * ld, 1, ld) or v.storage_offset() != 0
             or v.data_ptr() % 16
-            or v.untyped_storage().nbytes() < (1 + KST_PLANES) * b * m * ld * 4):
+            or v.untyped_storage().nbytes() < planes * b * m * ld * 4):
         raise ValueError(
             f"{kernel}: v must be the forward kernel's saved v, the (b, n, m) view of plane 0 "
-            f"of a ({1 + KST_PLANES}, b, m, {ld}) buffer (kernel_layout_v makes one); got "
+            f"of a ({planes}, b, m, {ld}) buffer (kernel_layout_v makes one); got "
             f"shape {tuple(v.shape)}, strides {v.stride()}"
         )
 
@@ -372,7 +460,7 @@ def _bwd_cuda(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
     b, n, m, d = _check_cuda(fs, xq, ct_mean, ct_qf)
     if v.device != xq.device or v.dtype != torch.float32:
         raise ValueError(f"{kernel}: v must be float32 on {xq.device}")
-    _check_v(v, b, n, m, kernel)
+    _check_v(v, b, n, m, kernel, fs.kind)
     if ct_mean.shape != (b, m) or ct_qf.shape != (b, m):
         raise ValueError(f"{kernel}: cotangent shape mismatch")
     lib = _lib()
@@ -381,9 +469,10 @@ def _bwd_cuda(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
     # per-block partial sums of the query cotangent
     ct_part = torch.empty(lib.fused_predict_scratch(1 if fast else 2, b, n, m, d), **opts)
     ct_q = torch.empty((b, m, d), **opts)
-    # G^T's halves from the kernel factor, k* from the saved v's buffer
+    # G^T's halves from the kernel factor, k* (Matern: w) from the saved v's
+    # buffer
     operands = (_factor_desc(lib, fs), fs.alpha.data_ptr(), v.data_ptr(),
-                v.data_ptr() + 4 * b * m * factor_ld(n))
+                v.data_ptr() + 4 * b * m * factor_ld(n) * weight_plane(fs.kind))
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     with torch.cuda.device(xq.device):
         err = getattr(lib, kernel)(
@@ -391,8 +480,9 @@ def _bwd_cuda(fs: FusedState, xq: torch.Tensor, v: torch.Tensor,
             ct_mean.data_ptr(), ct_qf.data_ptr(), ct_part.data_ptr(), ct_q.data_ptr(),
             b, n, m, d, stream,
         )
-    raise_on(err, f"{kernel} launch")
-    count_launch(kernel, xq.device)
+    name = launch_name(kernel, fs.kind)
+    raise_on(err, f"{name} launch")
+    count_launch(name, xq.device)
     return ct_q
 
 
@@ -422,10 +512,11 @@ class _FusedPCPredict(torch.autograd.Function):
     it zero cotangents.  Reverse mode only."""
 
     @staticmethod
-    def forward(ctx, xq, grad_precision, xs, G, alpha, amp, inv_ls, kdiag, kf):
-        fs = FusedState(xs, G, alpha, amp, inv_ls, kdiag, kf)
+    def forward(ctx, xq, grad_precision, xs, G, alpha, amp, inv_ls, kdiag, kf, kind):
+        fs = FusedState(xs, G, alpha, amp, inv_ls, kdiag, kf, kind)
         need_grad = ctx.needs_input_grad[0]
         ctx.grad_precision = grad_precision
+        ctx.kind = kind
         mean, qf, v = fused_fwd(fs, xq, save_v=need_grad)
         if need_grad:
             ctx.save_for_backward(xq, xs, G, alpha, amp, inv_ls, kdiag, kf, v)
@@ -435,7 +526,7 @@ class _FusedPCPredict(torch.autograd.Function):
     def backward(ctx, ct_mean, ct_qf):
         with span("hic.predict_bwd"):
             xq, xs, G, alpha, amp, inv_ls, kdiag, kf, v = ctx.saved_tensors
-            fs = FusedState(xs, G, alpha, amp, inv_ls, kdiag, kf)
+            fs = FusedState(xs, G, alpha, amp, inv_ls, kdiag, kf, ctx.kind)
             if ct_mean is None:
                 ct_mean = torch.zeros((xq.shape[0], xs.shape[0]), dtype=xq.dtype,
                                       device=xq.device)
@@ -443,7 +534,7 @@ class _FusedPCPredict(torch.autograd.Function):
                 ct_qf = torch.zeros_like(ct_mean)
             ct_q = fused_bwd(fs, xq, v, ct_mean.t().contiguous(), ct_qf.t().contiguous(),
                              ctx.grad_precision)
-            return (ct_q.sum(0),) + (None,) * 8
+            return (ct_q.sum(0),) + (None,) * 9
 
 
 def fused_pc_predict(fs: FusedState, xq: torch.Tensor, grad_precision: str = "default"):

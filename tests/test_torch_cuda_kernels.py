@@ -62,7 +62,7 @@ def _rel(a, b):
 
 
 def _f64(fs, *ts):
-    return (fp.FusedState(*(t.double() for t in fs)),) + tuple(t.double() for t in ts)
+    return (fp.state_as(fs, torch.float64),) + tuple(t.double() for t in ts)
 
 
 @pytest.mark.parametrize("b", [4, 23, 36, 70])

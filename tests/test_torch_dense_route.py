@@ -236,7 +236,7 @@ def test_cuda_dense_predict_takes_the_fused_forward(card_chain, m):
         assert mean.shape == (m, e.nobs) and cov.shape == (m, e.nobs, e.nobs)
         assert _rel(mean, pm) < 1e-5, e.nobs
         assert _rel(cov, pc) < 1e-5, e.nobs
-        fs64 = fp.FusedState(*(t.double() for t in e._fused))
+        fs64 = fp.state_as(e._fused, torch.float64)
         mean64, qf64, _ = fp.fused_fwd_plain(fs64, x.double())
         var64 = torch.clamp(fs64.kdiag[:, None] - qf64, min=0.0)
         assert _rel(gp_mean.T.double(), mean64) < 1e-4, e.nobs

@@ -171,7 +171,7 @@ def test_f32_mean_accuracy_on_real_factors(interpret_force):
     fs = fp.build_fused_state({k: t(v) for k, v in params.items()}, t(x), t(linv), t(alpha))
     xq32 = xq.astype(np.float32)
     mean, _ = fp.fused_pc_predict(fs, torch.tensor(xq32))
-    m64, _ = fp.fused_pc_predict(fp.FusedState(*(a.double() for a in fs)),
+    m64, _ = fp.fused_pc_predict(fp.state_as(fs, torch.float64),
                                  torch.tensor(xq32).double())
     jfs = pp.attach_fused_factors(pp.build_fused_state(params, x), linv, alpha)
     jmean, _ = pp.fused_pc_predict(jfs, jnp.asarray(xq32))
@@ -213,7 +213,7 @@ def _real_factor_problem():
     linv, alpha = np.asarray(st.linv), np.asarray(st.alpha_vec)
     t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
     fs = fp.build_fused_state({k: t(v) for k, v in params.items()}, t(x), t(linv), t(alpha))
-    fs64 = fp.FusedState(*(a.double() for a in fs))
+    fs64 = fp.state_as(fs, torch.float64)
     jfs = pp.attach_fused_factors(pp.build_fused_state(params, x), linv, alpha)
     return fs, fs64, jfs, xq.astype(np.float32), w.astype(np.float32)
 
@@ -368,8 +368,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_fused_eligibility():
-    """The JAX signature (kind, d, dtype): RBF, float32 and d up to the
-    kernels' DMAX (read from the source) only."""
+    """The JAX signature (kind, d, dtype): RBF or Matern-1.5 (not
+    MaternProd), float32 and d up to the kernels' DMAX (read from the
+    source) only."""
     from gpbayestools_hic_tpu_torch.ops import _build
 
     src = (_build._PKG_DIR / _build.SOURCES["fused_predict"]).read_text()
@@ -379,7 +380,9 @@ def test_fused_eligibility():
     assert fp.fused_eligible("RBF", 32, torch.float32)
     assert not fp.fused_eligible("RBF", 33, torch.float32)
     assert not fp.fused_eligible("RBF", 17, torch.float64)
-    assert not fp.fused_eligible("Matern", 17, torch.float32)
+    assert fp.fused_eligible("Matern", 17, torch.float32)
+    assert not fp.fused_eligible("Matern", 33, torch.float32)
+    assert not fp.fused_eligible("MaternProd", 17, torch.float32)
 
 
 def test_grad_precision_selects_the_backward_kernel():
@@ -613,7 +616,7 @@ def test_promotion_interval_of_one_stage():
     st = _port_finalize(params, x, torch.tensor(rng.normal(size=(b, n))))
     fs = fp.build_fused_state(params, x, st.linv, st.alpha_vec)
     xq = torch.tensor(rng.uniform(0, 1, (m, d)), dtype=torch.float32)
-    m64, q64, _ = fp.fused_fwd_plain(fp.FusedState(*(t.double() for t in fs)), xq.double())
+    m64, q64, _ = fp.fused_fwd_plain(fp.state_as(fs, torch.float64), xq.double())
     err = {}
     for name, steps in (("kernel", PROMOTE_STEPS), ("never", 10**9)):
         mean, qf = _wgmma_forward(fs, xq, steps)
@@ -732,7 +735,7 @@ def test_high_backward_promotion_interval_of_one_stage():
     xq = torch.tensor(rng.uniform(0, 1, (m, d)), dtype=torch.float32)
     ctm = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32)
     ctq = torch.tensor(rng.normal(size=(b, m)), dtype=torch.float32)
-    fs64 = fp.FusedState(*(t.double() for t in fs))
+    fs64 = fp.state_as(fs, torch.float64)
     _, _, v64 = fp.fused_fwd_plain(fs64, xq.double(), save_v=True)
     g64 = fp.fused_bwd_plain(fs64, xq.double(), v64, ctm.double(), ctq.double()).sum(0)
     g = _wgmma_high_backward(fs, xq, ctm, ctq)

@@ -336,9 +336,9 @@ def main() -> int:
         states = [e._fused for e in chain.emuList]
         # the nine emulators' GPs as one batch (b = 36)
         merged = [fp.FusedState(*(torch.cat([getattr(s, f) for s in states]).contiguous()
-                                  for f in fp.FusedState._fields))]
+                                  for f in fp.TENSOR_FIELDS), kind=states[0].kind)]
         b, n, d = states[0].xs.shape
-        fs64 = fp.FusedState(*(t.double() for t in states[0]))
+        fs64 = fp.state_as(states[0], torch.float64)
         cases = [(f"b{b} m{m}", states, m) for m in walkers] + [
             (f"b{merged[0].xs.shape[0]} m{walkers[0]}", merged, walkers[0])]
         results = {name: {"ptxas": ptxas[name]} for name in libs}
