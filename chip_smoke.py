@@ -44,10 +44,15 @@ It imports nothing of JAX or the JAX package.  In order it
    the wide route ("panel"), 16 stitched matrices grown to the cluster
    route's largest n + 1, one non-PD matrix planted in each batch (the MVN
    kernel timed by replaying a CUDA graph of its launches, so that the
-   host's enqueue stays out of the measured time);
+   host's enqueue stays out of the measured time); and the fused Woodbury
+   epilogue (``woodbury_phase``) at the HMC cells' ranks (9 x 4, and
+   24, 23, 11, 88, 13, 19, 24, 48, 88) and 4096 walkers, its value and
+   gradient held to 1e-4 normwise of the library route in float64, timed
+   against its bound, its plain closed form and the library route;
 4. drives seven paths, each with every launch count set to 0 just before
    it and read just after it (a path that never launched one of its
-   kernels fails the run; b, c and h must launch the forward, f and g the
+   kernels fails the run; a, d, f and g must launch the fused Woodbury
+   forward and backward, h its forward; b, c and h must launch the forward, f and g the
    forward and the fast backward):
    a. ``likelihood_mode="auto"``: the f32 log-posterior on 1024 walkers,
       held within 0.5 log-units (and, for this route, 0.02) of the f64
@@ -837,6 +842,131 @@ def matern_phase(device):
     return stats
 
 
+WOODBURY = ("fused_woodbury_fwd", "fused_woodbury_bwd")
+# the cells' Woodbury ranks: auau-bes's nine blocks of 4 PCs, auau-bes-pcsk's
+WOODBURY_SHAPES = {"bes-hmc": (4,) * 9, "pcsk-hmc": (24, 23, 11, 88, 13, 19, 24, 48, 88)}
+WOODBURY_WALKERS = 4096
+
+
+def woodbury_inputs(ks, m, device, seed):
+    """Per block: its state (M^-1 SPD, eigenvalues in [0.5, 2]) and gp_mean,
+    qf, kdiag laid out as the fused predict leaves them ((k, m) storage seen
+    as (m, k)), float32 on the card; v = max(kdiag - qf, 0) in [0, 0.3]."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    out = []
+    for k in ks:
+        q, _ = np.linalg.qr(rng.normal(size=(k, k)))
+        m_inv = (q * rng.uniform(0.5, 2.0, k)) @ q.T
+        bs = {"p0": torch.tensor(rng.normal(size=k), **f32),
+              "m_inv": torch.tensor(0.5 * (m_inv + m_inv.T), **f32),
+              "const2": torch.tensor(rng.uniform(10, 50), **f32),
+              "logdet_c0_m": torch.tensor(rng.uniform(-20, 20), **f32)}
+        kd = rng.uniform(0.5, 1.0, k)
+        mean = torch.tensor(rng.normal(size=(k, m)), **f32).t() + bs["p0"]
+        qf = torch.tensor((kd[:, None] - rng.uniform(0.0, 0.3, (k, m))), **f32).t()
+        out.append((bs, mean.t().contiguous().t(), qf, torch.tensor(kd, **f32)))
+    return out
+
+
+def woodbury_work(ks, m, grad):
+    """(FP32 flops, bytes) of the Woodbury epilogue at these ranks: per
+    walker-block the Cholesky (k^3 / 3 flops) and the solve (k^2), with a
+    gradient L^-1 (k^3 / 3), alpha and diag(B^-1) (2 k^2); gp_mean and qf
+    read once, lp written, with a gradient alpha and the diagonal written.
+    The backward: alpha, the diagonal, qf, lp and the cotangent read, two
+    cotangents written, 6 flops an entry."""
+    fwd_flops = sum(k ** 3 / 3 + 2 * k * k + (k ** 3 / 3 + 4 * k * k if grad else 0) for k in ks)
+    fwd_bytes = 4 * m * (sum(2 * k for k in ks) + len(ks) + (2 * sum(ks) if grad else 0))
+    bwd_bytes = 4 * m * (5 * sum(ks) + 2 * len(ks))
+    return fwd_flops * m, fwd_bytes, 6 * m * sum(ks), bwd_bytes
+
+
+def woodbury_phase(device):
+    """The fused Woodbury kernels at the HMC cells' ranks and 4096 walkers:
+    the forward with a gradient (and without) and the backward timed by
+    CUDA-graph replay, against the bound, the plain closed form and the
+    library route as the posterior ran it before the kernels (per block
+    ``cholesky_ex`` + ``solve_triangular`` + ``where``, differentiated by
+    autograd; CUDA events, the host's enqueue included); the value and the
+    gradient against the library route in float64 on the CPU (normwise,
+    tolerance 1e-4, the card tests')."""
+    import torch
+    from gpbayestools_hic_tpu_torch.ops import fused_woodbury as fw
+    from gpbayestools_hic_tpu_torch.samplers import chain as chain_mod
+
+    stats = {name: {"precision": "FP32 (IEEE division and square root)", "shapes": []}
+             for name in WOODBURY}
+    for cell, ks in WOODBURY_SHAPES.items():
+        m = WOODBURY_WALKERS
+        blocks = woodbury_inputs(ks, m, device, seed=len(ks) + sum(ks))
+        states, means, qfs, kds = (list(t) for t in zip(*blocks))
+        leaves = [t.detach().requires_grad_(True) for t in means + qfs]
+
+        def fused_vg():
+            lp = fw.fused_woodbury(states, leaves[:len(ks)], leaves[len(ks):], kds).sum(1)
+            return torch.autograd.grad(lp, leaves, torch.ones_like(lp))
+
+        def library_vg():
+            lp = torch.stack([chain_mod._lowrank_library(bs, mn, qf, kd) for bs, mn, qf, kd
+                              in zip(states, leaves[:len(ks)], leaves[len(ks):], kds)], 1).sum(1)
+            return torch.autograd.grad(lp, leaves, torch.ones_like(lp))
+
+        def plain_vg():
+            out = []
+            for bs, mn, qf, kd in zip(states, means, qfs, kds):
+                lp, alpha, dinv = fw.woodbury_plain(bs, mn, qf, kd)
+                out.append(fw.woodbury_grad_plain(torch.ones_like(lp), lp, alpha, dinv, qf, kd))
+            return out
+
+        with torch.no_grad():
+            t_fwd = graph_ms(lambda: fw._fwd_cuda(states, kds, means, qfs, True), reps=5)
+            t_val = graph_ms(lambda: fw._fwd_cuda(states, kds, means, qfs, False), reps=5)
+            lp, saved = fw._fwd_cuda(states, kds, means, qfs, True)
+            g = torch.ones_like(lp)
+            t_bwd = graph_ms(lambda: fw._bwd_cuda(states, kds, qfs, lp, g, saved), reps=5)
+        t_lib = cuda_ms(library_vg, reps=3)
+        t_plain = cuda_ms(plain_vg, reps=3)
+        t_vg = cuda_ms(fused_vg, reps=5)
+        grads = fused_vg()
+        e_lp, e_g = 0.0, 0.0
+        for j, (bs, mn, qf, kd) in enumerate(blocks):
+            cpu = dict(dtype=torch.float64, device="cpu")
+            bs64 = {k: v.to(**cpu) for k, v in bs.items()}
+            mn64, qf64 = (t.detach().to(**cpu).requires_grad_(True) for t in (mn, qf))
+            want = chain_mod._lowrank_library(bs64, mn64, qf64, kd.to(**cpu))
+            gm, gq = torch.autograd.grad(want, (mn64, qf64), torch.ones_like(want))
+            e_lp = max(e_lp, normwise(lp[:, j].cpu(), want.detach())[1])
+            e_g = max(e_g, normwise(grads[j].cpu(), gm)[1],
+                      normwise(grads[len(ks) + j].cpu(), gq)[1])
+        if max(e_lp, e_g) > 1e-4:
+            raise SystemExit(f"fused Woodbury at {cell}'s ranks: normwise error {e_lp:.3g} "
+                             f"(lp), {e_g:.3g} (gradient) against float64, tolerance 1e-4")
+        f_flops, f_bytes, b_flops, b_bytes = woodbury_work(ks, m, True)
+        v_flops, v_bytes, _, _ = woodbury_work(ks, m, False)
+        bound_f, by_f = bound_ms(f_flops, f_bytes)
+        bound_v, by_v = bound_ms(v_flops, v_bytes)
+        bound_b, by_b = bound_ms(b_flops, b_bytes)
+        log(f"timing fused Woodbury at {cell}'s ranks {list(ks)}, m={m}: forward with the "
+            f"gradient's saves {t_fwd:.4f} ms (bound {bound_f:.4f}, {by_f}), value only "
+            f"{t_val:.4f} ms (bound {bound_v:.4f}, {by_v}), backward {t_bwd:.4f} ms (bound "
+            f"{bound_b:.4f}, {by_b}); value and gradient by events: op {t_vg:.4f} ms, plain "
+            f"{t_plain:.4f} ms, library route {t_lib:.4f} ms; error against float64 "
+            f"{e_lp:.3g} (lp), {e_g:.3g} (gradient), normwise")
+        common = dict(cell=cell, ks=list(ks), m=m, plain_value_and_grad_ms=t_plain,
+                      library_value_and_grad_ms=t_lib, op_value_and_grad_ms=t_vg)
+        stats["fused_woodbury_fwd"]["shapes"].append(dict(
+            common, ms=t_fwd, value_only_ms=t_val, bound_ms=bound_f, bound_by=by_f,
+            value_only_bound_ms=bound_v, normwise_lp=e_lp))
+        stats["fused_woodbury_bwd"]["shapes"].append(dict(
+            common, ms=t_bwd, bound_ms=bound_b, bound_by=by_b, normwise_grad=e_g))
+        del blocks, states, means, qfs, kds, leaves, lp, saved, grads
+        torch.cuda.empty_cache()
+    return stats
+
+
 def graph_lib_ms(fn):
     """(FP32, TF32) graph_ms of a library call, TF32 matmuls allowed only
     for the second (a yardstick; the port never allows them), the setting
@@ -1364,13 +1494,14 @@ def drive_paths(chain, tmp, on_paths):
         hmc_auto_resume(chain, tmp)
 
     paths = (
-        ("auto+hmc", auto_hmc, ("fused_predict_fwd", "fused_predict_bwd")),
+        ("auto+hmc", auto_hmc, ("fused_predict_fwd", "fused_predict_bwd") + WOODBURY),
         ("generic+ensemble", generic, ("fused_predict_fwd", "fused_mvn_loglike")),
         ("stitched+ensemble", stitched, ("fused_predict_fwd", "fused_mvn_loglike_cluster")),
-        ("hmc grad_precision=high", hmc_high, ("fused_predict_fwd", "fused_predict_bwd_high")),
-        ("hmc-auto-L+resume", hmc_auto, ("fused_predict_fwd", "fused_predict_bwd")),
-        ("ptlmc", lambda: ptlmc_run(chain), ("fused_predict_fwd", "fused_predict_bwd")),
-        ("smc", lambda: smc_run(chain), ("fused_predict_fwd",)),
+        ("hmc grad_precision=high", hmc_high,
+         ("fused_predict_fwd", "fused_predict_bwd_high") + WOODBURY),
+        ("hmc-auto-L+resume", hmc_auto, ("fused_predict_fwd", "fused_predict_bwd") + WOODBURY),
+        ("ptlmc", lambda: ptlmc_run(chain), ("fused_predict_fwd", "fused_predict_bwd") + WOODBURY),
+        ("smc", lambda: smc_run(chain), ("fused_predict_fwd", "fused_woodbury_fwd")),
     )
     counts = {}
     for name, run, kernels in paths:
@@ -2260,6 +2391,9 @@ def main() -> int:
         t0 = time.perf_counter()
         stats.update(matern_phase(device))
         log(f"phase Matern kernels: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        stats.update(woodbury_phase(device))
+        log(f"phase Woodbury kernels: {time.perf_counter() - t0:.1f} s")
         stats.update(mvn_phase(chain, device))
         on_paths = {"fused_mvn_loglike_panel"}
         counts = drive_paths(chain, tmp, on_paths)

@@ -342,22 +342,31 @@ class Emulator:
             return False
         return fast_grad or (x.is_cuda and not records_derivative(x))
 
-    def _gp_pc(self, x: torch.Tensor, fast_grad: bool = False):
+    def _gp_pc_parts(self, x: torch.Tensor, fast_grad: bool = False):
         """The GP predict of every PC at the queries (through the parameter
-        transform): ``gp_mean (m, npc)``, ``gp_var (m, npc)``; the route is
-        :meth:`_takes_fused`'s."""
+        transform), before the fused route's variance epilogue: ``gp_mean
+        (m, npc)``, then ``qform (m, npc)`` and ``kdiag (npc,)`` on the fused
+        route (the variance is ``max(kdiag - qform, 0)``), else ``gp_var (m,
+        npc)`` and None; the route is :meth:`_takes_fused`'s."""
         x = self._transform_x(x)
         if self._takes_fused(x, fast_grad):
             # fused kernel (float32 RBF or Matern-1.5): k* build, mean and the
-            # variance quadratic form in one pass; same max(kdiag - q, 0) epilogue
+            # variance quadratic form in one pass
             with span("hic.predict"):
                 gp_mean, qform = fused_pc_predict(
                     self._fused, x, self.gp_config.grad_precision)     # (m, npc)
-            return gp_mean, torch.clamp(self._fused.kdiag[None, :] - qform, min=0.0)
+            return gp_mean, qform, self._fused.kdiag
         with span("hic.predict"):
             gp_mean, gp_var = gp_predict(self.gp_state, x, config=self.gp_config,
                                          fast_grad=fast_grad)
-        return gp_mean.T, gp_var.T
+        return gp_mean.T, gp_var.T, None
+
+    def _gp_pc(self, x: torch.Tensor, fast_grad: bool = False):
+        """``gp_mean (m, npc)``, ``gp_var (m, npc)`` at the queries."""
+        gp_mean, q, kdiag = self._gp_pc_parts(x, fast_grad)
+        if kdiag is None:
+            return gp_mean, q
+        return gp_mean, torch.clamp(kdiag[None, :] - q, min=0.0)
 
     def _predict_full(self, x: torch.Tensor, extra_std: torch.Tensor):
         """(m, d) -> mean (m, nobs), covariance (m, nobs, nobs)."""
@@ -398,6 +407,13 @@ class Emulator:
         (the fused kernels for a float32 RBF or Matern-1.5 emulator).  Reverse
         mode only."""
         return self._pc_core(x, fast_grad=True, raw=True)
+
+    def predict_pc_parts_fastgrad(self, x: torch.Tensor):
+        """:meth:`predict_pc_raw_fastgrad` before its variance epilogue:
+        ``(gp_mean, qform, kdiag)`` on the fused route, where the variance is
+        ``max(kdiag - qform, 0)``, else ``(gp_mean, gp_var, None)``; for the
+        fused Woodbury epilogue, which applies it itself."""
+        return self._gp_pc_parts(x, fast_grad=True)
 
     def predict_diag(self, x: torch.Tensor):
         """(mean (m, nobs), diagonal of the covariance (m, nobs))."""

@@ -27,6 +27,7 @@ BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = {
     "fused_predict": "csrc/fused_predict.cu",
     "fused_mvn": "csrc/fused_mvn.cu",
+    "fused_woodbury": "csrc/fused_woodbury.cu",
 }
 
 NVCC_FLAGS = (

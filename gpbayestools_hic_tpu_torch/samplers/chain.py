@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, resolve_dtype
+from ..ops import fused_woodbury
 from ..ops.fused_mvn import mvn_loglike_best
 from ..ops.linalg import mvn_loglike_diagcov_batch, spd_qform_logdet
 from ..runtime import parse_model_parameter_file
@@ -92,7 +93,9 @@ def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
     form); B is well conditioned (v >= 0 on SPD M^-1), needs no square
     root of v, and M^-1, log det M come from the host in float64.
 
-    Returns ``(block_ll(bs, x_safe) -> (m,), bs)``.
+    Returns ``(LowRankBlock, bs)``: the block's predict, kept apart from its
+    epilogue so that a posterior call evaluates every block's epilogue at
+    once (:func:`woodbury_blocks`), and its state.
     """
     a_mat, cov_trunc = e.lowrank_parts()
     a64 = np.asarray(a_mat, dtype=np.float64)
@@ -117,16 +120,41 @@ def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
         "p0": t(p0), "m_inv": t(0.5 * (m_inv + m_inv.T)), "const2": t(const2),
         "logdet_c0_m": t(logdet_c0 + 2.0 * np.sum(np.log(np.diag(m_chol)))),
     }
+    return LowRankBlock(e.predict_pc_parts_fastgrad), bs
 
-    def block_ll(bs, x_safe):
-        gp_mean, v = e.predict_pc_raw_fastgrad(x_safe)     # (m, npc) x2
-        with span("hic.woodbury"):
-            d = gp_mean - bs["p0"]
-            quad, logdet_b = spd_qform_logdet(bs["m_inv"] + torch.diag_embed(v), d)
-            lp = -0.5 * (quad + bs["const2"]) - 0.5 * (bs["logdet_c0_m"] + logdet_b)
-            return torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -torch.inf))
 
-    return block_ll, bs
+class LowRankBlock:
+    """A Woodbury block's predict: ``predict(x_safe)`` gives ``(gp_mean,
+    var, kdiag)`` as :meth:`..models.emulator.Emulator.predict_pc_parts_fastgrad`
+    does; :func:`woodbury_blocks` evaluates the blocks' epilogue."""
+
+    def __init__(self, predict):
+        self.predict = predict
+
+
+def _lowrank_library(bs, gp_mean, var, kdiag):
+    """One block's lp (m,) through the library's factor, plain autograd."""
+    v = var if kdiag is None else torch.clamp(kdiag[None, :] - var, min=0.0)
+    d = gp_mean - bs["p0"]
+    quad, logdet_b = spd_qform_logdet(bs["m_inv"] + torch.diag_embed(v), d)
+    lp = -0.5 * (quad + bs["const2"]) - 0.5 * (bs["logdet_c0_m"] + logdet_b)
+    return torch.where(torch.isfinite(lp), lp, torch.full_like(lp, -torch.inf))
+
+
+def woodbury_blocks(states, preds):
+    """Every Woodbury block's lp at once: ``((m, nb), fused)``.  ``preds``
+    are the blocks' ``(gp_mean, var, kdiag)``.  A float32 CUDA call whose
+    every block has at most ``fused_woodbury.MAX_K`` PCs runs the fused
+    kernels (``fused`` True: one forward launch, one backward); any other
+    call takes the library's factor block by block, as before the kernels
+    (CPU and float64 callers keep its values and gradients bit for bit)."""
+    mean0 = preds[0][0]
+    with span("hic.woodbury"):
+        if fused_woodbury.takes_kernel(mean0.device, mean0.dtype,
+                                       [p[0].shape[-1] for p in preds]):
+            means, vars_, kdiags = zip(*preds)
+            return fused_woodbury.fused_woodbury(states, means, vars_, kdiags), True
+        return torch.stack([_lowrank_library(bs, *p) for bs, p in zip(states, preds)], 1), False
 
 
 def make_diag_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
@@ -358,11 +386,30 @@ class Chain:
                 return mean, cov
 
         def loglike_core_blocked(state, x):
-            """Likelihood factorized over per-emulator covariance blocks."""
+            """Likelihood factorized over per-emulator covariance blocks: each
+            block's predict in block order (a diagonal or dense block's whole
+            likelihood), then every Woodbury block's epilogue at once."""
             x_safe = torch.clamp(x, state["lo"], state["hi"])
-            ll = torch.zeros((x.shape[0],), dtype=dtype, device=x.device)
+            terms, preds, lowrank = [], [], []
             for fn, bs in zip(block_fns, state["blocks"]):
-                ll = ll + fn(bs, x_safe)
+                if isinstance(fn, LowRankBlock):
+                    preds.append(fn.predict(x_safe))
+                    lowrank.append(bs)
+                    terms.append(None)
+                else:
+                    terms.append(fn(bs, x_safe))
+            ll = None
+            if preds:
+                lp_low, fused = woodbury_blocks(lowrank, preds)
+                if fused:  # the kernels' blocks in one reduction
+                    ll, terms = lp_low.sum(1), [t for t in terms if t is not None]
+                else:      # the library route keeps its sum in block order
+                    cols = iter(lp_low.unbind(1))
+                    terms = [next(cols) if t is None else t for t in terms]
+            if ll is None:
+                ll = torch.zeros((x.shape[0],), dtype=dtype, device=x.device)
+            for t in terms:
+                ll = ll + t
             return ll + _EXTRA_STD_CONST
 
         def loglike_core_stitched(state, x):

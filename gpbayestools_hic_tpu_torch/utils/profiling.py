@@ -19,7 +19,8 @@ names and where they are recorded:
 - ``hic.predict``: an emulator's GP predict, fused or plain (``models/emulator.py``);
 - ``hic.predict_bwd``: the predict's hand-written backward
   (``ops/fused_predict.py``, ``models/gp.py``);
-- ``hic.woodbury``: the PC-space Woodbury epilogue (``samplers/chain.py``);
+- ``hic.woodbury``: the PC-space Woodbury epilogue of every low-rank block
+  of a posterior call, once a call (``samplers/chain.py``);
 - ``hic.assembly``: the PC-to-observable mean and covariance and their
   stitching (``models/emulator.py``, ``samplers/chain.py``);
 - ``hic.mvn``: the dense MVN log-likelihood (``ops/fused_mvn.py``);

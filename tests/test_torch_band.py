@@ -291,7 +291,7 @@ def test_woodbury_block_with_many_pcs():
     nine PCSK heads on the H100)."""
     from types import SimpleNamespace
 
-    from gpbayestools_hic_tpu_torch.samplers.chain import make_lowrank_block
+    from gpbayestools_hic_tpu_torch.samplers.chain import make_lowrank_block, woodbury_blocks
 
     rng = np.random.default_rng(0)
     n, nobs, npc, m = 300, 170, 60, 64
@@ -312,8 +312,8 @@ def test_woodbury_block_with_many_pcs():
         def lowrank_parts(self):
             return a, cov_trunc
 
-        def predict_pc_raw_fastgrad(self, x):
-            return torch.tensor(gm, dtype=x.dtype), torch.tensor(v, dtype=x.dtype)
+        def predict_pc_parts_fastgrad(self, x):
+            return torch.tensor(gm, dtype=x.dtype), torch.tensor(v, dtype=x.dtype), None
 
     want = []
     for i in range(m):
@@ -321,6 +321,7 @@ def test_woodbury_block_with_many_pcs():
         w = np.linalg.solve(chol, gm[i] @ a + mu - exp_mean)
         want.append(-0.5 * w @ w - np.log(np.diag(chol)).sum())
     for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 5e-4)):
-        fn, bs = make_lowrank_block(Head(), exp_mean, exp_var, dtype, torch.device("cpu"))
-        got = fn(bs, torch.zeros(m, 1, dtype=dtype)).double().numpy()
+        blk, bs = make_lowrank_block(Head(), exp_mean, exp_var, dtype, torch.device("cpu"))
+        lp, _ = woodbury_blocks((bs,), (blk.predict(torch.zeros(m, 1, dtype=dtype)),))
+        got = lp[:, 0].double().numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=str(dtype))
