@@ -368,18 +368,24 @@ class Emulator:
             return gp_mean, q
         return gp_mean, torch.clamp(kdiag[None, :] - q, min=0.0)
 
+    def pc_to_obs_mean(self, gp_mean: torch.Tensor) -> torch.Tensor:
+        """The PC-to-observable mean map: GP means (m, npc) -> observables
+        (m, nobs), before any ``exp_and_cov_diagonal`` exponential."""
+        if self.perform_no_PCA_:
+            return gp_mean * self._scaler_scale + self._scaler_mean
+        return gp_mean @ self._trans_t + self._scaler_mean
+
     def _predict_full(self, x: torch.Tensor, extra_std: torch.Tensor):
         """(m, d) -> mean (m, nobs), covariance (m, nobs, nobs)."""
         gp_mean, gp_var = self._gp_pc(x)
         with span("hic.assembly"):
             gp_var = gp_var + extra_std[:, None] ** 2
+            mean = self.pc_to_obs_mean(gp_mean)
             if self.perform_no_PCA_:
                 # the variance is de-standardized consistently with the mean
                 # (deliberate divergence from the reference's unit mismatch)
-                mean = gp_mean * self._scaler_scale + self._scaler_mean
                 cov = torch.diag_embed(gp_var * self._scaler_scale**2)
             else:
-                mean = gp_mean @ self._trans_t + self._scaler_mean
                 cov = (gp_var @ self._var_trans_t).reshape(-1, self.nobs, self.nobs)
                 cov = cov + self._cov_trunc_t
             if self.exp_and_cov_diagonal_:
@@ -388,25 +394,15 @@ class Emulator:
                 cov = torch.diag_embed((fstd * mean) ** 2)
             return mean, cov
 
-    def _pc_core(self, x: torch.Tensor, fast_grad: bool, raw: bool):
-        gp_mean, gp_var = self._gp_pc(x, fast_grad)
-        if raw:
-            return gp_mean, gp_var
-        if self.perform_no_PCA_:
-            mean = gp_mean * self._scaler_scale + self._scaler_mean
-        else:
-            mean = gp_mean @ self._trans_t + self._scaler_mean
-        return mean, gp_var
-
     def predict_pc_raw(self, x: torch.Tensor):
         """Whitened PC-space GP outputs (gp_mean (m, npc), gp_var (m, npc))."""
-        return self._pc_core(x, fast_grad=False, raw=True)
+        return self._gp_pc(x)
 
     def predict_pc_raw_fastgrad(self, x: torch.Tensor):
         """Same values as :meth:`predict_pc_raw`; cheap reverse-mode gradient
         (the fused kernels for a float32 RBF or Matern-1.5 emulator).  Reverse
         mode only."""
-        return self._pc_core(x, fast_grad=True, raw=True)
+        return self._gp_pc(x, fast_grad=True)
 
     def predict_pc_parts_fastgrad(self, x: torch.Tensor):
         """:meth:`predict_pc_raw_fastgrad` before its variance epilogue:
@@ -417,7 +413,8 @@ class Emulator:
 
     def predict_diag(self, x: torch.Tensor):
         """(mean (m, nobs), diagonal of the covariance (m, nobs))."""
-        mean, gp_var = self._pc_core(x, fast_grad=False, raw=False)
+        gp_mean, gp_var = self._gp_pc(x)
+        mean = self.pc_to_obs_mean(gp_mean)
         if self.perform_no_PCA_:
             var = gp_var * self._scaler_scale**2
         else:

@@ -93,9 +93,11 @@ def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
     form); B is well conditioned (v >= 0 on SPD M^-1), needs no square
     root of v, and M^-1, log det M come from the host in float64.
 
-    Returns ``(LowRankBlock, bs)``: the block's predict, kept apart from its
-    epilogue so that a posterior call evaluates every block's epilogue at
-    once (:func:`woodbury_blocks`), and its state.
+    Returns ``(predict, bs)``: the block's predict (``predict(x_safe)``
+    gives ``(gp_mean, var, kdiag)`` as :meth:`..models.emulator.Emulator.
+    predict_pc_parts_fastgrad` does), kept apart from its epilogue so that a
+    posterior call evaluates every block's epilogue at once
+    (:func:`woodbury_blocks`), and its state.
     """
     a_mat, cov_trunc = e.lowrank_parts()
     a64 = np.asarray(a_mat, dtype=np.float64)
@@ -120,16 +122,7 @@ def make_lowrank_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
         "p0": t(p0), "m_inv": t(0.5 * (m_inv + m_inv.T)), "const2": t(const2),
         "logdet_c0_m": t(logdet_c0 + 2.0 * np.sum(np.log(np.diag(m_chol)))),
     }
-    return LowRankBlock(e.predict_pc_parts_fastgrad), bs
-
-
-class LowRankBlock:
-    """A Woodbury block's predict: ``predict(x_safe)`` gives ``(gp_mean,
-    var, kdiag)`` as :meth:`..models.emulator.Emulator.predict_pc_parts_fastgrad`
-    does; :func:`woodbury_blocks` evaluates the blocks' epilogue."""
-
-    def __init__(self, predict):
-        self.predict = predict
+    return e.predict_pc_parts_fastgrad, bs
 
 
 def _lowrank_library(bs, gp_mean, var, kdiag):
@@ -142,19 +135,19 @@ def _lowrank_library(bs, gp_mean, var, kdiag):
 
 
 def woodbury_blocks(states, preds):
-    """Every Woodbury block's lp at once: ``((m, nb), fused)``.  ``preds``
-    are the blocks' ``(gp_mean, var, kdiag)``.  A float32 CUDA call whose
-    every block has at most ``fused_woodbury.MAX_K`` PCs runs the fused
-    kernels (``fused`` True: one forward launch, one backward); any other
-    call takes the library's factor block by block, as before the kernels
-    (CPU and float64 callers keep its values and gradients bit for bit)."""
+    """Every Woodbury block's lp at once, (m, nb).  ``preds`` are the
+    blocks' ``(gp_mean, var, kdiag)``.  A float32 CUDA call whose every
+    block has at most ``fused_woodbury.MAX_K`` PCs runs the fused kernels
+    (one forward launch, one backward); any other call takes the library's
+    factor block by block (each column and its gradient bit for bit
+    :func:`_lowrank_library`'s)."""
     mean0 = preds[0][0]
     with span("hic.woodbury"):
         if fused_woodbury.takes_kernel(mean0.device, mean0.dtype,
                                        [p[0].shape[-1] for p in preds]):
             means, vars_, kdiags = zip(*preds)
-            return fused_woodbury.fused_woodbury(states, means, vars_, kdiags), True
-        return torch.stack([_lowrank_library(bs, *p) for bs, p in zip(states, preds)], 1), False
+            return fused_woodbury.fused_woodbury(states, means, vars_, kdiags)
+        return torch.stack([_lowrank_library(bs, *p) for bs, p in zip(states, preds)], 1)
 
 
 def make_diag_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
@@ -192,13 +185,14 @@ def make_cholesky_block(e, exp_mean: np.ndarray, exp_var: np.ndarray,
     return block_ll, bs
 
 
-def pick_block(e, *args):
-    """The cheapest exact block for emulator ``e`` (``likelihood_mode="auto"``)."""
+def pick_block(e):
+    """The maker of the cheapest exact block for emulator ``e``
+    (``likelihood_mode="auto"``)."""
     if e.has_lowrank_cov:
-        return make_lowrank_block(e, *args)
+        return make_lowrank_block
     if e.perform_no_PCA_ or e.exp_and_cov_diagonal_:
-        return make_diag_block(e, *args)
-    return make_cholesky_block(e, *args)
+        return make_diag_block
+    return make_cholesky_block
 
 
 LIKELIHOOD_MODES = ("auto", "generic", "stitched")
@@ -352,12 +346,15 @@ class Chain:
 
         mode = self.likelihood_mode  # validated by the property setter
         use_stitched = (not exp_cov_is_diagonal) or mode == "stitched"
-        block_fns, block_states = [], []
+        # Blocks in block order; each Woodbury block's predict and each other
+        # block's likelihood, with its index there.
+        block_states, woodbury, others = [], [], []
         if not use_stitched:
-            maker = pick_block if mode == "auto" else make_cholesky_block
             for e, i0, i1 in zip(emus, offsets[:-1], offsets[1:]):
+                maker = pick_block(e) if mode == "auto" else make_cholesky_block
                 fn, bs = maker(e, expdata_np[i0:i1], exp_var_np[i0:i1], dtype, device)
-                block_fns.append(fn)
+                (woodbury if maker is make_lowrank_block else others).append(
+                    (len(block_states), fn))
                 block_states.append(bs)
 
         like_state = {
@@ -386,30 +383,18 @@ class Chain:
                 return mean, cov
 
         def loglike_core_blocked(state, x):
-            """Likelihood factorized over per-emulator covariance blocks: each
-            block's predict in block order (a diagonal or dense block's whole
-            likelihood), then every Woodbury block's epilogue at once."""
+            """Likelihood factorized over per-emulator covariance blocks: the
+            Woodbury blocks' predicts, their epilogues at once summed in one
+            reduction, then the other blocks' likelihoods in block order."""
             x_safe = torch.clamp(x, state["lo"], state["hi"])
-            terms, preds, lowrank = [], [], []
-            for fn, bs in zip(block_fns, state["blocks"]):
-                if isinstance(fn, LowRankBlock):
-                    preds.append(fn.predict(x_safe))
-                    lowrank.append(bs)
-                    terms.append(None)
-                else:
-                    terms.append(fn(bs, x_safe))
-            ll = None
-            if preds:
-                lp_low, fused = woodbury_blocks(lowrank, preds)
-                if fused:  # the kernels' blocks in one reduction
-                    ll, terms = lp_low.sum(1), [t for t in terms if t is not None]
-                else:      # the library route keeps its sum in block order
-                    cols = iter(lp_low.unbind(1))
-                    terms = [next(cols) if t is None else t for t in terms]
-            if ll is None:
+            blocks = state["blocks"]
+            if woodbury:
+                ll = woodbury_blocks([blocks[i] for i, _ in woodbury],
+                                     [predict(x_safe) for _, predict in woodbury]).sum(1)
+            else:
                 ll = torch.zeros((x.shape[0],), dtype=dtype, device=x.device)
-            for t in terms:
-                ll = ll + t
+            for i, block_ll in others:
+                ll = ll + block_ll(blocks[i], x_safe)
             return ll + _EXTRA_STD_CONST
 
         def loglike_core_stitched(state, x):

@@ -4,9 +4,10 @@ port of the JAX package's ``utils/sensitivity.py``).
 The normalized response matrix ``S[j, d] = d ln Y_j / d ln theta_d``:
 
 - :func:`sensitivity_matrix` -- exact, forward-mode autodiff
-  (``torch.func.jacfwd``) through the emulator's plain predict core on its
-  device.  The plain core, not the fused one: the fused predict is an
-  ``autograd.Function`` with a reverse-mode rule only;
+  (``torch.func.jacfwd``) through the emulator's plain GP predict and its
+  PC-to-observable mean map on its device.  The plain predict, not the
+  fused one: the fused predict is an ``autograd.Function`` with a
+  reverse-mode rule only;
 - :func:`sensitivity_matrix_fd` -- central differences with ``h =
   rel_step * theta``, for cross-checking.
 """
@@ -24,8 +25,8 @@ def sensitivity_matrix(emulator, theta: np.ndarray) -> np.ndarray:
                               dtype=emulator._dtype, device=emulator.device)
 
     def mean_fn(t):
-        mean, _ = emulator._pc_core(t[None, :], fast_grad=False, raw=False)
-        return mean[0]
+        gp_mean, _ = emulator.predict_pc_raw(t[None, :])
+        return emulator.pc_to_obs_mean(gp_mean)[0]
 
     jac = torch.func.jacfwd(mean_fn)(theta_t)          # (nobs, ndim)
     if getattr(emulator, "logTrafo_", False):

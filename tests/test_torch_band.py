@@ -321,7 +321,7 @@ def test_woodbury_block_with_many_pcs():
         w = np.linalg.solve(chol, gm[i] @ a + mu - exp_mean)
         want.append(-0.5 * w @ w - np.log(np.diag(chol)).sum())
     for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 5e-4)):
-        blk, bs = make_lowrank_block(Head(), exp_mean, exp_var, dtype, torch.device("cpu"))
-        lp, _ = woodbury_blocks((bs,), (blk.predict(torch.zeros(m, 1, dtype=dtype)),))
+        predict, bs = make_lowrank_block(Head(), exp_mean, exp_var, dtype, torch.device("cpu"))
+        lp = woodbury_blocks((bs,), (predict(torch.zeros(m, 1, dtype=dtype)),))
         got = lp[:, 0].double().numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=str(dtype))

@@ -263,8 +263,8 @@ def test_cuda_dense_posterior_launches_one_forward_per_emulator(card_chain, mode
 
 def test_cuda_recorded_gradient_keeps_the_plain_route(card_chain):
     """Queries that record a gradient (and a ``jacfwd`` through the plain
-    core) launch no predict kernel, and ``_predict_full`` equals the plain
-    assembly bit for bit."""
+    predict and the mean map) launch no predict kernel, and
+    ``_predict_full`` equals the plain assembly bit for bit."""
     from gpbayestools_hic_tpu_torch.utils.sensitivity import sensitivity_matrix
 
     x = torch.as_tensor(card_chain.random_pos(37, seed=9), dtype=torch.float32,
@@ -282,7 +282,7 @@ def test_cuda_recorded_gradient_keeps_the_plain_route(card_chain):
     theta = torch.as_tensor(card_chain.random_pos(1, seed=10)[0], dtype=torch.float32,
                             device="cuda")
     before = dict(LAUNCH_COUNTS)
-    jac = torch.func.jacfwd(lambda t: e._pc_core(t[None], fast_grad=False, raw=False)[0][0])(theta)
+    jac = torch.func.jacfwd(lambda t: e.pc_to_obs_mean(e.predict_pc_raw(t[None])[0])[0])(theta)
     assert dict(LAUNCH_COUNTS) == before and torch.isfinite(jac).all()
     # sensitivity_matrix: the Jacobian on the plain route, the mean (no
     # derivative) on the fused forward

@@ -2,9 +2,9 @@
 
 The CPU tests hold the closed form (value, alpha = B^-1 d, diag(B^-1) and
 the backward) against autograd through the library's factor in float64,
-the route, and the posterior's library route bit for bit.  The card tests
-(skipped without a CUDA device; the kernels have no CPU mode) hold the
-kernels against the library's factor in float64.  The file imports neither
+the route, and the posterior's one summation order bit for bit.  The card
+tests (skipped without a CUDA device; the kernels have no CPU mode) hold
+the kernels against the library's factor in float64.  The file imports neither
 JAX nor the JAX package; on a machine with only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fused_woodbury.py
@@ -131,16 +131,16 @@ def test_the_route_follows_device_dtype_and_the_largest_k(device, dtype, ks, exp
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kdiag", [False, True])
 def test_cpu_takes_the_library_bit_for_bit(dtype, kdiag):
-    """woodbury_blocks on the CPU: the library route (not fused), each
-    column and each gradient bit for bit the per-block library loop, in
-    one hic.woodbury call over ragged blocks."""
+    """woodbury_blocks on the CPU: the library route, each column and each
+    gradient bit for bit the per-block library loop, in one hic.woodbury
+    call over ragged blocks."""
     m, ks = 19, [4, 11, 2]
     blocks = [_cast(*_block(k, m, seed=10 + k, kdiag=kdiag), dtype=dtype) for k in ks]
     states = [b[0] for b in blocks]
     leaves = [(b[1].clone().requires_grad_(True), b[2].clone().requires_grad_(True), b[3])
               for b in blocks]
-    lp, fused = chain_mod.woodbury_blocks(states, leaves)
-    assert not fused and lp.shape == (m, len(ks)) and lp.dtype == dtype
+    lp = chain_mod.woodbury_blocks(states, leaves)
+    assert lp.shape == (m, len(ks)) and lp.dtype == dtype
     grads = torch.autograd.grad(lp.sum(1).sum(), [t for lf in leaves for t in lf[:2]])
     for j, (bs, mean, var, kd) in enumerate(blocks):
         want, gm, gv = _library_grad(bs, mean, var, kd, torch.ones(m, dtype=dtype))
@@ -149,47 +149,49 @@ def test_cpu_takes_the_library_bit_for_bit(dtype, kdiag):
 
 
 @pytest.fixture(scope="module")
-def mixed_chain(tmp_path_factory):
-    """A small CPU chain, float64: three PCA emulators, the middle one
-    turned into a diagonal block (exp_and_cov_diagonal)."""
+def three_block_chain(tmp_path_factory):
+    """Build a small CPU chain, float64, of three PCA emulators; the test
+    turns one of them into a diagonal block (exp_and_cov_diagonal)."""
     from gpbayestools_hic_tpu_torch.utils.synthetic import build_synthetic_chain
 
     ch, _ = build_synthetic_chain(nev=40, ndim=3, nobs_blocks=(6, 8, 5), npc=3, gp_maxiter=0,
                                   seed=4, tmpdir=str(tmp_path_factory.mktemp("mixed")),
                                   device="cpu", dtype=torch.float64)
-    ch.emuList[1].exp_and_cov_diagonal_ = True
-    ch._device_fns = None
     return ch
 
 
-def test_blocked_likelihood_with_mixed_blocks_gives_todays_values(mixed_chain):
-    """The posterior over low-rank, diagonal, low-rank blocks equals the
-    per-block sum in block order (what it was before the fused op) bit for
-    bit, value and gradient."""
-    ch = mixed_chain
+@pytest.mark.parametrize("diag_at", [1, 0], ids=["lowrank-diag-lowrank", "diag-lowrank-lowrank"])
+def test_blocked_likelihood_sums_woodbury_columns_then_other_blocks(three_block_chain, diag_at):
+    """The posterior over mixed blocks is, bit for bit in value and
+    gradient, the Woodbury blocks' library columns summed in one reduction,
+    plus the diagonal block's likelihood, wherever that block sits."""
+    ch = three_block_chain
+    for i, e in enumerate(ch.emuList):
+        e.exp_and_cov_diagonal_ = i == diag_at
+    ch._device_fns = None
     fn, st = ch.posterior_with_state()
-    kinds = [set(b) for b in st["blocks"]]
-    assert "p0" in kinds[0] and "exp_var_block" in kinds[1] and "p0" in kinds[2]
+    kinds = ["p0" if "p0" in b else "diag" for b in st["blocks"]]
+    assert kinds == ["diag" if i == diag_at else "p0" for i in range(3)]
+    assert "exp_var_block" in st["blocks"][diag_at]
     x = torch.tensor(ch.random_pos(17, seed=5), requires_grad=True)
     lp = fn(st, x)
     g, = torch.autograd.grad(lp.sum(), x)
 
     xw = x.detach().clone().requires_grad_(True)
     xs = torch.clamp(xw, st["lo"], st["hi"])
-    ll = torch.zeros(17, dtype=torch.float64)
-    for e, bs in zip(ch.emuList, st["blocks"]):
-        if "p0" in bs:
-            ll = ll + chain_mod._lowrank_library(bs, *e.predict_pc_parts_fastgrad(xs))
-        else:
-            mean, var = e.predict_diag(xs)
-            ll = ll + chain_mod.mvn_loglike_diagcov_batch(mean - bs["exp_block"],
-                                                          var + bs["exp_var_block"])
+    pairs = list(zip(ch.emuList, st["blocks"]))
+    cols = [chain_mod._lowrank_library(bs, *e.predict_pc_parts_fastgrad(xs))
+            for e, bs in pairs if "p0" in bs]
+    (e, bs), = [(e, bs) for e, bs in pairs if "p0" not in bs]
+    mean, var = e.predict_diag(xs)
+    diag = chain_mod.mvn_loglike_diagcov_batch(mean - bs["exp_block"], var + bs["exp_var_block"])
+    ll = torch.stack(cols, 1).sum(1) + diag
     inside = ((xw > st["lo"]) & (xw < st["hi"])).all(1)
     want = torch.where(inside, ll + chain_mod._EXTRA_STD_CONST, torch.full_like(ll, -torch.inf))
     want_g, = torch.autograd.grad(want.sum(), xw)
     assert torch.isfinite(lp).all()
     assert torch.equal(lp.detach(), want.detach())
-    assert torch.allclose(g, want_g, rtol=1e-12, atol=0)
+    assert torch.equal(g, want_g)
 
 
 def test_block_table_layout():
