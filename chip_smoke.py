@@ -38,11 +38,10 @@ It imports nothing of JAX or the JAX package.  In order it
    the MVN elimination on the path's own covariances at every flagship
    block size, n = 170, 73, 12, 28, 21 and 14, at b = 1024 and at a
    half-ensemble of 512 (the shared-memory route: its warp kernel to
-   n = 32, its block kernel past it), stitched (512, 544) (the cluster
-   route, with its
-   cluster size, panel width and the clusters the card places) and, for
-   the wide route ("panel"), 16 stitched matrices grown to the cluster
-   route's largest n + 1, one non-PD matrix planted in each batch (the MVN
+   n = 32, its block kernel past it), stitched (512, 544) and 16 stitched
+   matrices grown to n = 767 (the wide route, "panel", with its cluster
+   size, panel width and the clusters the card places), one non-PD
+   matrix planted in each batch (the MVN
    kernel timed by replaying a CUDA graph of its launches, so that the
    host's enqueue stays out of the measured time); and the fused Woodbury
    epilogue (``woodbury_phase``) at the HMC cells' ranks (9 x 4, and
@@ -63,7 +62,7 @@ It imports nothing of JAX or the JAX package.  In order it
       walkers, 32 burn-in + 64 production steps);
    c. ``"stitched"``: the log-posterior against the gate and the generic
       value, then a short ``run_mcmc`` (8 + 8 steps), through the MVN
-      kernel's cluster route;
+      kernel's wide route;
    d. HMC with ``grad_precision="high"`` (256 walkers, the seed and steps
       of the 256-walker run of a); the default's mean acceptance may not
       fall more than 0.10 below it;
@@ -134,8 +133,7 @@ It imports nothing of JAX or the JAX package.  In order it
    to keep the run's time):
    e. ``"stitched-wide+ensemble"``: the stitched log-posterior on 1024
       walkers against the gate, then ``run_mcmc`` (1024 walkers, 4 + 4
-      steps); it must launch the wide route at (512, 1088) and never the
-      cluster route;
+      steps); it must launch the wide route at (512, 1088);
 6. frees that chain and drives a ninth path, i. ``analysis``, the
    analysis toolkit as one workflow at the flagship's widths (d = 17,
    n = 1000, the nine observable blocks), between a reset and a reading
@@ -208,6 +206,7 @@ STITCHED_STEPS = 8     # stitched-mode ensemble run: 8 burn-in + 8 steps
 WIDE_BLOCKS = BLOCKS + BLOCKS  # two collision systems of the flagship's size: 1088 observables
 WIDE_STEPS = 4         # stitched-wide ensemble run: 4 burn-in + 4 steps
 WIDE_PLAIN = 16        # matrices of the (512, 1088) batch held against the float32 plain loop
+GROWN_N = 767          # 16 stitched matrices grown to this n: the wide route at small b
 HIGH_WALKERS = 256     # HMC with grad_precision="high"
 HIGH_BURN = 8
 HIGH_STEPS = 16
@@ -622,20 +621,26 @@ def sass_evidence() -> str:
     """Hopper instructions in the built libraries' SASS, per kernel
     (``cuobjdump -sass``, where the toolkit has it): the predict kernels'
     products (the forward's and both backwards') should hold HGMMA (wgmma)
-    and UTMALDG (TMA loads) and no HMMA (mma.sync); the MVN route's two
-    kernels hold none of them (FP32 FMA).  Evidence printed, not a gate."""
+    and UTMALDG (TMA loads) and no HMMA (mma.sync); the shared-memory MVN
+    route's two kernels hold none of them (FP32 FMA); the wide MVN route's
+    trailing update runs on the tensor cores (HMMA).  Evidence printed; one
+    gate: ``mvn_wide_kernel``, the stitched likelihood's MVN, must hold
+    tensor-core instructions (HMMA or HGMMA), and the run fails where they
+    cannot be counted (no ``cuobjdump`` beside nvcc or on the PATH)."""
     from gpbayestools_hic_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
     if tool is None:
-        return "SASS: cuobjdump not found; not read"
+        raise SystemExit("SASS: cuobjdump not found beside nvcc or on the PATH; the wide MVN "
+                         "kernel's tensor-core instructions cannot be counted")
     counts = {}
     for lib, kernels in (
             ("fused_predict", r"(kstar_kernel|fwd_wgmma_kernel|bwd_wgmma_kernel|bwd_high_kernel|"
                               r"rowsum_kernel)(I(?:L[ib]\d+E)+E)?"),
-            ("fused_mvn", r"(mvn_warp_kernel|mvn_smem_kernel)(I(?:L[ib]\d+E)+E)?")):
+            ("fused_mvn", r"(mvn_warp_kernel|mvn_smem_kernel|mvn_wide_kernel)"
+                          r"(I(?:L[ib]\d+E)+E)?")):
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
                               capture_output=True, text=True).stdout
         for chunk in sass.split("Function : ")[1:]:
@@ -644,6 +649,9 @@ def sass_evidence() -> str:
                 continue
             counts[name.group(0)] = {op: len(re.findall(rf"\b{op}[.\s]", chunk))
                                      for op in ("HGMMA", "UTMALDG", "HMMA")}
+    wide = [c for name, c in counts.items() if name.startswith("mvn_wide_kernel")]
+    if not wide or any(c["HMMA"] + c["HGMMA"] == 0 for c in wide):
+        raise SystemExit(f"mvn_wide_kernel's SASS holds no tensor-core instruction: {counts}")
     return f"SASS ({tool} -sass), instructions per kernel: {counts}"
 
 
@@ -1044,25 +1052,22 @@ def mvn_phase(chain, device):
     """The MVN elimination against its plain version on the covariances the
     dense paths hand it: every flagship block size (SMEM_SIZES) at 1024
     walkers and at a half-ensemble of 512 (shared-memory route: its warp
-    kernel to n = 32, its block kernel past it), the stitched 544 x 544 matrix at a
-    half-ensemble of 512 (cluster route) and, for the panel route, 16
-    stitched matrices grown past the cluster route's largest n (each one
-    block-diagonal with a leading block of itself), one matrix of each
+    kernel to n = 32, its block kernel past it), the stitched 544 x 544
+    matrix at a half-ensemble of 512 and 16 stitched matrices grown to
+    n = 767 (each one block-diagonal with a leading block of itself; both
+    the wide route, "panel"), one matrix of each
     batch replaced by a non-PD one.  Each case goes through the wrapper's
     own choice of route, which must be the one named.  The kernel is timed
     by CUDA-graph replay (:func:`graph_ms`); the plain version and the
     library yardstick, the port's ``mvn_loglike_batch`` (``cholesky_ex`` +
     ``solve_triangular`` + reductions), with CUDA events around their eager
     calls."""
-    from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
-
     block_inputs = mvn_inputs(chain, device)
     stitched = stitched_inputs(chain, device, block_inputs)
     cases = tuple(("fused_mvn_loglike", block_inputs(BLOCKS.index(n), b), 9)
                   for b in (NWALKERS, NWALKERS // 2) for n in SMEM_SIZES) + (
-        ("fused_mvn_loglike_cluster", stitched(NWALKERS // 2), 4),
-        ("fused_mvn_loglike_panel",
-         grown_inputs(stitched, 16, fm.route_max_n("cluster") + 1), 4),
+        ("fused_mvn_loglike_panel", stitched(NWALKERS // 2), 4),
+        ("fused_mvn_loglike_panel", grown_inputs(stitched, 16, GROWN_N), 4),
     )
     return mvn_cases(cases, device)
 
@@ -1146,14 +1151,6 @@ def mvn_cases(cases, device, n_plain=None):
                 f"panel width {fm.smem_panel()}, warp kernel up to n = {fm.WARP_MAX_N}")
             blocked = (f"one warp per matrix up to n = {fm.WARP_MAX_N}, past it blocked, "
                        f"{fm.smem_panel()}-column panels in shared memory with look-ahead")
-        elif name == "fused_mvn_loglike_cluster":
-            info = fm.cluster_info(n)
-            log(f"occupancy {name} (n={n}): clusters of C = {info['c']} CTAs, panel width "
-                f"P = {info['p']}, {info['bytes']} B of shared memory per CTA, "
-                f"{info['active_clusters']} clusters placed at once "
-                f"(cudaOccupancyMaxActiveClusters)")
-            blocked = (f"blocked, {info['p']}-column panels, the matrix in the shared "
-                       f"memory of a {info['c']}-CTA cluster")
         else:
             info = fm.wide_info(b, n)
             log(f"occupancy {name} (b={b}, n={n}, {info['sms']} SMs): clusters of C = "
@@ -1496,7 +1493,7 @@ def drive_paths(chain, tmp, on_paths):
     paths = (
         ("auto+hmc", auto_hmc, ("fused_predict_fwd", "fused_predict_bwd") + WOODBURY),
         ("generic+ensemble", generic, ("fused_predict_fwd", "fused_mvn_loglike")),
-        ("stitched+ensemble", stitched, ("fused_predict_fwd", "fused_mvn_loglike_cluster")),
+        ("stitched+ensemble", stitched, ("fused_predict_fwd", "fused_mvn_loglike_panel")),
         ("hmc grad_precision=high", hmc_high,
          ("fused_predict_fwd", "fused_predict_bwd_high") + WOODBURY),
         ("hmc-auto-L+resume", hmc_auto, ("fused_predict_fwd", "fused_predict_bwd") + WOODBURY),
@@ -1535,7 +1532,7 @@ def drive_wide_path(chain, tmp):
     1088-observable chain on 1024 walkers within the gate of the float64
     oracle, then run_mcmc (1024 walkers, 4 + 4 steps).  It must launch the
     wide route at (512, 1088) (the batch shapes the kernel wrapper saw are
-    recorded) and never the cluster route."""
+    recorded)."""
     from gpbayestools_hic_tpu_torch.ops import fused_mvn as fm
     from gpbayestools_hic_tpu_torch.ops import registry
     from gpbayestools_hic_tpu_torch.utils.validation import f64_log_posterior
@@ -1566,8 +1563,6 @@ def drive_wide_path(chain, tmp):
     if counts["fused_mvn_loglike_panel"] == 0 or (NWALKERS // 2, chain.nobs) not in shapes:
         raise SystemExit(f"path {name} never launched the wide route at "
                          f"({NWALKERS // 2}, {chain.nobs})")
-    if counts["fused_mvn_loglike_cluster"] != 0:
-        raise SystemExit(f"path {name} launched the cluster route")
     return {name: counts}
 
 
@@ -2422,8 +2417,9 @@ def main() -> int:
             f"observables; emulator set-up {train_s:.2f} s (total "
             f"{time.perf_counter() - t0:.2f} s)")
         flagship_wide = stats.pop("fused_mvn_loglike_panel")
+        flagship_also = flagship_wide.pop("also", [])
         stats.update(wide_mvn_phase(wide, device))
-        stats["fused_mvn_loglike_panel"]["also"].insert(0, flagship_wide)
+        stats["fused_mvn_loglike_panel"]["also"][:0] = [flagship_wide, *flagship_also]
         counts.update(drive_wide_path(wide, tmp))
         del wide
         gc.collect()

@@ -31,25 +31,20 @@ the whole matrix), FP32-class arithmetic throughout, and are chosen from
   cov's lower triangle and y are read once; three blocks share an SM at
   n = 170.  Bound by FP32 operations at n = 170 (by bytes at the small
   flagship blocks).
-- ``fused_mvn_loglike_cluster`` (up to n = 766, the stitched 544 x 544
-  matrix): one thread-block cluster of C CTAs per matrix (C the smallest
-  of 2 .. 8 whose shared memory holds it: 4 at n = 544), the rows dealt
-  out block-cyclically in 16-row blocks, each CTA's rows packed in its own
-  shared memory; the diagonal block and each panel's Cholesky rows reach
-  the other CTAs through distributed shared memory, two cluster barriers
-  per panel.  cov is read once and nothing but the output is allocated.
-  :func:`cluster_layout` mirrors the kernel's layout.
-- ``fused_mvn_loglike_panel`` (the wide route, every n past the cluster
-  route's largest): the trailing matrix in a scratch copy in device
+- ``fused_mvn_loglike_panel`` (the wide route, every n past the
+  shared-memory route's largest: 320 and up, the stitched 544 x 544
+  matrix among them): the trailing matrix in a scratch copy in device
   memory that the wrapper allocates, one thread-block cluster of
   C = 1 .. 8 CTAs per matrix (more at small b, to fill the card),
   64-column panels: every CTA factors the panel's 64 x 64 diagonal block
-  in the cluster route's 16-column steps, the rows below stream through
-  shared memory in chunks dealt out over the cluster, then one trailing
-  update per panel in 64 x 64 tiles over the cluster, the product in
-  3xTF32 on the tensor cores (FP32 promotion per 8-wide step).  Its
-  shared memory does not grow with n.  :func:`wide_layout` mirrors the
-  kernel's layout.
+  in 16-column steps, the rows below stream through shared memory in
+  chunks dealt out over the cluster, then one trailing update per panel
+  in 64 x 64 tiles over the cluster, the product in 3xTF32 on the tensor
+  cores (FP32 promotion per 8-wide step).  Its shared memory does not
+  grow with n.  :func:`wide_layout` mirrors the kernel's layout.  At
+  n = 544 it holds 264 matrices at once (one CTA each, two per SM);
+  a matrix held whole in the shared memory of a 4-CTA cluster was slower
+  there at every b >= 512 (PERF.md).
 
 As in the JAX ``mvn_loglike_best``, which sends every float32 call on the
 TPU to its kernel, :func:`mvn_loglike_best` sends every float32 CUDA batch
@@ -80,11 +75,10 @@ from .registry import count_launch, raise_on, register
 _SOURCE = "gpbayestools_hic_tpu_torch/csrc/fused_mvn.cu"
 _REPLACES = "gpbayestools_hic_tpu/ops/pallas_mvn.py:61"  # _mvn_kernel
 register("fused_mvn_loglike", _SOURCE, _REPLACES)
-register("fused_mvn_loglike_cluster", _SOURCE, _REPLACES)
 register("fused_mvn_loglike_panel", _SOURCE, _REPLACES)
 
 
-# ------------------------------------------- routes and the cluster layout
+# ---------------------------------------------- routes and the wide layout
 # Mirrors of the host functions of csrc/fused_mvn.cu (the CPU tests check
 # them; the on-card tests hold them against the built library, whose
 # numbers the wrapper dispatches by).
@@ -92,8 +86,6 @@ register("fused_mvn_loglike_panel", _SOURCE, _REPLACES)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 SMEM_PANEL = 16      # panel width of the shared-memory route
 WARP_MAX_N = 32      # largest n of the shared-memory route's warp kernel
-CLUSTER_PANEL = 16   # panel width = row-block height of the cluster route
-CLUSTER_MAX = 8      # largest cluster the cluster route uses
 WIDE_PANEL = 64      # panel width of the wide route ("panel")
 WIDE_STEP = 16       # factoring step = row-block height of the wide route
 WIDE_TILE = 64       # trailing-update tile of the wide route
@@ -116,42 +108,6 @@ def smem_bytes(n: int) -> int:
     """Shared memory of the shared-memory route at n (``smem_bytes``)."""
     p, ld = SMEM_PANEL, SMEM_PANEL + 4
     return 4 * (_align4(_tri(n + 1)) + (n + 1 + p) * ld + p + 1)
-
-
-def cluster_rows(n: int, c: int, p: int = CLUSTER_PANEL) -> list[list[int]]:
-    """Rows 0 .. n of the augmented matrix each rank of a c-CTA cluster
-    holds: row block [kp, kp + p) belongs to rank k mod c."""
-    return [[i for i in range(n + 1) if (i // p) % c == r] for r in range(c)]
-
-
-def cluster_bytes(n: int, c: int, p: int = CLUSTER_PANEL) -> int:
-    """Dynamic shared memory per CTA (``cluster_bytes``): the part every
-    rank keeps at the same offsets (the panel copy of n + 1 rows of p + 4
-    floats, two buffers of the diagonal block and its 1 / sqrt(p),
-    reduction slots and two flags), then the largest rank's row table and
-    packed rows."""
-    n1 = n + 1
-    common = n1 * (p + 4) + 2 * (p * (p + 4) + p) + _align4(CLUSTER_MAX + 3)
-    worst = max(_align4(len(rows)) + _align4(sum(i + 1 for i in rows))
-                for rows in cluster_rows(n, c, p))
-    return 4 * (common + worst)
-
-
-class ClusterLayout(NamedTuple):
-    c: int         # CTAs per cluster
-    p: int         # panel width and row-block height
-    bytes: int     # dynamic shared memory per CTA
-
-
-def cluster_layout(n: int) -> ClusterLayout:
-    """The cluster route's layout at n: the smallest cluster (2 .. 8 CTAs)
-    whose shared memory holds the matrix.  Raises past the route's
-    largest n."""
-    for c in range(2, CLUSTER_MAX + 1):
-        nbytes = cluster_bytes(n, c)
-        if nbytes <= SMEM_LIMIT:
-            return ClusterLayout(c, CLUSTER_PANEL, nbytes)
-    raise ValueError(f"no cluster of at most {CLUSTER_MAX} CTAs holds n = {n}")
 
 
 def wide_rows(n: int, c: int, c0: int = 0, p: int = WIDE_PANEL) -> list[list[int]]:
@@ -200,15 +156,12 @@ def wide_layout(b: int, n: int, sms: int) -> WideLayout:
 
 def route_limits() -> dict[str, tuple[int, int | None]]:
     """The n range of each route, as the wrapper picks them: smallest and
-    largest n (``fused_mvn_*_max_n``; None: the wide route takes every n
-    past the cluster route)."""
+    largest n (``fused_mvn_smem_max_n``; None: the wide route takes every
+    n past the shared-memory route)."""
     smem = 1
     while smem_bytes(smem + 1) <= SMEM_LIMIT:
         smem += 1
-    hi = smem
-    while cluster_bytes(hi + 1, CLUSTER_MAX) <= SMEM_LIMIT:
-        hi += 1
-    return {"smem": (1, smem), "cluster": (smem + 1, hi), "panel": (hi + 1, None)}
+    return {"smem": (1, smem), "panel": (smem + 1, None)}
 
 
 # ------------------------------------------------------------- plain version
@@ -248,21 +201,17 @@ def _lib():
     lib = load("fused_mvn")
     if not getattr(lib, "_gpbt_typed", False):
         for name in ("fused_mvn_smem_max_n", "fused_mvn_smem_panel",
-                     "fused_mvn_cluster_max_n", "fused_mvn_cluster_panel",
                      "fused_mvn_panel_width", "fused_mvn_panel_sms", "fused_mvn_panel_bytes"):
             getattr(lib, name).restype = _I
             getattr(lib, name).argtypes = []
-        for name in ("fused_mvn_smem_matrices_per_sm", "fused_mvn_cluster_size",
-                     "fused_mvn_cluster_bytes", "fused_mvn_cluster_active",
-                     "fused_mvn_panel_cluster", "fused_mvn_panel_ctas_per_sm",
-                     "fused_mvn_panel_active"):
+        for name in ("fused_mvn_smem_matrices_per_sm", "fused_mvn_panel_cluster",
+                     "fused_mvn_panel_ctas_per_sm", "fused_mvn_panel_active"):
             getattr(lib, name).restype = _I
             getattr(lib, name).argtypes = [_I]
         lib.fused_mvn_panel_scratch.restype = ctypes.c_longlong
         lib.fused_mvn_panel_scratch.argtypes = [_I]
-        for name in ("fused_mvn_loglike_smem", "fused_mvn_loglike_cluster"):
-            getattr(lib, name).restype = _I
-            getattr(lib, name).argtypes = [_P] * 3 + [_I] * 2 + [_P]
+        lib.fused_mvn_loglike_smem.restype = _I
+        lib.fused_mvn_loglike_smem.argtypes = [_P] * 3 + [_I] * 2 + [_P]
         lib.fused_mvn_loglike_panel.restype = _I
         lib.fused_mvn_loglike_panel.argtypes = [_P] * 4 + [_I] * 2 + [_P]
         lib._gpbt_typed = True
@@ -273,16 +222,14 @@ def _lib():
 #: largest n, None where the route takes every n)
 _ROUTES = {
     "smem": ("fused_mvn_loglike", "fused_mvn_loglike_smem", "fused_mvn_smem_max_n"),
-    "cluster": ("fused_mvn_loglike_cluster", "fused_mvn_loglike_cluster",
-                "fused_mvn_cluster_max_n"),
     "panel": ("fused_mvn_loglike_panel", "fused_mvn_loglike_panel", None),
 }
 
 
 def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> torch.Tensor:
     """Launch the elimination kernel.  The route follows n (smem up to its
-    largest n, then cluster, then the wide route ``"panel"``); ``route``
-    (``"smem"`` / ``"cluster"`` / ``"panel"``) forces one, for holding each
+    largest n, then the wide route ``"panel"``); ``route`` (``"smem"`` /
+    ``"panel"``) forces one, for holding each
     against the plain version at any n it takes (the wide route: every
     n).  A failed launch, or n past the route's largest, raises: no other
     route is tried."""
@@ -300,7 +247,7 @@ def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> t
     b, n = y.shape
     lib = _lib()
     if route is None:
-        route = next((r for r in ("smem", "cluster") if n <= route_max_n(r)), "panel")
+        route = "smem" if n <= route_max_n("smem") else "panel"
     if route not in _ROUTES:
         raise ValueError(f"unknown fused MVN route {route!r}")
     name, entry, _ = _ROUTES[route]
@@ -321,16 +268,6 @@ def _mvn_cuda(y: torch.Tensor, cov: torch.Tensor, route: str | None = None) -> t
     raise_on(err, f"{name} launch")
     count_launch(name, y.device)
     return out
-
-
-def cluster_info(n: int) -> dict[str, int]:
-    """The built cluster route at this n: CTAs per cluster, panel width,
-    shared memory per CTA, and the clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``); needs a CUDA machine."""
-    lib = _lib()
-    return {"c": lib.fused_mvn_cluster_size(int(n)), "p": lib.fused_mvn_cluster_panel(),
-            "bytes": lib.fused_mvn_cluster_bytes(int(n)),
-            "active_clusters": lib.fused_mvn_cluster_active(int(n))}
 
 
 def wide_info(b: int, n: int) -> dict[str, int]:

@@ -273,10 +273,8 @@ def _mvn_problem(dev, b, n, seed=0, bad=None):
 def _mvn_size(n):
     """A size of the MVN cases: an int, or one named by the shared-memory
     route's panel width P ("P-1", "P", "P+1", "2P+1") or its largest n
-    ("max"), by the cluster route's cluster size C and panel width at
-    n = 2P ("CP-1", "CP", "CP+1": a rank with one row block, or none) or
-    its largest n ("cmax"), or the wide route's ("panel") smallest n
-    ("pmin"), its panel width W ("W-1", "W", "W+1", "2W+1"), or where the
+    ("max"), or the wide route's ("panel") smallest n ("pmin"), its panel
+    width W ("W-1", "W", "W+1", "2W+1"), or where the
     rows below its first panel fill one chunk of WIDE_CHUNK rows exactly
     ("WK") or spill one row into a second ("WK+1"), read from the built
     library."""
@@ -289,12 +287,8 @@ def _mvn_size(n):
         k = w + fm.WIDE_CHUNK - 1  # rows w .. k: one chunk
         return {"W-1": w - 1, "W": w, "W+1": w + 1, "2W+1": 2 * w + 1, "WK": k,
                 "WK+1": k + 1}[n]
-    if n in ("cmax", "pmin"):
-        return fm.route_max_n("cluster") + (n == "pmin")
-    if n.startswith("CP"):
-        info = fm.cluster_info(2 * fm.cluster_info(1)["p"])
-        cp = info["c"] * info["p"]
-        return {"CP-1": cp - 1, "CP": cp, "CP+1": cp + 1}[n]
+    if n == "pmin":
+        return fm.smem_max_n() + 1
     p = fm.smem_panel()
     return {"P-1": p - 1, "P": p, "P+1": p + 1, "2P+1": 2 * p + 1}[n]
 
@@ -405,97 +399,10 @@ def test_cuda_mvn_smem_bad_pivots_in_every_slot(cuda_device, n, where):
         assert torch.equal(got[keep], clean[keep]), slot
 
 
-@pytest.mark.parametrize("b", [1, 3, 130])
-@pytest.mark.parametrize("n", [319, "CP-1", "CP", "CP+1", 440, 441, 544, "cmax"])
-def test_cuda_mvn_cluster_matches_plain(cuda_device, b, n):
-    """The cluster route (forced at n below its range too) against the
-    plain elimination and the library factorization, rtol 2e-4: n at the
-    edges of the rank blocks and of the cluster sizes, the stitched 544 and
-    the route's largest n; b = 130 is more than one round of clusters.
-    With three or more matrices, one non-PD matrix and one whose bad pivot
-    falls in the middle of the second panel give -inf there."""
-    n = _mvn_size(n)
-    y, cov = _mvn_problem(cuda_device, b, n, seed=n + b)
-    bads = []
-    if b >= 3:
-        bads = [b // 2, b // 2 + 1]
-        cov[bads[0]] = -torch.eye(n, device=cuda_device)
-        k = min(n - 1, fm.cluster_info(n)["p"] * 3 // 2)
-        cov[bads[1], k, k] = -1.0
-    before = LAUNCH_COUNTS["fused_mvn_loglike_cluster"]
-    got = fm._mvn_cuda(y, cov, route="cluster")
-    torch.cuda.synchronize()
-    assert LAUNCH_COUNTS["fused_mvn_loglike_cluster"] == before + 1
-    want = fm.fused_mvn_loglike_plain(y, cov)
-    lib = mvn_loglike_batch(y, cov)
-    for i in bads:
-        assert got[i] == -torch.inf and want[i] == -torch.inf
-    keep = torch.ones(b, dtype=torch.bool, device=cuda_device)
-    keep[bads] = False
-    assert torch.isfinite(got[keep]).all()
-    torch.testing.assert_close(got[keep], want[keep], rtol=2e-4, atol=0)
-    torch.testing.assert_close(got[keep], lib[keep], rtol=2e-4, atol=0)
-
-
-@pytest.mark.parametrize("n", [441, 544])
-def test_cuda_mvn_cluster_bad_pivots_in_every_rank(cuda_device, n):
-    """A bad pivot planted in the first panel, in a row block owned by each
-    rank of the cluster, and at the last pivot (one matrix each; the
-    pivots before it stay good): -inf there, and every other matrix keeps
-    exactly the value it has in a batch without bad pivots."""
-    info = fm.cluster_info(n)
-    c, p = info["c"], info["p"]
-    ks = [1] + [r * p + p // 2 for r in range(c)] + [n - 1]
-    b = len(ks) + 2
-    y, cov = _mvn_problem(cuda_device, b, n, seed=9)
-    clean = fm._mvn_cuda(y, cov, route="cluster")
-    for m, k in enumerate(ks):
-        cov[m, k, k] = -1.0
-    got = fm._mvn_cuda(y, cov, route="cluster")
-    want = fm.fused_mvn_loglike_plain(y, cov)
-    torch.cuda.synchronize()
-    for m in range(len(ks)):
-        assert got[m] == -torch.inf and want[m] == -torch.inf, ks[m]
-    assert torch.equal(got[len(ks):], clean[len(ks):])
-    assert torch.isfinite(clean).all()
-
-
-def test_cuda_mvn_cluster_layout_is_the_libraries(cuda_device):
-    """The built library's cluster sizes, panel width and shared memory per
-    CTA are cluster_layout's, and its route limits route_limits'; the card
-    places at least one cluster at every n the route takes."""
-    limits = fm.route_limits()
-    for route, (_, hi) in limits.items():
-        assert fm.route_max_n(route) == hi, route
-    lo, hi = limits["cluster"]
-    for n in sorted({1, 31, 32, 33, lo, 400, 439, 440, 441, 522, 523, 544, 600, hi}):
-        info, want = fm.cluster_info(n), fm.cluster_layout(n)
-        assert (info["c"], info["p"], info["bytes"]) == tuple(want), n
-        assert info["active_clusters"] >= 1, n
-    assert fm.cluster_info(hi + 1)["c"] == -1
-
-
-def test_cuda_mvn_cluster_allocates_only_its_output(cuda_device):
-    """The cluster route at the stitched half-ensemble (512, 544) allocates
-    its output and no scratch (the panel route allocated 608 MB)."""
-    y, cov = _mvn_problem(cuda_device, 512, 544, seed=1)
-    fm._mvn_cuda(y, cov)  # the library is built and loaded
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    before = LAUNCH_COUNTS["fused_mvn_loglike_cluster"]
-    out = fm._mvn_cuda(y, cov)
-    torch.cuda.synchronize()
-    assert LAUNCH_COUNTS["fused_mvn_loglike_cluster"] == before + 1
-    assert torch.cuda.max_memory_allocated() - base <= 4096, (
-        torch.cuda.max_memory_allocated() - base)
-    assert out.shape == (512,)
-
-
 def test_cuda_mvn_dispatch_and_gradient(cuda_device):
     """mvn_loglike_best on a float32 CUDA batch launches the kernel (the
-    route follows n: the shared-memory route at 20, the cluster route at
-    350, the panel route past the cluster route's largest n), float64
+    route follows n: the shared-memory route at 20, the wide route at 350
+    and from the shared-memory route's largest n + 1), float64
     takes the library path; the closed-form
     gradient matches autograd through the library path (rtol 1e-3, the JAX
     package's tolerance for its kernel's VJP) and is zero for the non-PD
@@ -510,8 +417,7 @@ def test_cuda_mvn_dispatch_and_gradient(cuda_device):
     y3, cov3 = _mvn_problem(cuda_device, 2, _mvn_size("pmin"), seed=5)
     fm.mvn_loglike_best(y3, cov3)
     assert LAUNCH_COUNTS["fused_mvn_loglike"] == before["fused_mvn_loglike"] + 1
-    assert LAUNCH_COUNTS["fused_mvn_loglike_cluster"] == before["fused_mvn_loglike_cluster"] + 1
-    assert LAUNCH_COUNTS["fused_mvn_loglike_panel"] == before["fused_mvn_loglike_panel"] + 1
+    assert LAUNCH_COUNTS["fused_mvn_loglike_panel"] == before["fused_mvn_loglike_panel"] + 2
     gy, gc = torch.autograd.grad(torch.where(torch.isfinite(lp), lp, 0.0).sum(), (ya, ca))
     yb, cb = y.clone().requires_grad_(True), cov.clone().requires_grad_(True)
     lpb = mvn_loglike_batch(yb, cb)
@@ -529,7 +435,7 @@ def test_cuda_mvn_rejects_wrong_inputs(cuda_device):
         fm._mvn_cuda(y, cov[:, :4, :4].contiguous())
     with pytest.raises(ValueError, match="n <="):
         fm._mvn_cuda(*_mvn_problem(cuda_device, 1, fm.smem_max_n() + 1), route="smem")
-    with pytest.raises(ValueError, match="n <="):
+    with pytest.raises(ValueError, match="unknown"):
         fm._mvn_cuda(*_mvn_problem(cuda_device, 1, _mvn_size("pmin")), route="cluster")
 
 
@@ -547,13 +453,16 @@ def _mvn_problem_dev(dev, b, n, seed=0):
 
 
 @pytest.mark.parametrize("b", [1, 16, 130])
-@pytest.mark.parametrize("n", [767, 1000, 1088, 1759, 1760, 2048])
+@pytest.mark.parametrize("n", ["pmin", 383, 384, 544, 687, 767, 1000, 1088, 1759, 1760, 2048])
 def test_cuda_mvn_wide_matches_plain_and_library(cuda_device, b, n):
-    """The wide route (route "panel") at the n it takes by default, on both
-    sides of the old route's cap (1759), against the plain elimination and
-    the library factorization, rtol 2e-4; with three or more matrices, one
+    """The wide route (route "panel") at the n it takes by default: from
+    its smallest (past the shared-memory route) and the stitched 544 up,
+    on both sides of the old route's cap (1759), against the plain
+    elimination and the library factorization, rtol 2e-4; with three or
+    more matrices, one
     non-PD matrix and one whose bad pivot falls inside the second panel
     give -inf there, and every other matrix is finite."""
+    n = _mvn_size(n)
     y, cov = _mvn_problem_dev(cuda_device, b, n, seed=n + b)
     bads = []
     if b >= 3:
@@ -576,6 +485,33 @@ def test_cuda_mvn_wide_matches_plain_and_library(cuda_device, b, n):
     torch.testing.assert_close(got[keep], lib[keep], rtol=2e-4, atol=0)
 
 
+def test_cuda_mvn_wide_at_the_stitched_half_ensemble(cuda_device):
+    """(2048, 544), the stitched likelihood of a half-ensemble of 4096
+    walkers, through the default route: one launch of the wide route,
+    within rtol 2e-4 of the library factorization and of the float64 one;
+    a non-PD matrix and one whose bad pivot falls inside a 16-column step
+    of the fifth panel give -inf there."""
+    b, n = 2048, 544
+    y, cov = _mvn_problem_dev(cuda_device, b, n, seed=2048)
+    bads = [b // 2, b - 1]
+    cov[bads[0]] = -torch.eye(n, device=cuda_device)
+    k = 4 * fm.wide_info(b, n)["p"] + 24
+    cov[bads[1], k, k] = -1.0
+    before = LAUNCH_COUNTS["fused_mvn_loglike_panel"]
+    got = fm.fused_mvn_loglike(y, cov)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["fused_mvn_loglike_panel"] == before + 1
+    lib = mvn_loglike_batch(y, cov)
+    want64 = mvn_loglike_batch(y.double(), cov.double())
+    for i in bads:
+        assert got[i] == -torch.inf and want64[i] == -torch.inf
+    keep = torch.ones(b, dtype=torch.bool, device=cuda_device)
+    keep[bads] = False
+    assert torch.isfinite(got[keep]).all()
+    torch.testing.assert_close(got[keep], lib[keep], rtol=2e-4, atol=0)
+    torch.testing.assert_close(got[keep].double(), want64[keep], rtol=2e-4, atol=0)
+
+
 def test_cuda_mvn_wide_at_4096(cuda_device):
     """n = 4096 (beyond the old cap by a factor 2.3) through the default
     route against the library factorization and the float64 elimination,
@@ -589,7 +525,8 @@ def test_cuda_mvn_wide_at_4096(cuda_device):
     torch.testing.assert_close(got.double(), want64, rtol=2e-4, atol=0)
 
 
-@pytest.mark.parametrize("b,n", [(16, 1088), (130, 1088), (512, 1088), (16, 2048)])
+@pytest.mark.parametrize("b,n", [(16, 1088), (130, 1088), (512, 1088), (16, 2048), (16, 544),
+                                 (512, 544)])
 def test_cuda_mvn_wide_bad_pivots_in_every_rank(cuda_device, b, n):
     """A bad pivot in a row of each rank's first chunk below the first
     panel (chunk k of WIDE_CHUNK rows belongs to rank k mod C), inside a
@@ -622,26 +559,29 @@ def test_cuda_mvn_wide_layout_is_the_libraries(cuda_device):
     (b, n); it has no largest n; the card places at least one cluster
     (placements printed)."""
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert fm.route_max_n("panel") is None and fm.route_limits()["panel"][1] is None
-    for b in (1, 2, 16, 17, 66, 130, 512, 1024):
-        for n in (1, 15, 63, 64, 65, 767, 1000, 1088, 1759, 1760, 2048, 4096, 6656, 20000):
+    limits = fm.route_limits()
+    assert fm.route_max_n("panel") is None and limits["panel"][1] is None
+    assert fm.route_max_n("smem") == limits["smem"][1] == limits["panel"][0] - 1
+    for b in (1, 2, 16, 17, 66, 130, 512, 1024, 2048):
+        for n in (1, 15, 63, 64, 65, 320, 544, 687, 767, 1000, 1088, 1759, 1760, 2048, 4096,
+                  6656, 20000):
             info, want = fm.wide_info(b, n), fm.wide_layout(b, n, sms)
             assert info["sms"] == sms
             assert (info["c"], info["ctas_per_sm"], info["p"], info["bytes"],
                     info["scratch"]) == tuple(want), (b, n)
             assert info["active_clusters"] >= 1, (b, n)
-    for b, n in ((16, 767), (512, 1088), (2, 2048), (1, 4096)):
+    for b, n in ((2048, 544), (16, 767), (512, 1088), (2, 2048), (1, 4096)):
         info = fm.wide_info(b, n)
         print(f"wide route (b={b}, n={n}) on {sms} SMs: C = {info['c']}, "
               f"{info['ctas_per_sm']} CTAs per SM, {info['bytes']} B per CTA, "
               f"{info['active_clusters']} clusters placed at once")
 
 
-def test_cuda_mvn_wide_allocates_output_and_scratch_only(cuda_device):
+@pytest.mark.parametrize("b,n", [(16, 1088), (2048, 544)])
+def test_cuda_mvn_wide_allocates_output_and_scratch_only(cuda_device, b, n):
     """The wide route allocates its output and its scratch (b matrices of
-    n + 1 rows of whole float4s), nothing else (the allocator's rounding
-    aside)."""
-    b, n = 16, 1088
+    n + 1 rows of whole float4s: 2.45 GB at the stitched (2048, 544)),
+    nothing else (the allocator's rounding aside)."""
     y, cov = _mvn_problem_dev(cuda_device, b, n, seed=1)
     fm._mvn_cuda(y, cov)  # the library is built and loaded
     torch.cuda.synchronize()

@@ -232,81 +232,18 @@ def test_blocked_order_bad_pivot_inside_a_panel(where):
     np.testing.assert_array_equal(got.numpy()[keep], clean.numpy()[keep])
 
 
-def test_blocked_order_at_the_cluster_route_start_matches_jax_pallas_and_f64():
-    """n = 319, where the stitched-size routes begin: the blocked order at
-    the cluster route's panel width (the cluster route's arithmetic order
-    is the shared-memory route's) against the JAX Pallas kernel (interpret
-    mode) at rtol 2e-4 and the float64 plain elimination at rtol 2e-4."""
-    n = 319
-    y, cov = _problem(2, n, seed=319)
-    j_pallas = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
-    yt, ct = torch.tensor(y), torch.tensor(cov)
-    want64 = fm.fused_mvn_loglike_plain(yt.double(), ct.double()).numpy()
-    got = _blocked_elimination(yt, ct, fm.CLUSTER_PANEL)
-    assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), j_pallas, rtol=2e-4)
-    np.testing.assert_allclose(got.numpy(), want64, rtol=2e-4)
-
-
-def _cluster_n(n):
-    """An n of the cluster cases: an int, or "max", the route's largest."""
-    return fm.route_limits()["cluster"][1] if n == "max" else n
-
-
-@pytest.mark.parametrize("n", [1, 15, 16, 31, 32, 33, 320, 439, 440, 523, 544, 600, "max"])
-def test_cluster_layout_places_every_row_once_and_fits(n):
-    """The cluster route's layout: every row 0 .. n of the augmented matrix
-    in exactly one rank, row blocks of P dealt out cyclically, the bytes
-    per CTA within the 232,448 an H100 block may use, and no smaller
-    cluster that would fit."""
-    n = _cluster_n(n)
-    lay = fm.cluster_layout(n)
-    assert lay.p == fm.CLUSTER_PANEL and 2 <= lay.c <= fm.CLUSTER_MAX
-    rows = fm.cluster_rows(n, lay.c, lay.p)
-    flat = sorted(i for r in rows for i in r)
-    assert flat == list(range(n + 1))
-    for r, mine in enumerate(rows):
-        assert all((i // lay.p) % lay.c == r for i in mine)
-    assert lay.bytes == fm.cluster_bytes(n, lay.c) <= 232448
-    for c in range(2, lay.c):
-        assert fm.cluster_bytes(n, c) > 232448, c
-
-
-def test_cluster_layout_picks_the_smallest_cluster():
-    """n = 544 (the stitched matrix) takes four CTAs; the size grows with n
-    one step at a time up to eight, and past the route's largest n no
-    cluster holds the matrix."""
-    assert fm.cluster_layout(544).c == 4
-    hi = fm.route_limits()["cluster"][1]
-    sizes = [fm.cluster_layout(n).c for n in range(fm.route_limits()["cluster"][0], hi + 1)]
-    assert sizes == sorted(sizes) and sizes[0] == 2 and sizes[-1] == fm.CLUSTER_MAX
-    assert set(sizes) == set(range(2, fm.CLUSTER_MAX + 1))
-    with pytest.raises(ValueError):
-        fm.cluster_layout(hi + 1)
-
-
-@pytest.mark.parametrize("n", [320, 441, 544, "max"])
-def test_cluster_storage_is_balanced_within_one_row_block(n):
-    """Block-cyclic rows: the ranks' packed floats differ by no more than
-    one P-row block at the matrix's foot (P (n + 1) floats), so no rank
-    runs out of work long before the others."""
-    n = _cluster_n(n)
-    lay = fm.cluster_layout(n)
-    floats = [sum(i + 1 for i in r) for r in fm.cluster_rows(n, lay.c, lay.p)]
-    assert max(floats) - min(floats) <= lay.p * (n + 1)
-
-
 def test_routes_tile_every_n_once():
-    """The three routes' n ranges tile every n >= 1 with no gap and no
-    overlap: shared memory, then cluster, then the wide route ("panel"),
-    which has no largest n."""
+    """The two routes' n ranges tile every n >= 1 with no gap and no
+    overlap: shared memory, then the wide route ("panel"), which has no
+    largest n and takes the stitched 544 x 544 matrix."""
     limits = fm.route_limits()
-    assert list(limits) == ["smem", "cluster", "panel"]
+    assert list(limits) == ["smem", "panel"]
     ranges = list(limits.values())
     assert ranges[0][0] == 1 and ranges[-1][1] is None
     for (lo, hi), (nxt, _) in zip(ranges, ranges[1:]):
         assert lo <= hi and nxt == hi + 1
-    assert limits["cluster"][0] <= 544 <= limits["cluster"][1]
+    assert limits["smem"][1] == 319
+    assert limits["panel"][0] <= 544
 
 
 def test_plain_f64_matches_jax_xla_f64():
@@ -406,15 +343,16 @@ def test_nonpd_gradient_is_zero_not_nan(entry):
 
 def test_cpu_path_counts_no_launches_and_kernels_are_registered():
     """CPU tensors take the plain version, so no launch is counted; the
-    three routes of the kernel stand in the registry with their source."""
+    two routes of the kernel stand in the registry with their source."""
     registry.reset_launch_counts()
     y, cov = _problem(3, 6, seed=6)
     fm.mvn_loglike_best(torch.tensor(y), torch.tensor(cov))
     fm.fused_mvn_loglike(torch.tensor(y), torch.tensor(cov))
     assert all(v == 0 for v in registry.LAUNCH_COUNTS.values())
-    for name in ("fused_mvn_loglike", "fused_mvn_loglike_cluster", "fused_mvn_loglike_panel"):
+    for name in ("fused_mvn_loglike", "fused_mvn_loglike_panel"):
         source, replaces = registry.KERNELS[name]
         assert source.endswith("csrc/fused_mvn.cu") and replaces.endswith("pallas_mvn.py:61")
+    assert not any("cluster" in name for name in registry.KERNELS)
     assert set(registry.KERNELS) == set(registry.LAUNCH_COUNTS)
 
 
@@ -433,18 +371,17 @@ def test_kernel_source_calls_no_library_factorization():
     assert f"constexpr int WARP_MAX_N = {fm.WARP_MAX_N};" in code
     assert "cp.async.ca.shared.global" in code and "copy_triangle(" in code
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in code
-    # the cluster route: launched as clusters, DSMEM through map_shared_rank
+    # one matrix per cluster only on the wide route: no cluster-resident
+    # matrix, no distributed shared memory
     assert "cudaLaunchKernelEx" in code and "cudaLaunchAttributeClusterDimension" in code
-    assert "map_shared_rank" in code and "mvn_cluster_kernel" in code
+    assert "map_shared_rank" not in code and "mvn_cluster_kernel" not in code
     # the panel widths the blocked-order tests and the layout mirror use are the kernel's
     assert f"constexpr int SMEM_PANEL = {PANEL};" in code
     assert f"constexpr int SMEM_PANEL = {fm.SMEM_PANEL};" in code
-    assert f"constexpr int CLUSTER_PANEL = {fm.CLUSTER_PANEL};" in code
-    assert f"constexpr int CLUSTER_MAX = {fm.CLUSTER_MAX};" in code
     assert f"constexpr int SMEM_LIMIT = {fm.SMEM_LIMIT};" in code
     # the wide route: launched as clusters, its layout constants mirrored,
     # the trailing update on the tensor cores through a cp.async ring
-    assert "cudaLaunchKernelEx(&w.launch.cfg, w.kernel" in code
+    assert "cudaLaunchKernelEx(&w.cfg, w.kernel" in code
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in code
     assert "cp.async.cg.shared.global" in code
     assert "constexpr bool kWideTensorCores = true;" in code
@@ -460,8 +397,8 @@ def test_kernel_source_calls_no_library_factorization():
 
 def test_mvn_variant_tool_edits_apply_to_the_source():
     """tools/torch_mvn_variants.py times the shared-memory route at other
-    panel widths by editing SMEM_PANEL in csrc/fused_mvn.cu, and the
-    cluster route's variants by edits of its own: every edit must still
+    panel widths by editing SMEM_PANEL in csrc/fused_mvn.cu, and the wide
+    route's variants by edits of their own: every edit must still
     apply (once), give every measured width once, change the source, and
     the diagnostics must be among the edits."""
     import importlib.util
@@ -483,13 +420,7 @@ def test_mvn_variant_tool_edits_apply_to_the_source():
         elif name != "kept":
             assert tool.WIDTH_LINE.sub("", text) == tool.WIDTH_LINE.sub("", src), name
     assert set(tool.DIAGNOSTIC) <= set(tool.EDITS)
-    cluster = tool.variant_sources(src, route="cluster")
-    assert cluster["kept"] == src
-    assert set(cluster) == {"kept", *tool.CLUSTER_EDITS}
-    for name in tool.CLUSTER_EDITS:
-        assert cluster[name] != src, name
-    assert set(tool.CLUSTER_DIAGNOSTIC) <= set(tool.CLUSTER_EDITS)
-    assert "cpanel_32" in cluster and "phase_clock" in cluster and "no_lookahead" in cluster
+    assert "phase_clock" in variants and "no_lookahead" in variants
     wide = tool.variant_sources(src, route="panel")
     assert wide["kept"] == src
     assert set(wide) == {"kept", *tool.PANEL_EDITS}
@@ -505,7 +436,8 @@ def test_mvn_variant_tool_edits_apply_to_the_source():
         assert f"constexpr int WIDE_PANEL = {width};" in wide[f"wpanel_{width}"]
     assert "constexpr bool kWideTensorCores = false;" in wide["fma_trailing"]
     assert "NonPortableClusterSizeAllowed" in wide["cluster_16"]
-    assert tool.PANEL_CASES == ((16, 767), (512, 1088))
+    # the stitched 544 x 544 likelihood of a half-ensemble is a wide-route case
+    assert tool.PANEL_CASES == ((16, 767), (512, 1088), (512, 544))
 
 
 # ------------------------------------------------------------- the wide route
@@ -542,7 +474,7 @@ def _wide_elimination(y: torch.Tensor, cov: torch.Tensor, panel: int = fm.WIDE_P
                       tensor_cores: bool = True) -> torch.Tensor:
     """The wide route's arithmetic order in plain torch (on no path): per
     panel of ``panel`` columns (rows c0 .. n), 16-column steps as in the
-    shared-memory and cluster routes (the step's diagonal block eliminated
+    shared-memory route (the step's diagonal block eliminated
     pivot by pivot, the rows below finished by substitution and scaled to
     Cholesky entries, the step's update applied to the panel's later
     columns only), then one trailing update A -= L L^T of the rows and
@@ -601,13 +533,16 @@ def test_tf32_rounding_is_the_kernels():
 WIDE = fm.WIDE_PANEL
 
 
-@pytest.mark.parametrize("n", [1, 15, 16, 17, WIDE - 1, WIDE, WIDE + 1, 2 * WIDE + 1])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, WIDE - 1, WIDE, WIDE + 1, 2 * WIDE + 1,
+                               320, 321, 383, 384, 385, 543, 544, 545, 687])
 def test_wide_order_matches_jax_pallas_and_f64(n):
     """The wide route's order emulated in float32 (wide panels of 16-column
     steps, the trailing update in 3xTF32 and in FP32) against the JAX
     Pallas kernel (interpret mode) and the float64 plain elimination, rtol
-    2e-4: n on both sides of the 16-column and the panel boundaries, and
-    one n past two panels."""
+    2e-4: n on both sides of the 16-column and the panel boundaries, one n
+    past two panels, and the stitched sizes the route takes past the
+    shared-memory route: its first n, both sides of a later panel
+    boundary, the stitched 544 and one column either side, and 687."""
     y, cov = _problem(3, n, seed=500 + n)
     j_pallas = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
     yt, ct = torch.tensor(y), torch.tensor(cov)
@@ -636,6 +571,42 @@ def test_wide_order_bad_pivot(k):
     assert got[bad] == -torch.inf and torch.isfinite(got[keep]).all()
     np.testing.assert_array_equal(got.numpy()[keep], clean.numpy()[keep])
     np.testing.assert_allclose(got.numpy()[keep], j[keep], rtol=2e-4)
+
+
+@pytest.mark.parametrize("k", [0, 8, WIDE - 1, WIDE, 4 * WIDE + 24, 8 * WIDE + 15, 543])
+def test_wide_order_bad_pivot_at_the_stitched_size(k):
+    """n = 544: a pivot that goes bad at the first pivot, inside the first
+    16-column step, at the first panel's last column or the second's first,
+    inside a step of a middle panel, at a step's end in the last (half)
+    panel, or at the last pivot gives -inf there, as in the JAX Pallas
+    kernel; the other matrices keep exactly the values they have without
+    it."""
+    n, bad = 544, 1
+    y, cov = _problem(3, n, seed=544)
+    clean = _wide_elimination(torch.tensor(y), torch.tensor(cov))
+    cov[bad, k, k] = -1.0
+    j = np.asarray(pm.mvn_loglike_pallas(jnp.asarray(y), jnp.asarray(cov)))
+    assert j[bad] == -np.inf
+    got = _wide_elimination(torch.tensor(y), torch.tensor(cov))
+    keep = np.arange(3) != bad
+    assert got[bad] == -torch.inf and torch.isfinite(got[keep]).all()
+    np.testing.assert_array_equal(got.numpy()[keep], clean.numpy()[keep])
+    np.testing.assert_allclose(got.numpy()[keep], j[keep], rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,n,c,k", [(2048, 544, 1, 2), (512, 544, 1, 2), (16, 544, 8, 1),
+                                     (1, 320, 8, 1)])
+def test_wide_layout_at_the_stitched_size(b, n, c, k):
+    """The stitched likelihood's batches on 132 SMs: a half-ensemble of
+    2048 or 512 walkers takes one CTA a matrix, built for two per SM (264
+    matrices at once); 16 matrices, or one, take clusters of eight.  The
+    scratch is n + 1 rows of whole float4s a matrix: 2,446,622,720 bytes
+    at (2048, 544)."""
+    lay = fm.wide_layout(b, n, 132)
+    assert (lay.c, lay.ctas_per_sm, lay.p) == (c, k, fm.WIDE_PANEL)
+    assert lay.scratch == (n + 1) * ((n + 4) // 4 * 4)
+    if (b, n) == (2048, 544):
+        assert 4 * b * lay.scratch == 2_446_622_720
 
 
 def test_wide_layout_picks_the_cluster_from_b_and_n():
@@ -680,7 +651,8 @@ def test_wide_layout_fits_every_n():
 
 
 @pytest.mark.parametrize("n,c0", [(767, 0), (767, 64), (1088, 0), (1088, 1024), (2048, 128),
-                                  (4096, 0), (17, 0)])
+                                  (4096, 0), (17, 0), (544, 0), (544, 448), (544, 512),
+                                  (320, 256), (687, 640)])
 def test_wide_rows_each_owned_once(n, c0):
     """The panel starting at column c0: every row below it (c1 .. n) in
     exactly one rank, in chunks of WIDE_CHUNK rows dealt out round-robin,

@@ -4,47 +4,20 @@ timed on the flagship's own covariances.
 
 Run from the repository root on a CUDA machine:
 
-    python3 tools/torch_mvn_variants.py [--route cluster|smem|panel] [--parent DIR ...]
+    python3 tools/torch_mvn_variants.py [--route panel|smem] [--parent DIR ...]
                                         [--variants NAME,...]
 
-``--route cluster`` (the default) times the cluster route
-(``fused_mvn_loglike_cluster``) on the stitched 544 x 544 matrices of a
-half-ensemble (512 walkers); ``--route smem`` the shared-memory route on the
-flagship's blocks (n = 170, 73, 28, 21, 14, 12; a half-ensemble of 512 walkers and
-1024; n = 28 and 12 also at b = 16384, past the warps the card holds at
-once), beside the committed cluster route forced onto its cases past
-n = 32 (one matrix over a cluster of CTAs); ``--route panel``
-the wide route (``fused_mvn_loglike_panel``) on the stitched-wide chain's
-own covariances (chip_smoke.py's fifth path: the flagship's blocks twice,
-1088 observables) at (512, 1088), and at (16, 767) on their leading
-767 x 767 blocks.  Variants of the committed source (the script fails if an
+``--route panel`` (the default) times the wide route
+(``fused_mvn_loglike_panel``) on the stitched-wide chain's own covariances
+(chip_smoke.py's fifth path: the flagship's blocks twice, 1088
+observables) at (512, 1088), and on their leading blocks at (16, 767) and
+at (512, 544), the stitched likelihood of a half-ensemble (512 walkers);
+``--route smem`` the shared-memory route on the flagship's blocks (n = 170,
+73, 28, 21, 14, 12; a half-ensemble of 512 walkers and 1024; n = 28 and 12
+also at b = 16384, past the warps the card holds at once).  Variants of the committed source (the script fails if an
 edit no longer applies):
 
 - ``kept``: the source as committed;
-- cluster route: ``cpanel_32`` (``CLUSTER_PANEL`` = 32: half the panels and
-  barriers, a larger cluster), ``threads_256`` and ``threads_384`` (threads
-  per CTA, not 512), ``loads_16`` / ``loads_32`` (global loads in flight
-  per thread in the load, not 8), ``broadcast_in_rank_order`` (each
-  substitution row written to ranks 0 .. C - 1 in that order, its own copy
-  through the cluster window too), ``ahead_half_trailing`` (the next block's
-  owner gives only half its warps trailing tiles while warp 0 factors, so
-  that the factoring warp's shuffles queue behind fewer shared-memory
-  loads), ``ahead_quiet_subpartition`` (there, the warps that share warp
-  0's scheduler, 4, 8 and 12, take no trailing tiles), ``ahead_factor_first``
-  (there, the trailing update waits until warp 0 has factored the next
-  block, and warp 0 takes tiles too), ``pivot_column_in_smem`` (the
-  factoring warp takes each column of the diagonal block through shared
-  memory, not by shuffles), ``broadcast_in_loop`` (the factored block
-  sent to the other ranks entry by entry in the pivot loop, not copied
-  after it), ``no_lookahead`` (the owner factors each diagonal block after
-  the whole trailing update, not during it), and the diagnostics ``cluster_load_only`` (no panel at all: the
-  load and the row table), ``cluster_barriers_only`` (the panel loop with
-  its two cluster barriers per panel and nothing else), ``cluster_no_block_factor``,
-  ``cluster_no_substitution`` (no rows below the diagonal block, so no
-  DSMEM broadcast of them), ``cluster_no_trailing_update``, and
-  ``phase_clock`` (kPhaseClock set: thread 0 of each CTA counts the SM
-  cycles it spends in each phase; the script prints the split of one
-  call);
 - wide route: ``wpanel_32`` / ``wpanel_128`` (``WIDE_PANEL``, the columns
   per trailing pass, not 64; at 128 two CTAs' shared memory no longer fit
   an SM), ``fma_trailing`` (the trailing update in FP32 FMA, not 3xTF32 on
@@ -75,8 +48,6 @@ edit no longer applies):
   each phase; the script prints the split of one call); its warp kernel
   (n <= 32): ``warp_warps_8`` (eight matrices per block, not four),
   ``warp_rows_32`` (32 rows of registers at every n, not 16 up to n = 16);
-  ``triangle_register_load`` (the block kernel's triangle loaded into
-  registers by the packed index, not by cp.async a row per warp);
   ``two_blocks`` (the block kernel built for two 256-thread blocks per SM,
   not three), ``tile_cols_8`` (trailing tiles of 4 x 8 outputs per
   thread, 16 x 64 per warp, not 4 x 4);
@@ -90,10 +61,8 @@ left out.
 ``--variants NAME,...`` builds and times only those variants (``kept``
 and the parents always).  ``--parent DIR`` adds the ``fused_mvn.cu`` of another checkout (e.g. the
 parent commit unpacked with ``git archive``) as the variant ``parent``
-(given again: ``parent2``, ...).  On the cluster route's cases a source
-without ``fused_mvn_loglike_cluster`` is timed through its
-``fused_mvn_loglike_panel`` (the route n = 544 took before the cluster
-route); on the wide route's, a source without ``fused_mvn_panel_scratch``
+(given again: ``parent2``, ...).  On the wide route's cases a source
+without ``fused_mvn_panel_scratch``
 (``mvn_panel_kernel``, the route before the wide one) gets the
 (b, n + 1, n + 1) scratch it needs, and one with it but without
 ``fused_mvn_panel_sms`` (an earlier wide route whose shared memory grew
@@ -105,11 +74,9 @@ TOL_MVN, one non-PD matrix planted) and timed by CUDA-graph replay
 reversed, so that drift shows as a difference between the two passes.  It
 prints each variant's ptxas report for the route's kernels, its occupancy
 (the shared-memory route's matrices per SM at each n, or blocks per SM at
-n = 170 for a source of one block per matrix; the cluster size and
-clusters placed at n = 544; or the wide route's cluster size, CTAs per SM
-and clusters placed per case), the card's name and power limit, and one
-JSON line.  Imports
-nothing of JAX.
+n = 170 for a source of one block per matrix; or the wide route's cluster
+size, CTAs per SM and clusters placed per case), the card's name and power
+limit, and one JSON line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -130,22 +97,10 @@ WIDTH_LINE = re.compile(r"constexpr int SMEM_PANEL = (\d+);")
 SIZES = (170, 73, 28, 21, 14, 12)
 #: the shared-memory route's batches: a half-ensemble of run_mcmc, and 1024
 SMEM_BATCHES = (512, 1024)
-#: the committed cluster route is also timed on the shared-memory cases past this n
-CLUSTER_FROM = 32
 #: the warp kernel also at a batch past the warps the card holds at once
 WARP_LARGE_B = 16384
 WARP_LARGE_SIZES = (28, 12)
-STITCHED = 544
 
-_NO_FACTOR = ("  const int c0 = k * P, pw = min(P, n - c0), rows = min(P, n + 1 - c0);\n",
-              "  if (k >= 0) return;\n"
-              "  const int c0 = k * P, pw = min(P, n - c0), rows = min(P, n + 1 - c0);\n")
-_NO_SUBSTITUTION = ("    for (int lr = t0 * P + tid; lr < nrows; lr += nthreads) {",
-                    "    for (int lr = nrows; lr < nrows; lr += nthreads) {")
-_NO_TRAILING = ("    int t = ahead ? t0 + 1 : t0, before = 0;  // current local block, tiles of the "
-                "blocks before it\n    for (; tile >= 0; tile += step) {",
-                "    int t = ahead ? t0 + 1 : t0, before = 0;\n"
-                "    for (tile = -1; tile >= 0; tile += step) {")
 _NO_STEPS = ("    for (int s = 0; s * S < pw; ++s) {", "    for (int s = pw; s * S < pw; ++s) {")
 # a diagnostic's garbage must not stop a matrix at its first bad pivot
 _NO_EXIT = ("    failed |= bad_pivot(p);\n    if (lane == j) mine = p;\n"
@@ -190,54 +145,7 @@ PANEL_EDITS = {
 #: wide-route variants whose results are wrong by design
 PANEL_DIAGNOSTIC = tuple(k for k in PANEL_EDITS if k.startswith("wide_"))
 #: the wide route's cases: (b, n)
-PANEL_CASES = ((16, 767), (512, 1088))
-
-CLUSTER_EDITS = {
-    "cpanel_32": [("constexpr int CLUSTER_PANEL = 16;", "constexpr int CLUSTER_PANEL = 32;")],
-    "threads_256": [("constexpr int CLUSTER_THREADS = 512;",
-                     "constexpr int CLUSTER_THREADS = 256;")],
-    "threads_384": [("constexpr int CLUSTER_THREADS = 512;",
-                     "constexpr int CLUSTER_THREADS = 384;")],
-    "loads_16": [("constexpr int CLUSTER_LOADS = 8;", "constexpr int CLUSTER_LOADS = 16;")],
-    "loads_32": [("constexpr int CLUSTER_LOADS = 8;", "constexpr int CLUSTER_LOADS = 32;")],
-    "broadcast_in_rank_order": [
-        ("        const int dst = (r + d) % C;\n        float* ld = (d == 0) ? l : cluster.map_shared_rank(l, dst);",
-         "        float* ld = cluster.map_shared_rank(l, d);")],
-    "ahead_half_trailing": [
-        ("    int tile = ahead ? warp - 1 : warp;\n    const int step = ahead ? nwarps - 1 : nwarps;",
-         "    int tile = ahead ? warp - nwarps / 2 : warp;\n"
-         "    const int step = ahead ? nwarps - nwarps / 2 : nwarps;")],
-    "ahead_quiet_subpartition": [
-        ("    int tile = ahead ? warp - 1 : warp;\n    const int step = ahead ? nwarps - 1 : nwarps;",
-         "    int tile = ahead ? (warp % 4 ? warp - warp / 4 - 1 : -1) : warp;\n"
-         "    const int step = ahead ? nwarps - nwarps / 4 : nwarps;")],
-    "ahead_factor_first": [
-        ("    cluster_wait();\n    phase(4);", "    cluster_wait();\n    if (ahead) __syncthreads();\n    phase(4);"),
-        ("    int tile = ahead ? warp - 1 : warp;\n    const int step = ahead ? nwarps - 1 : nwarps;",
-         "    int tile = warp;\n    const int step = nwarps;")],
-    "pivot_column_in_smem": [("constexpr bool kPivotColumnInSmem = false;",
-                              "constexpr bool kPivotColumnInSmem = true;")],
-    "broadcast_in_loop": [("constexpr bool kBroadcastInLoop = false;",
-                           "constexpr bool kBroadcastInLoop = true;")],
-    "no_lookahead": [
-        ("    const bool ahead = k + 1 < npan && r == (k + 1) % C;",
-         "    const bool ahead = false;"),
-        ("    cluster_arrive();  // A\n",
-         "    if (k > 0 && r == k % C && warp == 0)\n"
-         "      factor_diagonal_block(cluster, a, rowstart, nullptr, dgs + (k & 1) * DGB,\n"
-         "                            bad + (k & 1), k, n, C, r, logdet_half);\n"
-         "    cluster_arrive();  // A\n"),
-    ],
-    "phase_clock": [("constexpr bool kPhaseClock = false;", "constexpr bool kPhaseClock = true;")],
-    "cluster_load_only": [("logdet_half);\n  for (int k = 0; k < npan; ++k) {",
-                           "logdet_half);\n  for (int k = npan; k < npan; ++k) {"), _NO_FACTOR],
-    "cluster_barriers_only": [_NO_FACTOR, _NO_SUBSTITUTION, _NO_TRAILING],
-    "cluster_no_block_factor": [_NO_FACTOR],
-    "cluster_no_substitution": [_NO_SUBSTITUTION],
-    "cluster_no_trailing_update": [_NO_TRAILING],
-}
-#: cluster-route variants whose results are wrong by design
-CLUSTER_DIAGNOSTIC = tuple(k for k in CLUSTER_EDITS if k.startswith("cluster_"))
+PANEL_CASES = ((16, 767), (512, 1088), (512, 544))
 
 _SMEM_FIRST = ("  if (warp == 0) smem_factor_block(a, cov_b, y_b, dg, isq, bad, 0, n, logdet_half);\n"
                "  cp_async_wait_all();\n")
@@ -267,9 +175,6 @@ EDITS = {
     "warp_warps_8": [("constexpr int WARP_WARPS = 4;", "constexpr int WARP_WARPS = 8;")],
     "warp_rows_32": [("return n <= 16 ? mvn_warp_kernel<16> : mvn_warp_kernel<32>;",
                       "return mvn_warp_kernel<32>;")],
-    # the triangle loaded into registers with the packed index, as the cluster route does
-    "triangle_register_load": [("  copy_triangle(a, cov_b, y_b, n, warp, NW, lane);\n",
-                                "  load_packed_rows(a, cov_b, y_b, n, 0, tri(n1), tid, kThreads);\n")],
     # the block kernel built for two 256-thread blocks per SM (no register cap that spills)
     "two_blocks": [("__launch_bounds__(kThreads, kThreads == 256 ? 3 : 6)",
                     "__launch_bounds__(kThreads, kThreads == 256 ? 2 : 6)")],
@@ -307,8 +212,8 @@ def apply_edits(text: str, edits) -> str:
 def variant_sources(src: str, parents=(), route: str = "smem") -> dict[str, str]:
     """name -> source text of every variant of the route."""
     out = {"kept": src}
-    if route in ("cluster", "panel"):
-        for name, edits in (CLUSTER_EDITS if route == "cluster" else PANEL_EDITS).items():
+    if route == "panel":
+        for name, edits in PANEL_EDITS.items():
             out[name] = apply_edits(src, edits)
     else:
         found = WIDTH_LINE.findall(src)
@@ -364,14 +269,10 @@ def build(tmp: str, sources: dict[str, str], kernel="mvn_smem_kernel"):
         _P, _I = ctypes.c_void_p, ctypes.c_int
         for entry, argtypes in (
             ("fused_mvn_loglike_smem", [_P] * 3 + [_I] * 2 + [_P]),
-            ("fused_mvn_loglike_cluster", [_P] * 3 + [_I] * 2 + [_P]),
             ("fused_mvn_loglike_panel", [_P] * 4 + [_I] * 2 + [_P]),
             ("fused_mvn_smem_matrices_per_sm", [_I]),
             ("fused_mvn_smem_blocks_per_sm", [_I]),
             ("fused_mvn_smem_phase_cycles", [_P]),
-            ("fused_mvn_cluster_size", [_I]),
-            ("fused_mvn_cluster_active", [_I]),
-            ("fused_mvn_cluster_phase_cycles", [_P]),
             ("fused_mvn_panel_scratch", [_I]),
             ("fused_mvn_panel_cluster", [_I]),
             ("fused_mvn_panel_ctas_per_sm", [_I]),
@@ -382,10 +283,7 @@ def build(tmp: str, sources: dict[str, str], kernel="mvn_smem_kernel"):
                 getattr(lib, entry).argtypes = argtypes
         if hasattr(lib, "fused_mvn_panel_sms"):  # the wide route's scratch size is 64-bit
             lib.fused_mvn_panel_scratch.restype = ctypes.c_longlong
-        # a source without the cluster route is timed through its panel route
-        if kernel == "mvn_cluster_kernel" and not hasattr(lib, "fused_mvn_loglike_cluster"):
-            out[name] = (lib, ptxas_report(log, "mvn_panel_kernel"))
-        elif kernel == "mvn_wide_kernel" and not hasattr(lib, "fused_mvn_panel_scratch"):
+        if kernel == "mvn_wide_kernel" and not hasattr(lib, "fused_mvn_panel_scratch"):
             out[name] = (lib, ptxas_report(log, "mvn_panel_kernel"))
         else:
             out[name] = (lib, ptxas_report(log, kernel))
@@ -398,76 +296,53 @@ def occupancy(lib, route: str) -> str:
             return f"{lib.fused_mvn_smem_blocks_per_sm(170)} blocks per SM at n = 170"
         return ", ".join(f"{lib.fused_mvn_smem_matrices_per_sm(n)} matrices per SM at n = {n}"
                          for n in SIZES)
-    if route == "panel":
-        if not hasattr(lib, "fused_mvn_panel_scratch"):
-            return "one block per matrix (no clusters in this source)"
-        if not hasattr(lib, "fused_mvn_panel_sms"):
-            return "an earlier wide route (its layout not asked)"
-        return "; ".join(f"(b={b}, n={n}): clusters of {lib.fused_mvn_panel_cluster(b)}, "
-                         f"{lib.fused_mvn_panel_ctas_per_sm(b)} CTAs per SM, "
-                         f"{lib.fused_mvn_panel_active(b)} placed at once"
-                         for b, n in PANEL_CASES)
-    if not hasattr(lib, "fused_mvn_loglike_cluster"):
-        return "panel route (no cluster route in this source)"
-    return (f"clusters of {lib.fused_mvn_cluster_size(STITCHED)} CTAs, "
-            f"{lib.fused_mvn_cluster_active(STITCHED)} placed at once at n = {STITCHED}")
-
-
-PHASES = ("load", "barrier A", "substitution", "its broadcast", "barrier B", "trailing update",
-          "CTA barrier", "look-ahead factoring", "exit")
-
-
-FACTOR_PARTS = ("rows and update", "pivots", "logarithms", "broadcast")
+    if not hasattr(lib, "fused_mvn_panel_scratch"):
+        return "one block per matrix (no clusters in this source)"
+    if not hasattr(lib, "fused_mvn_panel_sms"):
+        return "an earlier wide route (its layout not asked)"
+    return "; ".join(f"(b={b}, n={n}): clusters of {lib.fused_mvn_panel_cluster(b)}, "
+                     f"{lib.fused_mvn_panel_ctas_per_sm(b)} CTAs per SM, "
+                     f"{lib.fused_mvn_panel_active(b)} placed at once"
+                     for b, n in PANEL_CASES)
 
 
 SMEM_PHASES = ("load and panel 0's block", "barrier A", "substitution", "barrier B",
                "trailing update / look-ahead", "exit")
 
 
-def phase_split(lib, run, route: str = "cluster") -> str:
-    """The phase_clock variant's split of one call: SM cycles per phase,
-    summed over the CTAs, as shares of their sum (the cluster route: thread
-    0; the shared-memory route's block kernel: thread 0, whose warp factors
-    the diagonal blocks, and thread 32, whose warp takes trailing tiles)."""
+def phase_split(lib, run) -> str:
+    """The phase_clock variant's split of one call of the shared-memory
+    route's block kernel: SM cycles per phase, summed over the blocks, as
+    shares of their sum, for thread 0, whose warp factors the diagonal
+    blocks, and thread 32, whose warp takes trailing tiles."""
     import torch
 
-    smem = route == "smem"
-    size = 2 * len(SMEM_PHASES) + 1 if smem else len(PHASES) + 1 + len(FACTOR_PARTS)
-    read = lib.fused_mvn_smem_phase_cycles if smem else lib.fused_mvn_cluster_phase_cycles
-    buf = (ctypes.c_ulonglong * size)()
+    read = lib.fused_mvn_smem_phase_cycles
+    buf = (ctypes.c_ulonglong * (2 * len(SMEM_PHASES) + 1))()
     read(buf)  # clear
     run()
     torch.cuda.synchronize()
     if read(buf):
         raise SystemExit("phase clock readout failed")
-    if smem:
-        k = len(SMEM_PHASES)
-        blocks = max(buf[2 * k], 1)
-        parts = []
-        for who, off in (("thread 0 (factoring warp)", 0), ("thread 32 (trailing warp)", k)):
-            total = sum(buf[off:off + k]) or 1
-            parts.append(f"{who}: " + ", ".join(f"{name} {buf[off + i] / total:.3f}"
-                                               for i, name in enumerate(SMEM_PHASES))
-                         + f"; {total / blocks:.0f} cycles per block")
-        return f"phase split ({blocks} blocks, SM cycles): " + " | ".join(parts)
-    total = sum(buf[:len(PHASES)]) or 1
-    ctas = max(buf[len(PHASES)], 1)
-    return (f"phase split (thread 0 of each of {ctas} CTAs, SM cycles): "
-            + ", ".join(f"{name} {buf[i] / total:.3f}" for i, name in enumerate(PHASES))
-            + f"; {total / ctas:.0f} cycles per CTA; factoring parts, cycles per CTA: "
-            + ", ".join(f"{name} {buf[len(PHASES) + 1 + i] / ctas:.0f}"
-                        for i, name in enumerate(FACTOR_PARTS)))
+    k = len(SMEM_PHASES)
+    blocks = max(buf[2 * k], 1)
+    parts = []
+    for who, off in (("thread 0 (factoring warp)", 0), ("thread 32 (trailing warp)", k)):
+        total = sum(buf[off:off + k]) or 1
+        parts.append(f"{who}: " + ", ".join(f"{name} {buf[off + i] / total:.3f}"
+                                           for i, name in enumerate(SMEM_PHASES))
+                     + f"; {total / blocks:.0f} cycles per block")
+    return f"phase split ({blocks} blocks, SM cycles): " + " | ".join(parts)
 
 
 def launcher(lib, route: str, y, cov):
     """A function that launches the variant's route on (y, cov) into a new
-    output (a source without the cluster route: its panel route, with a
-    scratch allocated once, here)."""
+    output (the wide route with a scratch allocated once, here)."""
     import torch
 
     b, n = y.shape
     dev = y.device
-    if route == "panel" or (route == "cluster" and not hasattr(lib, "fused_mvn_loglike_cluster")):
+    if route == "panel":
         per = (lib.fused_mvn_panel_scratch(n) if hasattr(lib, "fused_mvn_panel_scratch")
                else (n + 1) * (n + 1))
         scratch = torch.empty((b, per), dtype=torch.float32, device=dev)
@@ -498,7 +373,7 @@ def main() -> int:
         print("torch_mvn_variants: no CUDA device available", file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--route", choices=("cluster", "smem", "panel"), default="cluster")
+    parser.add_argument("--route", choices=("panel", "smem"), default="panel")
     parser.add_argument("--parent", action="append", default=[],
                         help="root of another checkout to time beside this one")
     parser.add_argument("--variants", help="comma-separated variants to time (default: all)")
@@ -516,10 +391,8 @@ def main() -> int:
     with open(os.path.join(ROOT, rel)) as f:
         src = f.read()
     parents = [os.path.join(path, rel) for path in args.parent]
-    kernel = {"cluster": "mvn_cluster_kernel", "smem": ("mvn_smem_kernel", "mvn_warp_kernel"),
-              "panel": "mvn_wide_kernel"}[route]
-    diagnostic = {"cluster": CLUSTER_DIAGNOSTIC, "smem": DIAGNOSTIC,
-                  "panel": PANEL_DIAGNOSTIC}[route]
+    kernel = {"smem": ("mvn_smem_kernel", "mvn_warp_kernel"), "panel": "mvn_wide_kernel"}[route]
+    diagnostic = {"smem": DIAGNOSTIC, "panel": PANEL_DIAGNOSTIC}[route]
     with tempfile.TemporaryDirectory(prefix="mvn_variants_") as tmp:
         sources = variant_sources(src, parents, route)
         if args.variants:
@@ -548,9 +421,6 @@ def main() -> int:
                 y, cov = stitched(b)
                 cases.append((y[:, :n].contiguous(), cov[:, :n, :n].contiguous()))
                 del y, cov
-        elif route == "cluster":
-            stitched = cs.stitched_inputs(chain, dev, block_inputs)
-            cases = [stitched(cs.NWALKERS // 2)]
         else:
             cases = [block_inputs(cs.BLOCKS.index(n), b) for b in SMEM_BATCHES for n in SIZES]
             # the warp kernel past the warps the card holds (each warp takes
@@ -565,12 +435,7 @@ def main() -> int:
             plain = fm.fused_mvn_loglike_plain(y, cov)
             keep = torch.arange(b, device=dev) != b // 2
             runs = {name: launcher(libs[name][0], route, y, cov) for name in order}
-            if route == "smem" and n > CLUSTER_FROM:
-                # the committed cluster route forced at this n: a cluster of
-                # CTAs per matrix where one block per matrix leaves slots empty
-                runs["cluster_route"] = launcher(libs["kept"][0], "cluster", y, cov)
-                results.setdefault("cluster_route", {})
-            case_order = order + (["cluster_route"] if "cluster_route" in runs else [])
+            case_order = list(order)
             for name in list(case_order):
                 try:
                     got = runs[name]()
@@ -595,13 +460,13 @@ def main() -> int:
                         order.remove(name)
                     continue
                 results[name][f"err_{b}_{n}"] = rel_err
-            reps = {"cluster": 4, "smem": 20, "panel": 2 if b > 64 else 8}[route]
+            reps = {"smem": 20, "panel": 2 if b > 64 else 8}[route]
             for names in (case_order, case_order[::-1]):
                 for name in names:
                     ms = cs.graph_ms(runs[name], reps=reps)
                     results[name].setdefault(f"ms_{b}_{n}", []).append(ms)
-            if "phase_clock" in libs and (route != "smem" or n > fm.WARP_MAX_N):
-                print(phase_split(libs["phase_clock"][0], runs["phase_clock"], route), flush=True)
+            if "phase_clock" in libs and n > fm.WARP_MAX_N:
+                print(phase_split(libs["phase_clock"][0], runs["phase_clock"]), flush=True)
             for name in case_order:
                 t = results[name][f"ms_{b}_{n}"]
                 print(f"n = {n:3d} (b = {b}) {name:26s} {t[0]:.4f} / {t[1]:.4f} ms "
